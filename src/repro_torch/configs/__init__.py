@@ -1,0 +1,19 @@
+"""Architecture registry: ``get_config(arch_id)`` for the ported architectures."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ArchConfig
+
+_MODULES = {
+    "dlrm-mlperf": "dlrm_mlperf",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_config(arch_id: str, smoke: bool = False) -> ArchConfig:
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown or not yet ported arch {arch_id!r}; known: {list(_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    return mod.smoke() if smoke else mod.ARCH

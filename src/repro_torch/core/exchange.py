@@ -1,0 +1,171 @@
+"""Embedding exchange — dedupe, owner bucketing, owner merge and row routing
+(port of ``repro/core/exchange.py``), single device.
+
+Static budgets, as in the reference:
+  L  ids per device per step (padded input)
+  U  unique ids per device          (requester dedupe budget)
+  C  ids per destination device     (send-bucket capacity)
+  R  unique received ids per device (owner merge budget)
+Overflow at any stage routes to the overflow row and is counted.
+
+Three behaviours of the reference are spelled out here: ``unique`` with a
+size keeps the U smallest sorted uniques and pads with PAD while its inverse
+may point past U; out-of-range gathers clamp; ``.at[].set(mode="drop")``
+drops out-of-range writes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import blocks as blocks_lib
+from repro_torch.core import idmap as idmap_lib
+from repro_torch.core.feature_engine import splitmix64, to_signed, umod
+
+PAD = -1
+_OWNER_SALT = to_signed(0xA24BAED4963EE407)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExchangeSpec:
+    """Static budgets of one embedding dim-group's exchange."""
+
+    n_devices: int         # D
+    u_budget: int          # U
+    per_dest_cap: int      # C
+    recv_budget: int       # R  (≤ n_devices * C)
+
+    def __post_init__(self):
+        if self.recv_budget > self.n_devices * self.per_dest_cap:
+            raise ValueError("recv_budget must not exceed n_devices * per_dest_cap")
+
+
+class Plan(NamedTuple):
+    """Integer routing state retained from the forward pass (per device)."""
+
+    inv_u: torch.Tensor      # (L,)   value index   → unique index (may be ≥ U)
+    ok_val: torch.Tensor     # (L,)   value survived dedupe budget & not PAD
+    owner_u: torch.Tensor    # (U,)   unique index  → owner device (D for PAD)
+    pos_u: torch.Tensor      # (U,)   unique index  → slot within owner bucket
+    ok_u: torch.Tensor       # (U,)   unique id made it into the send buffer
+    inv_r: torch.Tensor      # (D*C,) request slot  → owner-unique index (may be ≥ R)
+    ok_r: torch.Tensor       # (D*C,) request slot survived owner merge (and not PAD)
+    offsets_r: torch.Tensor  # (R,)   owner-unique index → Blocks row
+    valid_r: torch.Tensor    # (R,)   owner-unique id is live (not fill)
+
+
+def _unique_sized(x: torch.Tensor, size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sorted uniques cut or PAD-filled to ``size``, and the int32 inverse
+    into the full sorted uniques (entries ≥ size where the budget cut)."""
+    uniq, inv = torch.unique(x, sorted=True, return_inverse=True)
+    if uniq.numel() >= size:
+        uniq = uniq[:size]
+    else:
+        uniq = torch.cat([uniq, uniq.new_full((size - uniq.numel(),), PAD)])
+    return uniq, inv.to(torch.int32)
+
+
+def _owner_of(ids: torch.Tensor, n_devices: int) -> torch.Tensor:
+    """Owner shard of an id, from a re-mix independent of the IDMap's slot
+    hash; PAD → n_devices."""
+    own = umod(splitmix64(ids.to(torch.int64) ^ _OWNER_SALT), n_devices).to(torch.int32)
+    return torch.where(ids == PAD, n_devices, own)
+
+
+def _count(mask: torch.Tensor) -> torch.Tensor:
+    return mask.sum(dtype=torch.int32)
+
+
+def build_send(ids: torch.Tensor, spec: ExchangeSpec) -> tuple[torch.Tensor, Plan, dict]:
+    """Requester side: dedupe and bucket by owner. Returns (send_ids[D, C], plan⁰, metrics)."""
+    D, U, C = spec.n_devices, spec.u_budget, spec.per_dest_cap
+    dev = ids.device
+    uniq, inv = _unique_sized(ids, U)
+    ok_val = (uniq[inv.clamp(max=U - 1)] == ids) & (ids != PAD)
+
+    owner = _owner_of(uniq, D)
+    sowner, order = torch.sort(owner, stable=True)
+    start = torch.searchsorted(sowner, torch.arange(D, dtype=sowner.dtype, device=dev))
+    pos_sorted = (torch.arange(U, dtype=torch.int32, device=dev)
+                  - start[sowner.clamp(0, D - 1)].to(torch.int32))
+    ok_sorted = (sowner < D) & (pos_sorted < C)
+    dst = torch.where(ok_sorted, sowner.long() * C + pos_sorted, D * C)
+    send = torch.full((D * C + 1,), PAD, dtype=torch.int64, device=dev)
+    send.index_put_((dst,), uniq[order])
+    send = send[: D * C].view(D, C)
+    # bucket coordinates back in unique order (order is a permutation)
+    owner_u = torch.empty_like(sowner).index_put_((order,), sowner)
+    pos_u = torch.empty_like(pos_sorted).index_put_((order,), pos_sorted)
+    ok_u = torch.empty_like(ok_sorted).index_put_((order,), ok_sorted)
+
+    R = spec.recv_budget
+    plan = Plan(
+        inv_u=inv, ok_val=ok_val, owner_u=owner_u, pos_u=pos_u, ok_u=ok_u,
+        inv_r=torch.zeros((D * C,), dtype=torch.int32, device=dev),
+        ok_r=torch.zeros((D * C,), dtype=torch.bool, device=dev),
+        offsets_r=torch.zeros((R,), dtype=torch.int32, device=dev),
+        valid_r=torch.zeros((R,), dtype=torch.bool, device=dev),
+    )
+    metrics = {
+        "exch_uniq_overflow": _count((ids != PAD) & ~ok_val),
+        "exch_send_overflow": _count((owner < D) & ~ok_u),
+    }
+    return send, plan, metrics
+
+
+def owner_merge(recv_ids: torch.Tensor, spec: ExchangeSpec) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, dict]:
+    """Owner side: merge and unique the D*C received ids."""
+    flat = recv_ids.reshape(-1)
+    R = spec.recv_budget
+    uniq_r, inv_r = _unique_sized(flat, R)
+    ok_r = (uniq_r[inv_r.clamp(max=R - 1)] == flat) & (flat != PAD)
+    return uniq_r, inv_r, ok_r, {"exch_recv_overflow": _count((flat != PAD) & ~ok_r)}
+
+
+def fetch(
+    m: idmap_lib.IDMap,
+    b: blocks_lib.Blocks,
+    ids: torch.Tensor,
+    spec: ExchangeSpec,
+    step: torch.Tensor,
+    train: bool,
+) -> tuple[idmap_lib.IDMap, blocks_lib.Blocks, torch.Tensor, Plan, dict]:
+    """Routing, IDMap probe and row gather.
+
+    Returns (idmap, blocks, rows_r [R, dim], plan, metrics); ``rows_r`` is
+    the compact per-owner-unique row matrix.
+    """
+    if spec.n_devices != 1:
+        raise NotImplementedError("the multi-rank all_to_all exchange is not ported yet")
+    if train:
+        raise NotImplementedError("the training branch of fetch (insert + init_rows) is not ported yet")
+    send, plan, met1 = build_send(ids, spec)
+    uniq_r, inv_r, ok_r, met2 = owner_merge(send, spec)  # one device: recv = send
+    offsets_r = idmap_lib.lookup(m, uniq_r)
+    # Ids on the overflow row (missing at serve time, or probe exhaustion)
+    # act as zero embeddings.
+    valid_r = (uniq_r != PAD) & (offsets_r != idmap_lib.OVERFLOW_ROW)
+    rows_r = blocks_lib.gather(b, offsets_r)
+    rows_r.mul_(valid_r[:, None])
+    plan = plan._replace(inv_r=inv_r, ok_r=ok_r, offsets_r=offsets_r, valid_r=valid_r)
+    return m, b, rows_r, plan, {**met1, **met2}
+
+
+def route_rows(rows_r: torch.Tensor, plan: Plan, spec: ExchangeSpec) -> torch.Tensor:
+    """Owner rows [R, dim] → per-value rows [L, dim]. Out-of-range plan
+    indices are clamped (the reference's gather semantics) and then zeroed
+    by their masks. Masks are applied in place to keep the transients single."""
+    D, C = spec.n_devices, spec.per_dest_cap
+    R, U = rows_r.shape[0], plan.owner_u.shape[0]
+    per_req = rows_r[plan.inv_r.clamp(max=R - 1)]
+    per_req.mul_(plan.ok_r[:, None])
+    back = per_req.view(D, C, rows_r.shape[-1])  # one device: back = per_req
+    uniq_rows = back[plan.owner_u.clamp(max=D - 1), plan.pos_u.clamp(max=C - 1)]
+    del per_req, back
+    uniq_rows.mul_(plan.ok_u[:, None])
+    vals = uniq_rows[plan.inv_u.clamp(max=U - 1)]
+    del uniq_rows
+    vals.mul_(plan.ok_val[:, None])
+    return vals

@@ -1,0 +1,114 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their build.
+
+Every kernel package has three files, as in the JAX package:
+  <name>.py  ctypes launcher of the CUDA kernel in ``repro_torch/csrc/``
+  ops.py     public wrapper: checks, output allocation, launch count; a CPU
+             tensor goes to the plain version instead
+  ref.py     the plain PyTorch version (CPU path, tests, on-card comparison)
+
+All ``csrc/*.cu`` sources build into one shared library with a plain C
+interface, at first use, into ``<checkout>/build/repro_torch/<hash>/``
+keyed by a hash of the sources. Each source compiles in its own ``nvcc``
+process, all started together, then one link. Nothing here runs at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC"]
+
+_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# C entry points: name → argtypes. Each returns cudaGetLastError() as int.
+_SIGNATURES = {
+    "repro_gather_rows": [_P, _P, _INT, _P, _I64, _I64, _I64, _P],
+    "repro_segment_sum_sorted": [_P, _P, _INT, _P, _I64, _I64, _I64, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    found = str(cand) if cand.exists() else shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+    return found
+
+
+def build() -> Path:
+    """Compile and link the kernels unless a build of these sources exists."""
+    out = BUILD_ROOT / _digest() / "libkernels.so"
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append((src.name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        _wait(procs)
+        lib = Path(tmp) / "libkernels.so"
+        _wait([("link", subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))])
+        os.replace(lib, out)  # atomic: a concurrent process never sees a partial file
+    return out
+
+
+def _wait(procs: list[tuple[str, subprocess.Popen]]) -> None:
+    """Wait for every compiler process; raise with the logs of those that failed."""
+    errors = []
+    for what, p in procs:
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"{what}:\n{log}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+
+
+def load_library() -> ctypes.CDLL:
+    """Build if needed and load the kernels' shared library (once per process)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch reported a CUDA error."""
+    if err != 0:
+        msg = lib.repro_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,18 @@
+"""Launcher of the CUDA row-gather kernel (``csrc/fused_gather.cu``), the
+port of ``repro/kernels/fused_gather/fused_gather.py::gather_rows_padded``."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import kernels
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor, out: torch.Tensor) -> None:
+    """Launch on the current stream: out[i] = table[ids[i]] (PAD and
+    out-of-range ids read row 0). Arguments are checked by ``ops``."""
+    lib = kernels.load_library()
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    err = lib.repro_gather_rows(
+        table.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64), out.data_ptr(),
+        table.shape[0], table.shape[1], ids.shape[0], stream)
+    kernels.check(lib, err, "fused_gather.gather_rows")

@@ -1,0 +1,29 @@
+"""Plain PyTorch version of segment reduce (the CPU path and the oracle)."""
+from __future__ import annotations
+
+import torch
+
+
+def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """values (N, D) × segment_ids (N,) → (num_segments, D); ids outside
+    [0, num_segments) are dropped (sent to a spare row that is cut off)."""
+    ok = (segment_ids >= 0) & (segment_ids < num_segments)
+    idx = torch.where(ok, segment_ids, num_segments).long()
+    out = values.new_zeros((num_segments + 1,) + values.shape[1:])
+    return out.index_add_(0, idx, values)[:num_segments]
+
+
+def segment_sum_csr(values: torch.Tensor, row_splits: torch.Tensor) -> torch.Tensor:
+    """values (N, D) × row_splits (n_rows + 1,) → (n_rows, D); row s sums
+    values[row_splits[s]:row_splits[s+1]], rows past row_splits[-1] are dropped."""
+    n_rows = row_splits.shape[0] - 1
+    pos = torch.arange(values.shape[0], dtype=row_splits.dtype, device=row_splits.device)
+    seg = torch.searchsorted(row_splits, pos, right=True) - 1
+    seg = torch.where(pos < row_splits[-1], seg, n_rows)
+    return segment_sum(values, seg, n_rows)
+
+
+def segment_mean(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    s = segment_sum(values, segment_ids, num_segments)
+    cnt = segment_sum(values.new_ones((values.shape[0], 1)), segment_ids, num_segments)
+    return s / cnt.clamp(min=1.0)

@@ -1,0 +1,21 @@
+"""Cell dispatcher (port of ``repro/launch/cells.py``): (arch-id,
+shape-name, device) → assembled Cell."""
+from __future__ import annotations
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeCell
+from repro_torch.launch.common import Cell, CellOptions
+
+
+def build_cell(arch_id: str, shape_name: str, opts: CellOptions = CellOptions(),
+               smoke: bool = False, shape_override: ShapeCell | None = None,
+               device=None) -> Cell:
+    """Runs on ``cuda`` unless ``device`` names another device; raises when
+    no card is present and no device was named."""
+    arch = get_config(arch_id, smoke=smoke)
+    shape = shape_override or arch.shape(shape_name)
+    if arch.family != "recsys":
+        raise NotImplementedError(f"the {arch.family} family is not ported yet")
+    from repro_torch.launch import recsys_cell
+
+    return recsys_cell.build(arch, shape, opts, device)

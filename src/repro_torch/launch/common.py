@@ -1,0 +1,44 @@
+"""Cell assembly plumbing (port of ``repro/launch/common.py``).
+
+A cell = (architecture × input shape × device) with a ready step function,
+a state initialiser and a batch maker.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, ShapeCell
+
+
+@dataclasses.dataclass(frozen=True)
+class CellOptions:
+    capacity_slack: float = 4.0   # exchange per-dest slack over U/D
+    recv_slack: float = 2.0       # owner recv-unique budget over U
+
+
+@dataclasses.dataclass
+class Cell:
+    arch: ArchConfig
+    shape: ShapeCell
+    device: torch.device
+    step_fn: Callable                   # serve: (state, batch) -> {"logits", metrics}
+    init_state: Callable[[], Any]
+    make_batch: Callable[..., Any]      # (seed, vocab=...) -> batch on device
+    ids_fn: Callable[[Any], Any]        # batch -> {feature: Ragged} engine input
+    engine: Any = None
+
+
+def round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def resolve_device(device=None) -> torch.device:
+    """The card unless the caller names a device; no silent CPU fallback."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")

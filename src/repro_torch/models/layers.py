@@ -1,0 +1,61 @@
+"""Dense-side building blocks (port of ``repro/models/layers.py``).
+
+Params live in fp32; ``Precision.compute_dtype`` is the type the dense
+compute runs in (bf16 under ``MIXED``). As in the reference, a dense layer
+casts its input, its weight and its bias to the compute type.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class Precision:
+    compute_dtype: torch.dtype = torch.bfloat16
+
+    def cast(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.compute_dtype)
+
+
+FP32 = Precision(compute_dtype=torch.float32)
+MIXED = Precision()
+
+
+def dense_init_(layer: nn.Linear, gen: torch.Generator) -> None:
+    """weight ~ U(-1/sqrt(d_in), 1/sqrt(d_in)), bias = 0, drawn on the CPU
+    from ``gen`` so every device gets the same numbers from one seed."""
+    d_out, d_in = layer.weight.shape
+    s = 1.0 / np.sqrt(d_in)
+    w = torch.empty((d_out, d_in), dtype=torch.float32).uniform_(-s, s, generator=gen)
+    with torch.no_grad():
+        layer.weight.copy_(w)
+        layer.bias.zero_()
+
+
+def dense_apply(layer: nn.Linear, x: torch.Tensor, prec: Precision = MIXED) -> torch.Tensor:
+    return F.linear(prec.cast(x), prec.cast(layer.weight), prec.cast(layer.bias))
+
+
+class MLP(nn.Module):
+    """dims = (d_in, h1, ..., d_out), layers ``l0``, ``l1``, ...; ReLU
+    between layers (and after the last when ``final_act``)."""
+
+    def __init__(self, dims: tuple[int, ...], gen: torch.Generator, device=None):
+        super().__init__()
+        self.n_layers = len(dims) - 1
+        for i in range(self.n_layers):
+            layer = nn.Linear(dims[i], dims[i + 1], device=device)
+            dense_init_(layer, gen)
+            self.add_module(f"l{i}", layer)
+
+    def forward(self, x: torch.Tensor, prec: Precision = MIXED, final_act: bool = False) -> torch.Tensor:
+        for i in range(self.n_layers):
+            x = dense_apply(getattr(self, f"l{i}"), x, prec)
+            if i < self.n_layers - 1 or final_act:
+                x = F.relu(x)
+        return x
