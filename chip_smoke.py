@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The PyTorch port serving dlrm-mlperf on one NVIDIA card, through its own
-CUDA kernels.
+"""The PyTorch port serving and training dlrm-mlperf on one NVIDIA card,
+through its own CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -9,18 +9,25 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
   1. device   — the card, its power limit, the kernel build time;
   2. kernels  — each CUDA kernel against its plain PyTorch version on random
                 inputs (PAD and out-of-range ids, unsorted and empty
-                segments, D not a multiple of 4, unaligned pointers);
-  3. smoke    — the smoke-size serve cell on the card against the same cell
-                on the CPU: same rows, params and batches;
+                segments, invalid scatter slots, D not a multiple of 4,
+                unaligned pointers, views of stacked tables);
+  3. smoke    — the smoke-size serve cell, then three steps of the smoke
+                train cell, on the card against the same cells on the CPU:
+                same rows, params and batches;
   4. serve    — full-width dlrm-mlperf (vocab cut to 250,000 per feature):
                 6.5 M rows imported, 20 serve_p99 requests (batch 512) and
-                one serve_bulk request (batch 262,144), with the kernels'
-                launch counts over that run, then torch.profiler traces of
+                two serve_bulk requests (batch 262,144: the first at that
+                size, then a warm one), with the kernels' launch counts
+                over that run, then torch.profiler traces of
                 five serve_p99 requests and one serve_bulk request (device
                 busy time, idle share, device operations per request);
+     train    — full-width train_batch (batch 65,536) from a fresh state:
+                3 warm-up and 10 timed steps with the kernels' launch counts
+                over the 13, state checks, a torch.profiler trace of three
+                steps, and ten steps on one repeated batch (the loss falls);
   5. a ``{"kernels": [...]}`` line: each kernel on the exact inputs the
-     serve path fed it, against its plain version, timed beside the plain
-     version, one PyTorch library call and the card's bound.
+     serve and train paths fed it, against its plain version, timed beside
+     the plain version, one PyTorch library call and the card's bound.
 
 Every check raises on failure, so the script exits non-zero. It prints one
 JSON object per line; the last is ``{"ok": true, "device": {...}}``.
@@ -43,7 +50,13 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 VOCAB = 250_000             # per feature; the published 4,000,000 needs 240 GB
 N_P99_REQUESTS, N_WARMUP = 20, 3
-MIXED_TOL = dict(rtol=2e-2, atol=2e-2)  # bf16 logits, card against CPU
+N_TRAIN_WARMUP, N_TRAIN_STEPS, N_REPEAT = 3, 10, 10
+MIXED_TOL = dict(rtol=2e-2, atol=2e-2)  # bf16 logits and loss, card against CPU
+# Train state, card against CPU after 3 smoke steps (bf16 dense compute; the
+# reasons are in tests/test_torch_train.py): rows and params within
+# 2 * lr * steps, the rows' moments within 5e-2 of their largest magnitude.
+TRAIN_PARAM_ATOL = 2 * 1e-3 * 3
+TRAIN_MOMENT_FRAC = 5e-2
 
 
 def emit(obj) -> None:
@@ -82,7 +95,9 @@ def main() -> None:
     from repro_torch.configs.base import ShapeCell
     from repro_torch.core.feature_engine import FeatureEngine
     from repro_torch.io.ragged import Ragged
+    from repro_torch.core import idmap as idmap_lib
     from repro_torch.kernels.fused_gather import ops as fg_ops, ref as fg_ref
+    from repro_torch.kernels.fused_scatter import ops as fs_ops, ref as fs_ref
     from repro_torch.kernels.segment_reduce import ops as sr_ops, ref as sr_ref
     from repro_torch.launch import recsys_cell
     from repro_torch.launch.cells import build_cell
@@ -157,9 +172,56 @@ def main() -> None:
                       "splits": str(sdt), "unaligned": misalign, "max_abs_err": err})
         check(torch.allclose(got.cpu(), want, rtol=1e-5, atol=1e-5),
               f"segment_sum_csr disagrees at {cases[-1]}")
+    for R, D, K, idt, misalign, with_valid in [(100_000, 128, 30_000, torch.int32, False, True),
+                                               (5_000, 13, 1_000, torch.int64, False, True),
+                                               (4_000, 128, 3_000, torch.int64, True, True),
+                                               (2_000, 64, 500, torch.int32, False, False),
+                                               (50, 8, 0, torch.int32, False, True)]:
+        for op in ("add", "set"):
+            stacked = torch.from_numpy(rng.normal(size=(2, R, D)).astype(np.float32)).to(dev)
+            ids = torch.from_numpy(rng.permutation(R + 4)[:K] - 2).to(idt).to(dev)  # unique, some out of range
+            valid = torch.from_numpy(rng.random(K) < 0.7).to(dev)
+            ids = torch.where(ids == 0, -1, ids)  # no live slot on row 0 ...
+            if with_valid:  # ... only invalid ones, which must leave it as it is
+                ids[: K // 10] = torch.where(valid[: K // 10], ids[: K // 10], 0)
+            rows = torch.from_numpy(rng.normal(size=(K, D)).astype(np.float32)).to(dev)
+            rows = unaligned(rows) if misalign else rows
+            v = valid if with_valid else None
+            want = stacked[1].clone()
+            (fs_ref.scatter_add_rows if op == "add" else fs_ref.scatter_set_rows)(want, ids, rows, v)
+            before = (fs_ops.LAUNCHES_ADD, fs_ops.LAUNCHES_SET)
+            other = stacked[0].clone()
+            (fs_ops.scatter_add_rows if op == "add" else fs_ops.scatter_set_rows)(stacked[1], ids, rows, v)
+            torch.cuda.synchronize()
+            launched = (fs_ops.LAUNCHES_ADD, fs_ops.LAUNCHES_SET) != before
+            cases.append({"kernel": f"scatter_{op}_rows", "R": R, "D": D, "K": K, "ids": str(idt),
+                          "valid": with_valid, "unaligned_rows": misalign, "launched": launched,
+                          "bit_equal": bool(torch.equal(stacked[1], want))})
+            check(torch.equal(stacked[1], want) and torch.equal(stacked[0], other),
+                  f"scatter disagrees at {cases[-1]}")
+            check(launched == (K > 0), f"scatter launch count at {cases[-1]}")
+    for n_rows, D, budget, sdt, stride in [(512, 128, 512, torch.int32, 128), (300, 128, 1_000, torch.int64, 128),
+                                           (200, 13, 700, torch.int32, 13), (65_536, 128, 65_536, torch.int32, 26 * 128),
+                                           (400, 64, 1_500, torch.int64, 3 * 64)]:
+        lengths = rng.integers(0, 4, size=n_rows)
+        lengths[::5] = 0  # empty rows
+        splits = np.minimum(np.concatenate([[0], np.cumsum(lengths)]), budget)  # padding tail
+        wide = torch.from_numpy(rng.normal(size=(n_rows, stride)).astype(np.float32)).to(dev)
+        g = wide[:, stride - D:]  # a column block of a wider gradient, as the model's stack gives
+        sp = torch.from_numpy(splits).to(sdt).to(dev)
+        before = sr_ops.LAUNCHES_BWD
+        got = sr_ops.segment_expand_csr(g, sp, budget)
+        torch.cuda.synchronize()
+        want = sr_ref.segment_expand_csr(g.cpu(), sp.cpu(), budget)
+        cases.append({"kernel": "segment_expand_csr", "n_rows": n_rows, "D": D, "N": budget,
+                      "splits": str(sdt), "g_row_stride": stride, "bit_equal": bool(torch.equal(got.cpu(), want))})
+        check(torch.equal(got.cpu(), want), f"segment_expand_csr disagrees at {cases[-1]}")
+        check(sr_ops.LAUNCHES_BWD == before + 1, "segment_expand_csr did not launch")
     emit({"phase": "kernels_vs_plain", "cases": cases, "tolerance": {
         "gather_rows": "bit-equal", "segment_sum": "rtol=atol=1e-5 (summation order)",
-        "segment_sum_csr": "rtol=atol=1e-5 (summation order)"}})
+        "segment_sum_csr": "rtol=atol=1e-5 (summation order)",
+        "scatter_add_rows": "bit-equal", "scatter_set_rows": "bit-equal",
+        "segment_expand_csr": "bit-equal (a copy)"}})
 
     # ----------------------------------------------- 3 smoke serve, card vs CPU
     shape = ShapeCell("serve_p99", "serve", {"batch": 32})
@@ -192,6 +254,51 @@ def main() -> None:
     emit({"phase": "smoke_serve_card_vs_cpu", "batch": 32, "requests": len(seeds),
           "metrics": met["cuda"], "max_abs_logit_diff": max_diff, "tolerance": MIXED_TOL})
     del smoke, states
+
+    # ----------------------------------------------- 3 smoke train, card vs CPU
+    tshape = ShapeCell("train_batch", "train", {"batch": 32})
+    tsmoke = {d: build_cell("dlrm-mlperf", "train_batch", smoke=True, shape_override=tshape, device=d)
+              for d in ("cpu", "cuda")}
+    rows["dim16"]["slots"] = {"m": rng.normal(scale=1e-3, size=(n, 16)).astype(np.float32),
+                              "v": rng.random(size=(n, 16)).astype(np.float32) * 1e-5}
+    states = {}
+    for d, cell in tsmoke.items():
+        st = cell.init_state()
+        st["sparse"] = cell.engine.import_rows(rows)
+        states[d] = st
+    states["cuda"]["dense"].load_state_dict(states["cpu"]["dense"].state_dict())
+    losses = []
+    for s in seeds:  # the ids left out of the import are inserted on the way
+        outs = {}
+        for d, cell in tsmoke.items():
+            states[d], outs[d] = cell.step_fn(states[d], cell.make_batch(s))
+        met = {d: {k: int(v) for k, v in o.items() if k != "loss"} for d, o in outs.items()}
+        check(met["cuda"] == met["cpu"], f"smoke train metrics differ: {met}")
+        lc, lg = float(outs["cpu"]["loss"]), float(outs["cuda"]["loss"])
+        check(np.isfinite(lg) and abs(lg - lc) <= MIXED_TOL["atol"] + MIXED_TOL["rtol"] * abs(lc),
+              f"smoke train loss {lg} on the card, {lc} on the CPU")
+        losses.append({"cpu": lc, "cuda": lg})
+    for f in idmap_lib.TENSOR_FIELDS:
+        got, want = (getattr(states[d]["sparse"]["dim16"]["idmap"], f).cpu() for d in ("cuda", "cpu"))
+        check(torch.equal(got, want), f"smoke train IDMap field {f} differs")
+    exp = {d: tsmoke[d].engine.export_rows(states[d]["sparse"])["dim16"] for d in states}
+    for k in ("ids", "last_use"):
+        check(np.array_equal(exp["cuda"][k], exp["cpu"][k]), f"smoke train export {k} differs")
+    diffs = {"emb": float(np.abs(exp["cuda"]["emb"] - exp["cpu"]["emb"]).max())}
+    check(diffs["emb"] <= TRAIN_PARAM_ATOL, f"smoke train rows differ by {diffs['emb']}")
+    for k in ("m", "v"):
+        got, want = exp["cuda"]["slots"][k], exp["cpu"]["slots"][k]
+        diffs[k] = float(np.abs(got - want).max())
+        check(diffs[k] <= TRAIN_MOMENT_FRAC * np.abs(want).max(), f"smoke train {k} differs by {diffs[k]}")
+    dense = {d: states[d]["dense"].state_dict() for d in states}
+    diffs["dense"] = max(float((dense["cuda"][k].cpu() - v).abs().max()) for k, v in dense["cpu"].items())
+    check(diffs["dense"] <= TRAIN_PARAM_ATOL, f"smoke train dense params differ by {diffs['dense']}")
+    emit({"phase": "smoke_train_card_vs_cpu", "batch": 32, "steps": len(seeds), "loss": losses,
+          "metrics": met["cuda"], "idmap_equal": True, "export_ids_equal": True,
+          "max_abs_diff": diffs, "tolerance": {
+              "loss": MIXED_TOL, "emb_and_dense_atol": TRAIN_PARAM_ATOL,
+              "moments": f"{TRAIN_MOMENT_FRAC} of the largest magnitude"}})
+    del tsmoke, states, exp, dense
 
     # ------------------------------------------------------ 4 full-width serve
     arch = dataclasses.replace(dlrm_mlperf.ARCH, model=dataclasses.replace(
@@ -232,26 +339,45 @@ def main() -> None:
     recorded: dict = {}
     phase = {"name": None}
 
-    def recorder(mod, fn_name):
+    def keep(a, whole: bool):
+        """A copy with the same strides; tables over 2^28 elements are kept
+        as they are unless ``whole`` (the scatter writes into its table)."""
+        if not torch.is_tensor(a) or (a.numel() >= (1 << 28) and not whole):
+            return a
+        return torch.empty_strided(a.shape, a.stride(), dtype=a.dtype, device=a.device).copy_(a.detach())
+
+    def recorder(mod, fn_name, whole: bool = False):
         fn = getattr(mod, fn_name)
 
         def wrapper(*args, **kw):
             key = (fn_name, phase["name"])
             if phase["name"] and key not in recorded:
-                recorded[key] = ([a.clone() if torch.is_tensor(a) and a.numel() < (1 << 28) else a
-                                  for a in args], kw)
+                recorded[key] = ([keep(a, whole) for a in args], kw)
             return fn(*args, **kw)
         setattr(mod, fn_name, wrapper)
         return fn
 
-    real_gather = recorder(fg_ops, "gather_rows")
-    real_segsum = recorder(sr_ops, "segment_sum_csr")
+    real = {"gather_rows": recorder(fg_ops, "gather_rows"),
+            "segment_sum_csr": recorder(sr_ops, "segment_sum_csr"),
+            "segment_expand_csr": recorder(sr_ops, "segment_expand_csr"),
+            "scatter_add_rows": recorder(fs_ops, "scatter_add_rows", whole=True),
+            "scatter_set_rows": recorder(fs_ops, "scatter_set_rows", whole=True)}
+
+    def counts() -> dict:
+        return {"fused_gather.gather_rows": fg_ops.LAUNCHES,
+                "segment_reduce.segment_sum": sr_ops.LAUNCHES,
+                "segment_reduce.segment_expand_csr": sr_ops.LAUNCHES_BWD,
+                "fused_scatter.scatter_add_rows": fs_ops.LAUNCHES_ADD,
+                "fused_scatter.scatter_set_rows": fs_ops.LAUNCHES_SET}
+
+    def reset_counts() -> None:
+        fg_ops.LAUNCHES = sr_ops.LAUNCHES = sr_ops.LAUNCHES_BWD = 0
+        fs_ops.LAUNCHES_ADD = fs_ops.LAUNCHES_SET = 0
 
     batches = {s: p99.make_batch(s, vocab=VOCAB) for s in range(N_WARMUP + N_P99_REQUESTS)}
     bulk_batch = bulk.make_batch(10_000, vocab=VOCAB)
     torch.cuda.synchronize()
-    fg_ops.LAUNCHES = 0
-    sr_ops.LAUNCHES = 0
+    reset_counts()
     lat_ms, outs = [], []
     for s in range(N_WARMUP + N_P99_REQUESTS):
         phase["name"] = "serve_p99" if s >= N_WARMUP else None
@@ -265,22 +391,22 @@ def main() -> None:
             outs.append(out)
     phase["name"] = "serve_bulk"
     torch.cuda.reset_peak_memory_stats()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    bulk_out = bulk.step_fn(state, bulk_batch)
-    end.record()
-    end.synchronize()
-    bulk_ms = start.elapsed_time(end)
+    bulk_ms = []  # the first request at this size pays one-time costs; the second is warm
+    for _ in range(2):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        bulk_out = bulk.step_fn(state, bulk_batch)
+        end.record()
+        end.synchronize()
+        bulk_ms.append(start.elapsed_time(end))
+        phase["name"] = None
     peak_bytes = torch.cuda.max_memory_allocated()
-    phase["name"] = None
-    launches = {"fused_gather.gather_rows": fg_ops.LAUNCHES,
-                "segment_reduce.segment_sum": sr_ops.LAUNCHES}
-    fg_ops.gather_rows, sr_ops.segment_sum_csr = real_gather, real_segsum
-    n_req = N_WARMUP + N_P99_REQUESTS + 1
+    launches = counts()
+    n_req = N_WARMUP + N_P99_REQUESTS + 2
     check(launches["fused_gather.gather_rows"] == n_req, f"gather launches {launches}")
     check(launches["segment_reduce.segment_sum"] == n_req * mcfg.n_sparse, f"segment_sum launches {launches}")
 
-    for out, batch_size in [(o, 512) for o in outs] + [(bulk_out, 262_144)]:
+    for out, batch_size in [(o, p99.shape["batch"]) for o in outs] + [(bulk_out, bulk.shape["batch"])]:
         logits = out["logits"]
         check(logits.shape == (batch_size,) and bool(torch.isfinite(logits).all()), "logits")
         met = {k: int(v) for k, v in out.items() if k != "logits"}
@@ -309,103 +435,269 @@ def main() -> None:
           "rows_loaded": n_rows, "rows_per_shard": g.rows_per_shard,
           "map_capacity": g.map_capacity_per_shard, "import_s": import_s,
           "state_bytes": state_bytes,
-          "serve_p99": {"batch": 512, "requests": N_P99_REQUESTS, "warmup": N_WARMUP,
+          "serve_p99": {"batch": p99.shape["batch"], "requests": N_P99_REQUESTS, "warmup": N_WARMUP,
                         "latency_ms_p50": float(np.percentile(lat, 50)),
                         "latency_ms_p99": float(np.percentile(lat, 99)),
                         "latency_ms_mean": float(lat.mean()), "latency_ms": lat_ms,
                         "unique_ids_found": n_found[:-1]},
-          "serve_bulk": {"batch": 262_144, "ms": bulk_ms, "unique_ids_found": n_found[-1],
+          "serve_bulk": {"batch": bulk.shape["batch"], "ms": bulk_ms[0], "ms_warm": bulk_ms[1],
+                         "unique_ids_found": n_found[-1],
                          "max_memory_allocated_bytes": peak_bytes},
           "launches": launches, "launches_per_request": {
               k: v / n_req for k, v in launches.items()}})
     del outs, bulk_out
-    emit(profile_requests("serve_p99", p99, state,
+    emit(profile_requests("serve_p99", lambda b: p99.step_fn(state, b),
                           [batches[s] for s in range(N_WARMUP, N_WARMUP + 5)]))
-    emit(profile_requests("serve_bulk", bulk, state, [bulk_batch]))
-    del batches, bulk_batch
+    emit(profile_requests("serve_bulk", lambda b: bulk.step_fn(state, b), [bulk_batch]))
+    del batches, bulk_batch, state
     torch.cuda.empty_cache()
 
-    # ------------------------------------------ 5 kernels on the serve inputs
-    src = {"gather_rows": ("fused_gather", "gather_rows",
-                           "src/repro/kernels/fused_gather/fused_gather.py:34"),
-           "segment_sum_csr": ("segment_reduce", "segment_sum",
-                               "src/repro/kernels/segment_reduce/segment_reduce.py:87")}
+    # ------------------------------------------------------ 4 full-width train
+    train = recsys_cell.build(arch, arch.shape("train_batch"), device=dev)
+    B = train.shape["batch"]
+    n_steps = N_TRAIN_WARMUP + N_TRAIN_STEPS
+    tbatches = [train.make_batch(20_000 + s, vocab=VOCAB) for s in range(n_steps + 3 + 1)]
+    # the distinct engine ids of each batch, and of all batches up to it
+    # (what dev_rows_live must count after that step)
+    step_ids, expect_live = [], []
+    seen = torch.empty(0, dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        for b in tbatches[:n_steps]:
+            eng = train.engine.engine_ids(train.ids_fn(b))["dim128"]
+            step_ids.append(torch.unique(eng[eng != -1]))
+            seen = torch.unique(torch.cat([seen, step_ids[-1]]))
+            expect_live.append(seen.numel())
+    tstate = train.init_state()
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()  # the state and what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_ms, losses, inserted, rows_check = [], [], [], None
+    for s in range(n_steps):
+        probe = s == N_TRAIN_WARMUP - 1  # the last warm-up step: row checks, kernel inputs
+        if probe:
+            sample = _row_sample(tstate, step_ids[s], torch.unique(torch.cat(step_ids[:s])), idmap_lib)
+        phase["name"] = "train" if probe else None
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        tstate, out = train.step_fn(tstate, tbatches[s])
+        end.record()
+        end.synchronize()
+        phase["name"] = None
+        if s >= N_TRAIN_WARMUP:
+            step_ms.append(start.elapsed_time(end))
+        met = {k: int(v) for k, v in out.items() if k != "loss"}
+        losses.append(float(out["loss"]))
+        inserted.append(met["dim128/idmap_inserted"])
+        check(all(v == 0 for k, v in met.items() if "overflow" in k), f"train overflow at step {s + 1}: {met}")
+        check(np.isfinite(losses[-1]), f"train loss {losses[-1]} at step {s + 1}")
+        check(met["dim128/dev_rows_live"] == expect_live[s],
+              f"step {s + 1}: {met['dim128/dev_rows_live']} rows live, {expect_live[s]} ids seen")
+        if s == N_TRAIN_WARMUP - 2:  # steps 1-2: before the probe step's recorded copies
+            train_peak = torch.cuda.max_memory_allocated()
+        if probe:
+            rows_check = _rows_moved(tstate, sample, idmap_lib)
+            del sample
+    train_launches = counts()
+    check(inserted[0] > 0, "step 1 inserted nothing")
+    check(all(v > 0 for v in train_launches.values()), f"a kernel of the train path never ran: {train_launches}")
+    check(train_launches["fused_gather.gather_rows"] == 4 * n_steps
+          and train_launches["fused_scatter.scatter_add_rows"] == 3 * n_steps
+          and train_launches["segment_reduce.segment_sum"] == mcfg.n_sparse * n_steps
+          and train_launches["segment_reduce.segment_expand_csr"] == mcfg.n_sparse * n_steps,
+          f"train launches {train_launches}")
+    tstate_bytes = sum(t.numel() * t.element_size() for t in _tensors(tstate["sparse"]))
+
+    def run_step(b):
+        nonlocal tstate
+        tstate, _ = train.step_fn(tstate, b)
+
+    emit(profile_requests("train_batch", run_step, tbatches[n_steps:n_steps + 3]))
+    repeat = []
+    for _ in range(N_REPEAT):  # one batch again and again: the loss must fall
+        tstate, out = train.step_fn(tstate, tbatches[-1])
+        repeat.append(float(out["loss"]))
+    check(all(np.isfinite(repeat)) and repeat[-1] < repeat[0], f"loss on one repeated batch: {repeat}")
+    st = np.array(step_ms)
+    emit({"phase": "full_train", "arch": arch.arch_id, "batch": B, "widths": {
+              "n_dense": mcfg.n_dense, "n_sparse": mcfg.n_sparse, "embed_dim": mcfg.embed_dim,
+              "bot_mlp": mcfg.bot_mlp, "top_mlp": mcfg.top_mlp},
+          "reduced": {"vocab_per_feature": [4_000_000, VOCAB], "devices": [256, 1]},
+          "warmup": N_TRAIN_WARMUP, "steps": N_TRAIN_STEPS,
+          "step_ms_p50": float(np.percentile(st, 50)), "step_ms_p99": float(np.percentile(st, 99)),
+          "step_ms_mean": float(st.mean()), "step_ms": step_ms,
+          "loss": losses, "idmap_inserted": inserted, "rows_live": expect_live,
+          "rows_checked_at_step": N_TRAIN_WARMUP, **rows_check,
+          "loss_on_one_repeated_batch": repeat,
+          "max_memory_allocated_bytes_steps_1_2": train_peak, "allocated_before_bytes": base_bytes,
+          "step_transient_bytes": train_peak - base_bytes, "state_bytes": tstate_bytes,
+          "launches": train_launches,
+          "launches_per_step": {k: v / n_steps for k, v in train_launches.items()}})
+    for fn_name, fn in real.items():  # the wrappers record no more
+        setattr(fg_ops if fn_name == "gather_rows" else fs_ops if fn_name.startswith("scatter") else sr_ops,
+                fn_name, fn)
+    del tstate, tbatches, train, step_ids, seen
+    torch.cuda.empty_cache()
+
+    # ------------------------------- 5 kernels on the serve and train inputs
+    kernels_on_path = [  # (entry, wrapper, source, TPU kernel replaced, plain, paths, library call)
+        ("fused_gather.gather_rows", "gather_rows", "fused_gather.cu",
+         "src/repro/kernels/fused_gather/fused_gather.py:34", fg_ref.gather_rows,
+         ("serve_p99", "serve_bulk", "train"), "torch.index_select"),
+        ("segment_reduce.segment_sum", "segment_sum_csr", "segment_reduce.cu",
+         "src/repro/kernels/segment_reduce/segment_reduce.py:87", sr_ref.segment_sum_csr,
+         ("serve_p99", "serve_bulk", "train"), "zeros.index_add_"),
+        ("segment_reduce.segment_expand_csr", "segment_expand_csr", "segment_reduce.cu",
+         "src/repro/kernels/segment_reduce/ops.py:77", sr_ref.segment_expand_csr,
+         ("train",), "torch.index_select (g[seg])"),
+        ("fused_scatter.scatter_add_rows", "scatter_add_rows", "fused_scatter.cu",
+         "src/repro/kernels/fused_scatter/fused_scatter.py:43", fs_ref.scatter_add_rows,
+         ("train",), "index_add_"),
+        ("fused_scatter.scatter_set_rows", "scatter_set_rows", "fused_scatter.cu",
+         "src/repro/kernels/fused_scatter/fused_scatter.py:43", fs_ref.scatter_set_rows,
+         ("train",), "index_copy_"),
+    ]
     entries = []
-    for kname, real, plain in [("gather_rows", real_gather, fg_ref.gather_rows),
-                               ("segment_sum_csr", real_segsum, sr_ref.segment_sum_csr)]:
+    for full, kname, src_file, replaces, plain, paths, lib_call in kernels_on_path:
         at = {}
-        for cell_name in ("serve_p99", "serve_bulk"):
-            args, kw = recorded[(kname, cell_name)]
-            got = real(*args, **kw)
-            want = plain(*args)
-            torch.cuda.synchronize()
-            if kname == "gather_rows":  # bit-equal, no difference tensor at 7 GB
-                ok = torch.equal(got, want)
-                err = 0.0 if ok else float("inf")
-            else:
-                ok = torch.allclose(got, want, rtol=1e-5, atol=1e-5)
-                err = float((got - want).abs().max()) if got.numel() else 0.0
-            check(ok, f"{kname} disagrees with its plain version on the {cell_name} inputs")
-            del got, want
-            iters = 200 if cell_name == "serve_p99" else 5
-            if kname == "gather_rows":
-                tab, ids = args
-                K, D = ids.numel(), tab.shape[1]
-                idx = torch.where((ids >= 0) & (ids < tab.shape[0]), ids, 0).long()
-                n_bytes = (torch.unique(idx).numel() + K) * D * 4 + K * ids.element_size()
-                shape = {"R": tab.shape[0], "D": D, "K": K}
-                lib_ms = time_ms(lambda: torch.index_select(tab, 0, idx), iters)
-                n_ops = 0.0
-            else:
-                vals, splits = args
-                N, D = vals.shape
-                S, live = splits.numel() - 1, int(splits[-1])
-                pos = torch.arange(N, dtype=splits.dtype, device=dev)
-                idx = torch.where(pos < live, torch.searchsorted(splits, pos, right=True) - 1, S)
-                n_bytes = (live * D + S * D) * 4 + (S + 1) * splits.element_size()
-                n_ops = float(live * D)
-                shape = {"N": N, "live_rows": live, "D": D, "S": S}
-                lib_ms = time_ms(lambda: torch.zeros((S + 1, D), device=dev).index_add_(0, idx, vals),
-                                 iters)
-            k_ms = time_ms(lambda: real(*args, **kw), iters)
-            p_ms = time_ms(lambda: plain(*args), iters)
-            b_ms, b_by = bound_ms(n_bytes, n_ops)
-            at[cell_name] = {"shape": shape, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-                             "bytes": n_bytes}
-            del args, idx
+        for path in paths:
+            args, kw = recorded.pop((kname, path))
+            at[path] = _measure(kname, real[kname], plain, args, kw, 200 if path == "serve_p99" else 5, dev)
+            del args
             torch.cuda.empty_cache()
-        main = at["serve_p99"]
-        pkg, kernel, replaces = src[kname]
-        full = f"{pkg}.{kernel}"
+        main_path = at[paths[0]]
+        by_path = {"serve": launches[full], "train": train_launches[full]}
         entries.append({
-            "name": full, "route": "cuda", "source": f"src/repro_torch/csrc/{pkg}.cu",
-            "replaces": replaces, "ok": True, "launches": launches[full],
+            "name": full, "route": "cuda", "source": f"src/repro_torch/csrc/{src_file}",
+            "replaces": replaces, "ok": True, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "main_path": paths[0],
             "max_abs_err": max(a["max_abs_err"] for a in at.values()),
             "max_err": max(a["max_abs_err"] for a in at.values()),
-            "ms": main["ms"], "kernel_ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"],
-            "library_call": "torch.index_select" if kname == "gather_rows" else "zeros.index_add_",
-            "at": at})
+            "ms": main_path["ms"], "kernel_ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
+            "bound_ms": main_path["bound_ms"], "bound_by": main_path["bound_by"],
+            "library_ms": main_path["library_ms"], "library_call": lib_call, "at": at})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
 
 
-def profile_requests(cell_name: str, cell, state, batches) -> dict:
-    """Where a request's time goes: wall time (host clock, synced)
-    against the union of the card's kernel intervals in a torch.profiler
-    trace, the kernel count, and the kernels that take the most device time.
-    Device numbers are null when the trace holds no device events."""
+def _measure(kname: str, real, plain, args: list, kw: dict, iters: int, dev) -> dict:
+    """One kernel on one recorded input: checked against its plain version
+    (bit-equal, or rtol = atol = 1e-5 for the sum), then timed beside the
+    plain version and one PyTorch library call, with the card's bound."""
+    n_ops = 0.0
+    if kname.startswith("scatter"):  # in place: kernel and plain version on copies
+        table, ids, rows = args[:3]
+        valid = args[3] if len(args) > 3 else None
+        mine, ref_copy = table.clone(), table.clone()
+        real(mine, ids, rows, valid)
+        plain(ref_copy, ids, rows, valid)
+        torch.cuda.synchronize()
+        ok, err = torch.equal(mine, ref_copy), 0.0
+        del ref_copy
+        live = (ids >= 0) & (ids < table.shape[0])
+        live = live if valid is None else live & valid
+        K, D, n_live = ids.numel(), table.shape[1], int(live.sum())
+        idx, live_rows = ids[live].long(), rows[live]
+        add = kname == "scatter_add_rows"
+        n_bytes = n_live * D * 4 * (3 if add else 2) + K * (ids.element_size() + (valid is not None))
+        n_ops = float(n_live * D) if add else 0.0
+        shape = {"R": table.shape[0], "D": D, "K": K, "live_slots": n_live}
+        lib = (lambda: mine.index_add_(0, idx, live_rows)) if add else (lambda: mine.index_copy_(0, idx, live_rows))
+        run_kernel = lambda: real(mine, ids, rows, valid)
+        run_plain = lambda: plain(mine, ids, rows, valid)
+    else:
+        got, want = real(*args, **kw), plain(*args)
+        torch.cuda.synchronize()
+        if kname == "segment_sum_csr":
+            ok = torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+            err = float((got - want).abs().max()) if got.numel() else 0.0
+        else:  # copies: bit-equal, no difference tensor at these sizes
+            ok = torch.equal(got, want)
+            err = 0.0 if ok else float("inf")
+        del got, want
+        run_kernel, run_plain = (lambda: real(*args, **kw)), (lambda: plain(*args))
+        if kname == "gather_rows":
+            tab, ids = args
+            K, D = ids.numel(), tab.shape[1]
+            idx = torch.where((ids >= 0) & (ids < tab.shape[0]), ids, 0).long()
+            n_bytes = (torch.unique(idx).numel() + K) * D * 4 + K * ids.element_size()
+            shape = {"R": tab.shape[0], "D": D, "K": K}
+            lib = lambda: torch.index_select(tab, 0, idx)
+        elif kname == "segment_sum_csr":
+            vals, splits = args
+            N, D = vals.shape
+            S, live = splits.numel() - 1, int(splits[-1])
+            pos = torch.arange(N, dtype=splits.dtype, device=dev)
+            idx = torch.where(pos < live, torch.searchsorted(splits, pos, right=True) - 1, S)
+            n_bytes = (live * D + S * D) * 4 + (S + 1) * splits.element_size()
+            n_ops = float(live * D)
+            shape = {"N": N, "live_rows": live, "D": D, "S": S}
+            lib = lambda: torch.zeros((S + 1, D), device=dev).index_add_(0, idx, vals)
+        else:  # segment_expand_csr: g (S, D) rows → n value rows
+            g, splits, n = args
+            S, D = g.shape
+            pos = torch.arange(n, dtype=splits.dtype, device=dev)
+            inside = (pos >= splits[0]) & (pos < splits[-1])
+            idx = torch.where(inside, torch.searchsorted(splits, pos, right=True) - 1, S).long()
+            g_ext = torch.cat([g, g.new_zeros((1, D))])  # the padding tail reads a zero row
+            n_bytes = (S * D + n * D) * 4 + (S + 1) * splits.element_size()
+            shape = {"S": S, "D": D, "N": n, "g_row_stride": g.stride(0)}
+            lib = lambda: torch.index_select(g_ext, 0, idx)
+    check(ok, f"{kname} disagrees with its plain version on the recorded inputs {shape}")
+    lib_ms = time_ms(lib, iters)
+    k_ms = time_ms(run_kernel, iters)
+    p_ms = time_ms(run_plain, iters)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    return {"shape": shape, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes}
+
+
+def _row_sample(state, touched: torch.Tensor, live: torch.Tensor, idmap_lib, n: int = 4096) -> dict:
+    """Before a train step: offsets and rows (emb, m, v) of up to ``n`` live
+    ids the step touches and of ``n`` live ids it does not."""
+    gen = torch.Generator().manual_seed(SEED)
+    old = touched[torch.isin(touched, live)]
+    groups = {"touched": old, "untouched": live[~torch.isin(live, touched)]}
+    m = state["sparse"]["dim128"]["idmap"].map(lambda x: x[0])
+    b = state["sparse"]["dim128"]["blocks"].map(lambda x: x[0])
+    out = {}
+    for k, ids in groups.items():
+        ids = ids[torch.randperm(ids.numel(), generator=gen)[:n].to(ids.device)]
+        offs = idmap_lib.lookup(m, ids).long()
+        check(ids.numel() > 0 and bool((offs != idmap_lib.OVERFLOW_ROW).all()), f"{k} ids not live")
+        out[k] = (offs, b.emb[offs], b.slots["m"][offs], b.slots["v"][offs])
+    return out
+
+
+def _rows_moved(state, sample: dict, idmap_lib) -> dict:
+    """After the step: every touched row moved (emb, m or v) and no
+    untouched row changed a bit."""
+    b = state["sparse"]["dim128"]["blocks"].map(lambda x: x[0])
+    moved = {}
+    for k, (offs, e0, m0, v0) in sample.items():
+        e1, m1, v1 = b.emb[offs], b.slots["m"][offs], b.slots["v"][offs]
+        changed = (e1 != e0).any(1) | (m1 != m0).any(1) | (v1 != v0).any(1)
+        moved[k] = [int(changed.sum()), offs.numel()]
+    check(moved["touched"][0] == moved["touched"][1], f"touched rows that did not move: {moved}")
+    check(moved["untouched"][0] == 0, f"untouched rows that changed: {moved}")
+    return {"touched_rows_moved": moved["touched"], "untouched_rows_changed": moved["untouched"]}
+
+
+def profile_requests(cell_name: str, run, batches) -> dict:
+    """Where a request's (or train step's) time goes: wall time (host clock,
+    synced) against the union of the card's kernel intervals in a
+    torch.profiler trace, the kernel count, and the kernels that take the
+    most device time. ``run(batch)`` serves or trains on one batch. Device
+    numbers are null when the trace holds no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cell.step_fn(state, batches[0])
+    run(batches[0])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for b in batches:
-            cell.step_fn(state, b)
+            run(b)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]

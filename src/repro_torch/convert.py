@@ -3,7 +3,9 @@
 Dense params: the reference keeps a nested dict of numpy-convertible arrays
 ``{"bot": {"l0": {"w": (d_in, d_out), "b": (d_out,)}, ...}, "top": ...}``;
 ``dense_from_numpy`` turns it into the port's ``DLRM`` state dict
-(``nn.Linear.weight`` is (d_out, d_in), so ``w`` is transposed).
+(``nn.Linear.weight`` is (d_out, d_in), so ``w`` is transposed). The AdamW
+moments ``{"m": tree, "v": tree}`` have the params' layout and convert the
+same way (``adamw_from_numpy``).
 
 Engine rows need no converter: the dict the reference's
 ``EmbeddingEngine.export_rows`` returns is what the port's ``import_rows``
@@ -34,3 +36,10 @@ def dense_from_numpy(tree: Mapping, cfg: DLRMConfig) -> dict[str, torch.Tensor]:
             out[f"{part}.l{i}.weight"] = torch.tensor(w.T)
             out[f"{part}.l{i}.bias"] = torch.tensor(b)
     return out
+
+
+def adamw_from_numpy(opt: Mapping, cfg: DLRMConfig) -> dict:
+    """Reference AdamW state ``{"m": tree, "v": tree}`` → the port's
+    ``{"m": {param name: tensor}, "v": {...}}``, on the CPU like
+    ``dense_from_numpy``."""
+    return {k: dense_from_numpy(opt[k], cfg) for k in ("m", "v")}

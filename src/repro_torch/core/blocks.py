@@ -2,15 +2,21 @@
 
 Contiguous storage for one merged dim-group's embedding rows and their
 optimizer slot rows on one device. Row 0 is the reserved overflow bucket.
+New rows are initialised from their feature id by a stateless hash, bit for
+bit as the reference does. Row writes go through the scatter kernel and
+update the tensors in place (the reference returns new arrays).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
+from repro_torch.core.feature_engine import _SPLITMIX_C1, _srl, splitmix64
 from repro_torch.kernels.fused_gather import ops as fg_ops
+from repro_torch.kernels.fused_scatter import ops as fs_ops
 
 
 @dataclasses.dataclass
@@ -41,3 +47,27 @@ def create(n_rows: int, dim: int, device, slot_names: tuple[str, ...] = ("m", "v
 def gather(b: Blocks, offsets: torch.Tensor) -> torch.Tensor:
     """Fetch embedding rows at ``offsets`` through the fused_gather kernel."""
     return fg_ops.gather_rows(b.emb, offsets)
+
+
+def _hash_uniform(ids: torch.Tensor, dim: int) -> torch.Tensor:
+    """Deterministic per-(id, column) uniform in [-1, 1), from splitmix64 of
+    ``id * 0x9E3779B97F4A7C15 + column`` (wrapping int64 = uint64 bits)."""
+    cols = torch.arange(dim, dtype=torch.int64, device=ids.device)[None, :]
+    bits = splitmix64(ids.to(torch.int64)[:, None] * _SPLITMIX_C1 + cols)
+    u01 = _srl(bits, 40).to(torch.float32) * np.float32(2.0**-24)
+    return u01 * 2.0 - 1.0
+
+
+def init_rows(b: Blocks, offsets: torch.Tensor, ids: torch.Tensor, is_new: torch.Tensor) -> Blocks:
+    """Initialise newly allocated rows in place: emb ← uniform(±1/sqrt(dim))
+    of the id, slots ← 0. Only the new rows are hashed (their count costs one
+    host sync); the reference hashes every slot and drops the others."""
+    s = float(np.float32(1.0 / np.sqrt(b.dim)))
+    sel = torch.nonzero(is_new).squeeze(1)
+    dst = offsets[sel]
+    init = _hash_uniform(ids[sel], b.dim) * s
+    fs_ops.scatter_set_rows(b.emb, dst, init)
+    zeros = torch.zeros_like(init)
+    for v in b.slots.values():
+        fs_ops.scatter_set_rows(v, dst, zeros)
+    return b

@@ -1,5 +1,5 @@
 """Embedding Engine — the RecIS sparse side (port of
-``repro/core/embedding_engine.py``), single device, serving path.
+``repro/core/embedding_engine.py``), single device: serve and train.
 
   * Parameter aggregation: every feature with the same embedding dim is one
     merged dim-group table, kept conflict-free by salting
@@ -8,6 +8,7 @@
   * Two-tier storage per device: IDMap + Blocks, with a leading device axis
     ``[D, ...]`` on every state tensor, as the reference lays it out.
   * Pooling per feature through the segment-sum kernel.
+  * Backward update: SparseAdam on the rows the forward fetched, in place.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from repro_torch.core import idmap as idmap_lib
 from repro_torch.core.feature_engine import FeatureSpec, _fnv1a64, hash_combine
 from repro_torch.io.ragged import Ragged
 from repro_torch.kernels.segment_reduce import ops as sr_ops
+from repro_torch.optim.sparse_adam import SparseAdamConfig, apply_row_updates
 
 PAD = -1
 
@@ -150,6 +152,20 @@ class EmbeddingEngine:
                 ofs += r.nnz_budget
                 out[s.name] = _pool(rows, r, s)
         return out
+
+    # ----------------------------------------------------------------- update
+    def update_local(self, state_local: dict, plans: Mapping[str, exchange.Plan],
+                     grads_rows_r: Mapping[str, torch.Tensor], opt: SparseAdamConfig,
+                     step: torch.Tensor) -> dict:
+        """Apply the compact row gradients with SparseAdam(W): the offsets
+        retained from the forward, the rows updated in place."""
+        new_state = {}
+        for key in self.groups:
+            plan = plans[key]
+            b = apply_row_updates(opt, state_local[key]["blocks"], plan.offsets_r,
+                                  grads_rows_r[key], plan.valid_r, step)
+            new_state[key] = {"idmap": state_local[key]["idmap"], "blocks": b}
+        return new_state
 
     # ------------------------------------------------------- export / import
     def export_rows(self, state) -> dict:

@@ -1,5 +1,5 @@
-"""Embedding exchange — dedupe, owner bucketing, owner merge and row routing
-(port of ``repro/core/exchange.py``), single device.
+"""Embedding exchange — dedupe, owner bucketing, owner merge, IDMap probe or
+insert, and row routing (port of ``repro/core/exchange.py``), single device.
 
 Static budgets, as in the reference:
   L  ids per device per step (padded input)
@@ -19,6 +19,7 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import blocks as blocks_lib
 from repro_torch.core import idmap as idmap_lib
@@ -132,40 +133,54 @@ def fetch(
     step: torch.Tensor,
     train: bool,
 ) -> tuple[idmap_lib.IDMap, blocks_lib.Blocks, torch.Tensor, Plan, dict]:
-    """Routing, IDMap probe and row gather.
+    """Routing, IDMap probe (``train``: insert, and initialise the new rows
+    in place) and row gather.
 
     Returns (idmap, blocks, rows_r [R, dim], plan, metrics); ``rows_r`` is
-    the compact per-owner-unique row matrix.
+    the compact per-owner-unique row matrix, the only tensor the
+    differentiable phase depends on.
     """
     if spec.n_devices != 1:
         raise NotImplementedError("the multi-rank all_to_all exchange is not ported yet")
-    if train:
-        raise NotImplementedError("the training branch of fetch (insert + init_rows) is not ported yet")
     send, plan, met1 = build_send(ids, spec)
     uniq_r, inv_r, ok_r, met2 = owner_merge(send, spec)  # one device: recv = send
-    offsets_r = idmap_lib.lookup(m, uniq_r)
-    # Ids on the overflow row (missing at serve time, or probe exhaustion)
-    # act as zero embeddings.
+    if train:
+        m, offsets_r, is_new, met3 = idmap_lib.lookup_or_insert(m, uniq_r, step)
+        b = blocks_lib.init_rows(b, offsets_r, uniq_r, is_new)
+    else:
+        offsets_r = idmap_lib.lookup(m, uniq_r)
+        met3 = {}
+    # Ids on the overflow row (missing at serve time, or probe or row
+    # exhaustion) act as zero embeddings and are excluded from updates.
     valid_r = (uniq_r != PAD) & (offsets_r != idmap_lib.OVERFLOW_ROW)
     rows_r = blocks_lib.gather(b, offsets_r)
     rows_r.mul_(valid_r[:, None])
     plan = plan._replace(inv_r=inv_r, ok_r=ok_r, offsets_r=offsets_r, valid_r=valid_r)
-    return m, b, rows_r, plan, {**met1, **met2}
+    return m, b, rows_r, plan, {**met1, **met2, **met3}
 
 
 def route_rows(rows_r: torch.Tensor, plan: Plan, spec: ExchangeSpec) -> torch.Tensor:
-    """Owner rows [R, dim] → per-value rows [L, dim]. Out-of-range plan
-    indices are clamped (the reference's gather semantics) and then zeroed
-    by their masks. Masks are applied in place to keep the transients single."""
+    """Owner rows [R, dim] → per-value rows [L, dim], differentiable in
+    ``rows_r``. Out-of-range plan indices are clamped (the reference's
+    gather semantics) and then zeroed by their masks. Masks are applied in
+    place to keep the transients single; autograd allows it, since a mask
+    product saves only the mask.
+
+    The gathers are ``F.embedding``, whose backward sums duplicate indices
+    by sorted segments in parallel. The PAD slots of the send buckets (at
+    least three quarters of them on one device) all point at one index, a
+    run that an indexing backward would walk serially.
+    """
     D, C = spec.n_devices, spec.per_dest_cap
     R, U = rows_r.shape[0], plan.owner_u.shape[0]
-    per_req = rows_r[plan.inv_r.clamp(max=R - 1)]
+    per_req = F.embedding(plan.inv_r.clamp(max=R - 1).long(), rows_r)
     per_req.mul_(plan.ok_r[:, None])
-    back = per_req.view(D, C, rows_r.shape[-1])  # one device: back = per_req
-    uniq_rows = back[plan.owner_u.clamp(max=D - 1), plan.pos_u.clamp(max=C - 1)]
-    del per_req, back
+    # one device: the reply buckets are the request buckets
+    flat_u = plan.owner_u.clamp(max=D - 1).long() * C + plan.pos_u.clamp(max=C - 1)
+    uniq_rows = F.embedding(flat_u, per_req)
+    del per_req
     uniq_rows.mul_(plan.ok_u[:, None])
-    vals = uniq_rows[plan.inv_u.clamp(max=U - 1)]
+    vals = F.embedding(plan.inv_u.clamp(max=U - 1).long(), uniq_rows)
     del uniq_rows
     vals.mul_(plan.ok_val[:, None])
     return vals

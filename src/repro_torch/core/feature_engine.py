@@ -198,6 +198,12 @@ class FeatureEngine:
                 continue
             cols = [self._maybe_truncate(batch[s.name], s) for s in specs]
             vals = torch.cat([c.values for c in cols])
+            if kind == "bucketize" and vals.device.type != "cpu":
+                # fused_bucketize is the plain version of the fused_transform
+                # kernel, which has no CUDA port yet: no silent plain path on the card
+                raise NotImplementedError(
+                    "bucketize on the card needs the fused_transform kernel "
+                    "(ROADMAP B4), which is not ported yet")
             cids = torch.cat([torch.full((c.nnz_budget,), i, dtype=torch.int32, device=vals.device)
                               for i, c in enumerate(cols)])
             flat = fused(vals, cids)

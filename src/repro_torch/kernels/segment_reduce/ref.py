@@ -23,6 +23,25 @@ def segment_sum_csr(values: torch.Tensor, row_splits: torch.Tensor) -> torch.Ten
     return segment_sum(values, seg, n_rows)
 
 
+def segment_sum_bwd(g: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """VJP of ``segment_sum`` in ``values``: row j = g[segment_ids[j]], zero
+    where the id is outside [0, num_segments)."""
+    ok = (segment_ids >= 0) & (segment_ids < num_segments)
+    return g[segment_ids.clamp(0, num_segments - 1).long()] * ok[:, None].to(g.dtype)
+
+
+def segment_expand_csr(g: torch.Tensor, row_splits: torch.Tensor, n: int) -> torch.Tensor:
+    """VJP of ``segment_sum_csr`` for n value rows: row j = g[s] for j in
+    [row_splits[s], row_splits[s+1]), zero outside [row_splits[0], row_splits[-1])."""
+    n_rows = row_splits.shape[0] - 1
+    pos = torch.arange(n, dtype=row_splits.dtype, device=row_splits.device)
+    seg = torch.searchsorted(row_splits, pos, right=True) - 1
+    seg = torch.where((pos >= row_splits[0]) & (pos < row_splits[-1]), seg, n_rows)
+    if n_rows == 0:
+        return g.new_zeros((n, g.shape[1]))
+    return segment_sum_bwd(g, seg, n_rows)
+
+
 def segment_mean(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     s = segment_sum(values, segment_ids, num_segments)
     cnt = segment_sum(values.new_ones((values.shape[0], 1)), segment_ids, num_segments)

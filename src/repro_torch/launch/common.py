@@ -17,6 +17,8 @@ from repro_torch.configs.base import ArchConfig, ShapeCell
 class CellOptions:
     capacity_slack: float = 4.0   # exchange per-dest slack over U/D
     recv_slack: float = 2.0       # owner recv-unique budget over U
+    sparse_opt_lr: float = 1e-3   # SparseAdam on the embedding rows
+    dense_opt_lr: float = 1e-3    # AdamW on the dense params
 
 
 @dataclasses.dataclass
@@ -25,6 +27,7 @@ class Cell:
     shape: ShapeCell
     device: torch.device
     step_fn: Callable                   # serve: (state, batch) -> {"logits", metrics}
+                                        # train: (state, batch) -> (state, {"loss", metrics})
     init_state: Callable[[], Any]
     make_batch: Callable[..., Any]      # (seed, vocab=...) -> batch on device
     ids_fn: Callable[[Any], Any]        # batch -> {feature: Ragged} engine input

@@ -1,8 +1,11 @@
 """Recsys-family cells (port of ``repro/launch/recsys_cell.py``), one device.
 
 One fused transform pass (Feature Engine), one exchange per embedding dim
-(Embedding Engine), then the dense model. This slice builds the serve step,
-the forward-only prefix of the training step.
+(Embedding Engine), then the dense model. The serve step is the forward
+prefix of the training step; the training step then takes the gradient of
+the loss in the dense params and the compact rows ``rows_r``, and applies
+AdamW and SparseAdam. Blocks are updated in place, through views of the
+stacked state; the IDMap is new each step.
 
 Batch convention: {column: Ragged} on the cell's device.
 """
@@ -20,6 +23,8 @@ from repro_torch.core.feature_engine import FeatureEngine, FeatureSpec
 from repro_torch.io.ragged import Ragged
 from repro_torch.launch.common import Cell, CellOptions, resolve_device, round_up
 from repro_torch.models.layers import MIXED
+from repro_torch.optim import adamw
+from repro_torch.optim.sparse_adam import SparseAdamConfig
 
 
 def _model_mod(arch_id: str):
@@ -105,13 +110,20 @@ def _local(sparse: dict) -> dict:
                 "blocks": v["blocks"].map(lambda x: x[0])} for k, v in sparse.items()}
 
 
+def _stacked(local: dict, sparse: dict) -> dict:
+    """The stacked [1, ...] sparse state after a train step: the new IDMap
+    gains its device axis; the Blocks were written through ``_local``'s
+    views, so the stacked tensors already hold the update."""
+    return {k: {"idmap": v["idmap"].map(lambda x: x.unsqueeze(0)),
+                "blocks": sparse[k]["blocks"]} for k, v in local.items()}
+
+
 def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
           device=None) -> Cell:
     device = resolve_device(device)
-    if shape.kind == "train":
-        raise NotImplementedError("the training step is not ported yet")
-    if shape.kind != "serve":
+    if shape.kind not in ("serve", "train"):
         raise NotImplementedError(f"{shape.kind} cells are not ported yet")
+    train = shape.kind == "train"
     model = _model_mod(arch.arch_id)
     mcfg = arch.model
     specs = model.feature_specs(mcfg)
@@ -122,7 +134,7 @@ def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
         return {s.name: batch[s.name].values.reshape(-1, s.max_len or 1).to(torch.float32)
                 for s in pl.specs if s.transform == "raw"}
 
-    def step_fn(state, batch):
+    def serve_step(state, batch):
         with torch.inference_mode():
             ids, _ = pl.prepared(batch)
             _, rows_r, plans, met = pl.engine.fetch_local(
@@ -131,11 +143,39 @@ def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
             logits = model.apply(state["dense"], mcfg, acts, dense_fn(batch), MIXED)
         return {"logits": logits, **met}
 
-    def init_fn():
-        return {"step": torch.zeros((), dtype=torch.int32, device=device),
-                "dense": model.init(mcfg, seed=0, device=device),
-                "sparse": pl.engine.init_state()}
+    sopt = SparseAdamConfig(lr=opts.sparse_opt_lr)
+    acfg = adamw.AdamWConfig(lr=opts.dense_opt_lr)
 
+    def train_step(state, batch):
+        # no_grad, not inference_mode: the plans and rows are saved for backward
+        step = state["step"] + 1
+        with torch.no_grad():
+            ids, _ = pl.prepared(batch)
+            local, rows_r, plans, met = pl.engine.fetch_local(
+                _local(state["sparse"]), ids, step, train=True)
+        rows_r = {k: v.requires_grad_() for k, v in rows_r.items()}
+        params = dict(state["dense"].named_parameters())
+        acts = pl.engine.activations(rows_r, plans, ids)
+        loss = model.loss(state["dense"], mcfg, acts, dense_fn(batch), MIXED)
+        grads = torch.autograd.grad(loss, [*params.values(), *rows_r.values()])
+        del acts
+        opt = adamw.update(acfg, params, dict(zip(params, grads)), state["opt"], step)
+        with torch.no_grad():
+            local = pl.engine.update_local(local, plans, dict(zip(rows_r, grads[len(params):])),
+                                           sopt, step)
+        new_state = {"step": step, "dense": state["dense"], "opt": opt,
+                     "sparse": _stacked(local, state["sparse"])}
+        return new_state, {"loss": loss.detach(), **met}
+
+    def init_fn():
+        dense = model.init(mcfg, seed=0, device=device)
+        st = {"step": torch.zeros((), dtype=torch.int32, device=device), "dense": dense,
+              "sparse": pl.engine.init_state()}
+        if train:
+            st["opt"] = adamw.init(dict(dense.named_parameters()))
+        return st
+
+    step_fn = train_step if train else serve_step
     cell = Cell(arch=arch, shape=shape, device=device, step_fn=step_fn, init_state=init_fn,
                 make_batch=pl.make_batch, ids_fn=lambda batch: pl.prepared(batch)[0],
                 engine=pl.engine)

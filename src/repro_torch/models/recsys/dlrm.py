@@ -13,6 +13,7 @@ from torch import nn
 
 from repro_torch.core.feature_engine import FeatureSpec
 from repro_torch.models.layers import MIXED, MLP, Precision
+from repro_torch.models.recsys.common import bce_with_logits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,3 +79,9 @@ def apply(model: DLRM, cfg: DLRMConfig, acts: dict, dense: dict,
     if model.cfg != cfg:
         raise ValueError("model was built for another DLRMConfig")
     return model(acts, dense, prec)
+
+
+def loss(model: DLRM, cfg: DLRMConfig, acts: dict, dense: dict,
+         prec: Precision = MIXED) -> torch.Tensor:
+    """Mean sigmoid cross-entropy of the logits against ``dense["label"]``."""
+    return bce_with_logits(apply(model, cfg, acts, dense, prec), dense["label"][:, 0])

@@ -10,8 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import ShapeCell
+from repro_torch.core.feature_engine import FeatureEngine, FeatureSpec
+from repro_torch.io.ragged import Ragged
 from repro_torch.kernels.fused_gather import ops as t_fg, ref as t_fg_ref
+from repro_torch.kernels.fused_scatter import ops as t_fs, ref as t_fs_ref
 from repro_torch.kernels.segment_reduce import ops as t_sr, ref as t_sr_ref
+from repro_torch.launch.cells import build_cell
 
 
 SHAPES = [(1, 8, 1), (33, 8, 1), (100, 16, 7), (512, 64, 512), (1024, 128, 300), (777, 32, 111)]
@@ -101,3 +106,108 @@ def test_segment_mean_kernel_matches_plain(cuda):
     assert t_sr.LAUNCHES == before + 2  # sums and counts
     want = t_sr_ref.segment_mean(torch.from_numpy(vals), torch.from_numpy(seg), 40)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def _launches():
+    return {"add": t_fs.LAUNCHES_ADD, "set": t_fs.LAUNCHES_SET}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r_rows,d,k,id_dtype", [
+    (1000, 128, 700, torch.int32), (513, 5, 300, torch.int64), (64, 4, 1, torch.int32),
+])
+@pytest.mark.parametrize("op", ["add", "set"])
+def test_scatter_kernel_matches_plain(cuda, r_rows, d, k, id_dtype, op):
+    """Unique ids with invalid and out-of-range slots, through a view of a
+    stacked table; row 0 is touched by no invalid slot. Bit-equal."""
+    g = torch.Generator().manual_seed(k + d)
+    stacked = torch.randn((2, r_rows, d), generator=g)
+    ids = (torch.randperm(r_rows + 4, generator=g)[:k] - 2).to(id_dtype)
+    ids[ids == 0] = -1  # row 0 stays a target of nothing valid
+    rows = torch.randn((k, d), generator=g)
+    valid = torch.rand(k, generator=g) < 0.7
+    want = stacked[1].clone()
+    (t_fs_ref.scatter_add_rows if op == "add" else t_fs_ref.scatter_set_rows)(want, ids, rows, valid)
+    dev = stacked.to(cuda)
+    fn = t_fs.scatter_add_rows if op == "add" else t_fs.scatter_set_rows
+    before = _launches()
+    got = fn(dev[1], ids.to(cuda), rows.to(cuda), valid.to(cuda))
+    torch.cuda.synchronize()
+    assert _launches()[op] == before[op] + 1
+    assert got.data_ptr() == dev[1].data_ptr()
+    assert torch.equal(dev[1].cpu(), want)
+    assert torch.equal(dev[0].cpu(), stacked[0]) and torch.equal(dev[1, 0].cpu(), stacked[1, 0])
+
+
+@pytest.mark.cuda
+def test_scatter_kernel_without_valid_and_with_no_slots(cuda):
+    table = torch.randn((50, 12), device=cuda)
+    ids = torch.tensor([3, 7, 49, 60, -1], device=cuda)
+    rows = torch.randn((5, 12), device=cuda)
+    want = t_fs_ref.scatter_add_rows(table.clone(), ids, rows)
+    before = _launches()
+    t_fs.scatter_add_rows(table, ids, rows)
+    t_fs.scatter_set_rows(table, ids[:0], rows[:0])  # nothing to do: no launch
+    torch.cuda.synchronize()
+    assert _launches() == {"add": before["add"] + 1, "set": before["set"]}
+    assert torch.equal(table, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows,d,budget", [(1, 8, 4), (512, 128, 1024), (100, 13, 150), (300, 64, 300)])
+@pytest.mark.parametrize("split_dtype", [torch.int32, torch.int64])
+def test_segment_sum_csr_backward_kernel_matches_plain(cuda, n_rows, d, budget, split_dtype):
+    """The gradient through autograd, and through a strided gradient: a copy,
+    so bit-equal, with zeros for empty rows and the padding tail."""
+    r = np.random.default_rng(n_rows + d + 7)
+    lengths = r.integers(0, 4, size=n_rows)
+    lengths[::5] = 0
+    splits = torch.from_numpy(np.minimum(np.concatenate([[0], np.cumsum(lengths)]), budget)).to(split_dtype)
+    gr = torch.from_numpy(r.normal(size=(n_rows, d)).astype(np.float32))
+    want = t_sr_ref.segment_expand_csr(gr, splits, budget)
+    vals = torch.from_numpy(r.normal(size=(budget, d)).astype(np.float32)).to(cuda).requires_grad_()
+    before = t_sr.LAUNCHES_BWD
+    out = t_sr.segment_sum_csr(vals, splits.to(cuda))
+    (got,) = torch.autograd.grad(out, vals, gr.to(cuda))
+    wide = torch.zeros((n_rows, 3, d), device=cuda)
+    wide[:, 2] = gr.to(cuda)
+    strided = t_sr.segment_expand_csr(wide[:, 2], splits.to(cuda), budget)
+    torch.cuda.synchronize()
+    assert t_sr.LAUNCHES_BWD == before + 2
+    assert torch.equal(got.cpu(), want) and torch.equal(strided.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_bucketize_on_the_card_raises(cuda):
+    spec = FeatureSpec("q", transform="bucketize", emb_dim=4, boundaries=(0.0, 1.0))
+    r = Ragged(torch.zeros(4, device=cuda), torch.zeros(3, dtype=torch.int32, device=cuda))
+    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
+        FeatureEngine([spec], cuda).apply({"q": r})
+
+
+@pytest.mark.cuda
+def test_smoke_train_cell_card_matches_cpu(cuda):
+    """Three train steps from one state on the same batches: integers equal,
+    floats within the bf16 tolerances of tests/test_torch_train.py (lr 1e-3,
+    3 steps: params and rows within 2 * lr * 3)."""
+    shape = ShapeCell("train_batch", "train", {"batch": 32})
+    cells = {d: build_cell("dlrm-mlperf", "train_batch", smoke=True, shape_override=shape, device=d)
+             for d in ("cpu", "cuda")}
+    states = {d: c.init_state() for d, c in cells.items()}
+    states["cuda"]["dense"].load_state_dict(states["cpu"]["dense"].state_dict())
+    counts = (t_fg.LAUNCHES, t_sr.LAUNCHES, t_sr.LAUNCHES_BWD, t_fs.LAUNCHES_ADD, t_fs.LAUNCHES_SET)
+    for s in range(3):
+        outs = {}
+        for d, c in cells.items():
+            states[d], outs[d] = c.step_fn(states[d], c.make_batch(s))
+        met = {d: {k: int(v) for k, v in o.items() if k != "loss"} for d, o in outs.items()}
+        assert met["cuda"] == met["cpu"]
+        np.testing.assert_allclose(float(outs["cuda"]["loss"]), float(outs["cpu"]["loss"]), atol=2e-2)
+    now = (t_fg.LAUNCHES, t_sr.LAUNCHES, t_sr.LAUNCHES_BWD, t_fs.LAUNCHES_ADD, t_fs.LAUNCHES_SET)
+    assert all(b > a for a, b in zip(counts, now))
+    rows = {d: c.engine.export_rows(states[d]["sparse"])["dim16"] for d, c in cells.items()}
+    np.testing.assert_array_equal(rows["cuda"]["ids"], rows["cpu"]["ids"])
+    np.testing.assert_allclose(rows["cuda"]["emb"], rows["cpu"]["emb"], rtol=0, atol=6e-3)
+    for n, p in states["cpu"]["dense"].state_dict().items():
+        np.testing.assert_allclose(states["cuda"]["dense"].state_dict()[n].cpu().numpy(), p.numpy(),
+                                   rtol=0, atol=6e-3, err_msg=n)

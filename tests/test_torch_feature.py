@@ -140,6 +140,23 @@ def test_feature_engine_apply_bit_equal():
         np.testing.assert_array_equal(t_dense[k].numpy(), np.asarray(j_dense[k]))
 
 
+def test_bucketize_off_the_cpu_raises_until_its_kernel_is_ported():
+    """A bucketize column must not run its plain version on the card. The
+    meta device stands in for a card here; the CPU path is held against the
+    reference by test_feature_engine_apply_bit_equal."""
+    specs = [s for s in _specs(t_fe) if s.transform in ("hash", "bucketize")]
+    fe = t_fe.FeatureEngine(specs, "meta")
+    batch = {s.name: t_ragged.Ragged(
+        torch.zeros(4, dtype=torch.float32 if s.transform == "bucketize" else torch.int64,
+                    device="meta"),
+        torch.zeros(3, dtype=torch.int32, device="meta")) for s in specs}
+    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
+        fe.apply(batch)
+    hash_only = [s for s in specs if s.transform == "hash"]
+    ids, _ = t_fe.FeatureEngine(hash_only, "meta").apply({s.name: batch[s.name] for s in hash_only})
+    assert set(ids) == {s.name for s in hash_only}
+
+
 @pytest.mark.parametrize("lens,budget", [([2, 0, 3, 1], 9), ([0, 0], 1), ([4, 4, 4], 12), ([1], 5)])
 def test_ragged_helpers_equal(lens, budget):
     r = np.random.default_rng(sum(lens) + budget)

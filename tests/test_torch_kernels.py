@@ -1,6 +1,7 @@
 """The PyTorch port's kernel ops on the CPU (their plain versions) against
 the JAX package's Pallas ops in interpret mode. The CUDA kernels themselves
 are held against the plain versions in test_torch_cuda.py."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,8 +9,10 @@ import torch
 
 from repro.io.ragged import Ragged as JRagged
 from repro.kernels.fused_gather import ops as j_fg
+from repro.kernels.fused_scatter import ops as j_fs, ref as j_fs_ref
 from repro.kernels.segment_reduce import ops as j_sr
 from repro_torch.kernels.fused_gather import ops as t_fg
+from repro_torch.kernels.fused_scatter import ops as t_fs
 from repro_torch.kernels.segment_reduce import ops as t_sr
 
 
@@ -71,3 +74,81 @@ def test_gather_plain_matches_pallas(r_rows, d, k, id_dtype):
     want = np.asarray(j_fg.gather_rows(jnp.asarray(table), jnp.asarray(ids)))
     got = t_fg.gather_rows(torch.from_numpy(table), torch.from_numpy(ids))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _scatter_inputs(r_rows, d, k, id_dtype, seed):
+    """Unique ids with invalid slots and out-of-range ids (both sides)."""
+    r = np.random.default_rng(seed)
+    table = r.normal(size=(r_rows, d)).astype(np.float32)
+    ids = r.permutation(r_rows + 4)[:k].astype(id_dtype) - 2
+    rows = r.normal(size=(k, d)).astype(np.float32)
+    valid = r.random(k) < 0.75
+    return table, ids, rows, valid
+
+
+@pytest.mark.parametrize("r_rows,d,k,id_dtype", [
+    (32, 8, 1, np.int32), (64, 16, 17, np.int64), (256, 128, 64, np.int32), (40, 5, 30, np.int64),
+])
+@pytest.mark.parametrize("op", ["add", "set"])
+@pytest.mark.parametrize("with_valid", [True, False])
+def test_scatter_plain_matches_pallas(r_rows, d, k, id_dtype, op, with_valid):
+    table, ids, rows, valid = _scatter_inputs(r_rows, d, k, id_dtype, seed=r_rows + k)
+    v = valid if with_valid else None
+    jv = None if v is None else jnp.asarray(v)
+    # the Pallas op takes ids in range only (it clamps nothing): hold it on
+    # the in-range slots, and the jnp reference on all of them
+    j_op = j_fs.scatter_add_rows if op == "add" else j_fs.scatter_set_rows
+    j_ref = j_fs_ref.scatter_add_rows if op == "add" else j_fs_ref.scatter_set_rows
+    t_op = t_fs.scatter_add_rows if op == "add" else t_fs.scatter_set_rows
+    want = np.asarray(j_ref(jnp.asarray(table), jnp.asarray(ids), jnp.asarray(rows), jv))
+    stacked = torch.from_numpy(table.copy())[None]
+    got = t_op(stacked[0], torch.from_numpy(ids), torch.from_numpy(rows),
+               None if v is None else torch.from_numpy(v))
+    assert got.data_ptr() == stacked.data_ptr()  # in place, through the view
+    np.testing.assert_allclose(stacked[0].numpy(), want, rtol=1e-6, atol=0)
+    live = (ids >= 0) & (ids < r_rows)
+    pallas = np.asarray(j_op(jnp.asarray(table), jnp.asarray(np.where(live, ids, 0)),
+                             jnp.asarray(rows), jnp.asarray(live & (valid if with_valid else True))))
+    np.testing.assert_allclose(stacked[0].numpy(), pallas, rtol=1e-6, atol=0)
+
+
+def test_scatter_with_no_slots_leaves_the_table():
+    table = torch.randn(8, 4)
+    before = table.clone()
+    for op in (t_fs.scatter_add_rows, t_fs.scatter_set_rows):
+        op(table, torch.zeros(0, dtype=torch.int32), torch.zeros(0, 4))
+    assert torch.equal(table, before)
+
+
+@pytest.mark.parametrize("n,d,s", SHAPES)
+def test_segment_sum_vjp_matches_pallas(n, d, s):
+    vals, seg = _seg_inputs(n, d, s, sort=False, seed=4)
+    g = np.random.default_rng(n).normal(size=(s, d)).astype(np.float32)
+    _, vjp = jax.vjp(lambda v: j_sr.segment_sum(v, jnp.asarray(seg), s), jnp.asarray(vals))
+    (want,) = vjp(jnp.asarray(g))
+    v = torch.from_numpy(vals).requires_grad_()
+    (got,) = torch.autograd.grad(t_sr.segment_sum(v, torch.from_numpy(seg), s), v, torch.from_numpy(g))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("n_rows,d,budget", [(1, 8, 4), (32, 16, 80), (512, 128, 1024), (100, 13, 150)])
+@pytest.mark.parametrize("split_dtype", [np.int32, np.int64])
+def test_segment_sum_csr_vjp_matches_pallas(n_rows, d, budget, split_dtype):
+    """The CSR gradient (segment_expand_csr) against the reference's VJP on
+    the Ragged segment ids: empty rows, a padding tail, exact."""
+    vals, splits = _csr_inputs(n_rows, d, budget, seed=n_rows + d + 1)
+    splits = splits.astype(split_dtype)
+    g = np.random.default_rng(budget).normal(size=(n_rows, d)).astype(np.float32)
+    seg = JRagged(jnp.zeros(budget, jnp.int64), jnp.asarray(splits)).segment_ids()
+    _, vjp = jax.vjp(lambda v: j_sr.segment_sum(v, seg, n_rows), jnp.asarray(vals))
+    (want,) = vjp(jnp.asarray(g))
+    v = torch.from_numpy(vals).requires_grad_()
+    out = t_sr.segment_sum_csr(v, torch.from_numpy(splits))
+    (got,) = torch.autograd.grad(out, v, torch.from_numpy(g))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not got.numpy()[splits[-1]:].any()
+    # a strided gradient (a column of a stacked one) gives the same rows
+    wide = torch.zeros((n_rows, 3, d))
+    wide[:, 1] = torch.from_numpy(g)
+    np.testing.assert_array_equal(
+        t_sr.segment_expand_csr(wide[:, 1], torch.from_numpy(splits), budget).numpy(), np.asarray(want))
