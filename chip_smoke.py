@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The PyTorch port serving and training dlrm-mlperf on one NVIDIA card,
-through its own CUDA kernels.
+"""The PyTorch port serving and training dlrm-mlperf, and serving the
+qwen2.5-3b prefill, on one NVIDIA card, through its own CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -10,10 +10,14 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
   2. kernels  — each CUDA kernel against its plain PyTorch version on random
                 inputs (PAD and out-of-range ids, unsorted and empty
                 segments, invalid scatter slots, D not a multiple of 4,
-                unaligned pointers, views of stacked tables);
+                unaligned pointers, views of stacked tables; flash
+                attention over head dims 16-128, T not a multiple of the
+                tile, grouped kv heads, bf16 and fp32, strided inputs, an
+                unaligned q refused);
   3. smoke    — the smoke-size serve cell, then three steps of the smoke
-                train cell, on the card against the same cells on the CPU:
-                same rows, params and batches;
+                train cell, then two qwen2.5 smoke prefill requests, on the
+                card against the same cells on the CPU: same rows, params
+                and batches;
   4. serve    — full-width dlrm-mlperf (vocab cut to 250,000 per feature):
                 6.5 M rows imported, 20 serve_p99 requests (batch 512) and
                 two serve_bulk requests (batch 262,144: the first at that
@@ -25,9 +29,15 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 3 warm-up and 10 timed steps with the kernels' launch counts
                 over the 13, state checks, a torch.profiler trace of three
                 steps, and ten steps on one repeated batch (the loss falls);
+     prefill  — full-width qwen2.5-3b prefill (T 32,768, batch cut to 1):
+                rows for all 151,936 tokens imported, 1 warm-up and 3 timed
+                requests with the kernels' launch counts, output checks,
+                layer 0's attention against the plain formula on every
+                query row, a torch.profiler trace of one request;
   5. a ``{"kernels": [...]}`` line: each kernel on the exact inputs the
-     serve and train paths fed it, against its plain version, timed beside
-     the plain version, one PyTorch library call and the card's bound.
+     serve, train and prefill paths fed it, against its plain version,
+     timed beside the plain version, one PyTorch library call and the
+     card's bound.
 
 Every check raises on failure, so the script exits non-zero. It prints one
 JSON object per line; the last is ``{"ok": true, "device": {...}}``.
@@ -48,6 +58,7 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
 VOCAB = 250_000             # per feature; the published 4,000,000 needs 240 GB
 N_P99_REQUESTS, N_WARMUP = 20, 3
 N_TRAIN_WARMUP, N_TRAIN_STEPS, N_REPEAT = 3, 10, 10
@@ -57,6 +68,25 @@ MIXED_TOL = dict(rtol=2e-2, atol=2e-2)  # bf16 logits and loss, card against CPU
 # 2 * lr * steps, the rows' moments within 5e-2 of their largest magnitude.
 TRAIN_PARAM_ATOL = 2 * 1e-3 * 3
 TRAIN_MOMENT_FRAC = 5e-2
+# Flash attention against its plain version: both keep fp32 statistics and
+# round O once, so O may differ by one rounding: |got - want| <= rtol * |want|
+# + atol * max|want|, rtol 1e-2 in bf16 (a bf16 ulp is at most 2^-7 of the
+# value) and 1e-4 in fp32 (summation order), atol 1e-3 in bf16 and 1e-4 in
+# fp32. A zero output, or one from the wrong kv head, reads far above it.
+FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-3)}
+# bf16 prefill logits and cache, card against CPU: each value may sit a bf16
+# ulp or two apart (|x| < 4 here, one ulp <= 2^-6), as in tests/test_torch_lm.py
+MIXED_PREFILL_TOL = dict(rtol=3e-2, atol=3e-2)
+LSE_TOL = 1e-4
+FLASH_CASES = [  # B, T, H, Hk, hd, dtype, causal
+    (1, 128, 2, 2, 64, torch.float32, True), (2, 200, 4, 2, 16, torch.float32, True),
+    (1, 1024, 8, 1, 128, torch.bfloat16, True), (2, 1024, 16, 2, 128, torch.bfloat16, True),
+    (1, 200, 8, 8, 32, torch.bfloat16, True), (2, 128, 4, 4, 128, torch.float32, True),
+    (1, 1024, 4, 2, 64, torch.bfloat16, True), (1, 200, 2, 1, 128, torch.float32, True),
+    (2, 200, 4, 2, 64, torch.float32, False), (1, 1024, 2, 1, 16, torch.bfloat16, False),
+]
+PREFILL_T, N_PREFILL = 32_768, 3   # prefill_32k; timed requests after one warm-up
+PLAIN_ROWS = 1_024  # query rows per piece of the plain version at T 32,768 (whole, its scores take 68 GB)
 
 
 def emit(obj) -> None:
@@ -81,8 +111,28 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_ops: float = 0.0) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+def flash_excess(got: torch.Tensor, want: torch.Tensor, dtype) -> float:
+    """The largest |got - want| over what FLASH_TOL allows it: at most 1 passes."""
+    rtol, atol = FLASH_TOL[dtype]
+    got, want = got.float(), want.float()
+    allow = (rtol * want.abs() + atol * want.abs().max()).clamp_min(torch.finfo(torch.float32).tiny)
+    return float(((got - want).abs() / allow).max())
+
+
+def plain_flash_chunked(ref, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rows: int = PLAIN_ROWS):
+    """The plain causal formula (``ref.flash_fwd``) over query rows [s, e),
+    each against keys [0, e): the whole result, in pieces that fit."""
+    outs, lses = [], []
+    for s in range(0, q.shape[1], rows):
+        e = min(s + rows, q.shape[1])
+        o, lse = ref.flash_fwd(q[:, s:e], k[:, :e], v[:, :e])
+        outs.append(o)
+        lses.append(lse)
+    return torch.cat(outs, 1), torch.cat(lses, 2)
+
+
+def bound_ms(n_bytes: float, n_ops: float = 0.0, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -91,16 +141,18 @@ def main() -> None:
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA card")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import kernels
-    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.configs import dlrm_mlperf, qwen2_5_3b
     from repro_torch.configs.base import ShapeCell
     from repro_torch.core.feature_engine import FeatureEngine
     from repro_torch.io.ragged import Ragged
     from repro_torch.core import idmap as idmap_lib
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
     from repro_torch.kernels.fused_gather import ops as fg_ops, ref as fg_ref
     from repro_torch.kernels.fused_scatter import ops as fs_ops, ref as fs_ref
     from repro_torch.kernels.segment_reduce import ops as sr_ops, ref as sr_ref
     from repro_torch.launch import recsys_cell
     from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.common import local_view
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -133,7 +185,8 @@ def main() -> None:
 
     for R, D, K, idt, misalign in [(100_000, 128, 26_624, torch.int32, False),
                                    (5_000, 13, 1_000, torch.int64, False),
-                                   (4_000, 128, 3_000, torch.int64, True), (7, 4, 1, torch.int32, False)]:
+                                   (4_000, 128, 3_000, torch.int64, True), (7, 4, 1, torch.int32, False),
+                                   (20_000, 2048, 32_768, torch.int64, False)]:  # prefill's D
         table = torch.from_numpy(rng.normal(size=(R, D)).astype(np.float32)).to(dev)
         table = unaligned(table) if misalign else table
         ids = torch.from_numpy(rng.integers(-2, R + 2, size=K)).to(idt).to(dev)
@@ -217,11 +270,48 @@ def main() -> None:
                       "splits": str(sdt), "g_row_stride": stride, "bit_equal": bool(torch.equal(got.cpu(), want))})
         check(torch.equal(got.cpu(), want), f"segment_expand_csr disagrees at {cases[-1]}")
         check(sr_ops.LAUNCHES_BWD == before + 1, "segment_expand_csr did not launch")
+    for B, T, H, Hk, hd, dt, causal, layout in [(*c, "contiguous") for c in FLASH_CASES] + [
+            (2, 300, 8, 2, 64, torch.float32, True, "fused qkv view"),
+            (1, 256, 4, 2, 128, torch.bfloat16, True, "q unaligned")]:
+        if layout == "fused qkv view":  # q, k, v as head slices of one projection
+            fused = torch.from_numpy(rng.normal(size=(B, T, H + 2 * Hk, hd)).astype(np.float32)).to(dev)
+            q, k, v = fused[:, :, :H], fused[:, :, H:H + Hk], fused[:, :, H + Hk:]
+        else:
+            q, k, v = (torch.from_numpy(rng.normal(size=(B, T, n, hd)).astype(np.float32)).to(dt).to(dev)
+                       for n in (H, Hk, Hk))
+            q = unaligned(q) if layout == "q unaligned" else q
+        before = fa_ops.LAUNCHES
+        if layout == "q unaligned":  # the kernel's 16-byte loads cannot read it in place
+            try:
+                fa_ops.flash_fwd(q, k, v, causal)
+                refused = False
+            except ValueError:
+                refused = True
+            cases.append({"kernel": "flash_fwd", "B": B, "T": T, "H": H, "Hk": Hk, "hd": hd,
+                          "dtype": str(dt), "layout": layout, "refused": refused})
+            check(refused and fa_ops.LAUNCHES == before, f"flash_fwd took {cases[-1]}")
+            continue
+        o, lse = fa_ops.flash_fwd(q, k, v, causal)
+        torch.cuda.synchronize()
+        want_o, want_lse = fa_ref.flash_fwd(q, k, v, causal)
+        err = float((o.float() - want_o.float()).abs().max())
+        lse_err = float((lse - want_lse).abs().max())
+        excess = flash_excess(o, want_o, dt)
+        cases.append({"kernel": "flash_fwd", "B": B, "T": T, "H": H, "Hk": Hk, "hd": hd, "dtype": str(dt),
+                      "causal": causal, "layout": layout, "max_abs_err": err, "lse_max_abs_err": lse_err,
+                      "max_abs_o": float(want_o.float().abs().max()), "o_err_over_tol": excess,
+                      "zero_output_err_over_tol": flash_excess(torch.zeros_like(want_o), want_o, dt)})
+        check(fa_ops.LAUNCHES == before + 1, f"flash_fwd did not launch at {cases[-1]}")
+        check(o.dtype == dt and excess <= 1.0 and torch.allclose(lse, want_lse, rtol=LSE_TOL, atol=LSE_TOL),
+              f"flash_fwd disagrees at {cases[-1]}")
     emit({"phase": "kernels_vs_plain", "cases": cases, "tolerance": {
         "gather_rows": "bit-equal", "segment_sum": "rtol=atol=1e-5 (summation order)",
         "segment_sum_csr": "rtol=atol=1e-5 (summation order)",
         "scatter_add_rows": "bit-equal", "scatter_set_rows": "bit-equal",
-        "segment_expand_csr": "bit-equal (a copy)"}})
+        "segment_expand_csr": "bit-equal (a copy)",
+        "flash_fwd": "O: |got - want| <= rtol |want| + atol max|want| (o_err_over_tol <= 1), (rtol, atol) "
+                     f"{FLASH_TOL[torch.float32]} fp32, {FLASH_TOL[torch.bfloat16]} bf16 (one rounding); "
+                     f"LSE rtol=atol {LSE_TOL}; an unaligned q is refused"}})
 
     # ----------------------------------------------- 3 smoke serve, card vs CPU
     shape = ShapeCell("serve_p99", "serve", {"batch": 32})
@@ -300,6 +390,40 @@ def main() -> None:
               "moments": f"{TRAIN_MOMENT_FRAC} of the largest magnitude"}})
     del tsmoke, states, exp, dense
 
+    # -------------------------------------------- 3 smoke prefill, card vs CPU
+    pshape = ShapeCell("prefill_32k", "prefill", {"seq_len": 256, "global_batch": 2})
+    psmoke = {d: build_cell("qwen2.5-3b", "prefill_32k", smoke=True, shape_override=pshape, device=d)
+              for d in ("cpu", "cuda")}
+    pcfg = psmoke["cpu"].arch.model
+    tokens = {"tokens": Ragged(torch.arange(pcfg.vocab_size, dtype=torch.int64),
+                               torch.tensor([0, pcfg.vocab_size], dtype=torch.int32))}
+    ids = psmoke["cpu"].engine.engine_ids(tokens)[f"dim{pcfg.d_model}"].numpy()
+    ids = np.delete(ids, np.arange(0, ids.size, 7))  # some tokens missing: they read as zero rows
+    n = ids.size
+    rows = {f"dim{pcfg.d_model}": {"ids": ids, "emb": rng.normal(size=(n, pcfg.d_model)).astype(np.float32),
+                                   "slots": {k: np.zeros((n, pcfg.d_model), np.float32) for k in ("m", "v")},
+                                   "last_use": np.ones(n, np.int32)}}
+    states = {}
+    for d, cell in psmoke.items():
+        states[d] = cell.init_state()
+        states[d]["sparse"] = cell.engine.import_rows(rows)
+    states["cuda"]["dense"].load_state_dict(states["cpu"]["dense"].state_dict())
+    diffs = {}
+    for s in (0, 1):
+        before = fa_ops.LAUNCHES
+        outs = {d: cell.step_fn(states[d], cell.make_batch(s)) for d, cell in psmoke.items()}
+        check(fa_ops.LAUNCHES == before + pcfg.n_layers, "smoke prefill: one flash launch per layer")
+        met = {d: {k: int(v) for k, v in o.items() if "/" in k} for d, o in outs.items()}
+        check(met["cuda"] == met["cpu"], f"smoke prefill metrics differ: {met}")
+        for k in ("logits", "cache_k", "cache_v"):
+            got, want = outs["cuda"][k].float().cpu(), outs["cpu"][k].float()
+            check(bool(torch.isfinite(got).all()) and torch.allclose(got, want, **MIXED_PREFILL_TOL),
+                  f"smoke prefill {k} differs by {(got - want).abs().max()}")
+            diffs[k] = max(diffs.get(k, 0.0), float((got - want).abs().max()))
+    emit({"phase": "smoke_prefill_card_vs_cpu", "arch": "qwen2.5-3b (smoke)", "seq_len": 256, "batch": 2,
+          "requests": 2, "metrics": met["cuda"], "max_abs_diff": diffs, "tolerance": MIXED_PREFILL_TOL})
+    del psmoke, states, outs
+
     # ------------------------------------------------------ 4 full-width serve
     arch = dataclasses.replace(dlrm_mlperf.ARCH, model=dataclasses.replace(
         dlrm_mlperf.ARCH.model, vocab_per_feature=VOCAB))
@@ -361,18 +485,20 @@ def main() -> None:
             "segment_sum_csr": recorder(sr_ops, "segment_sum_csr"),
             "segment_expand_csr": recorder(sr_ops, "segment_expand_csr"),
             "scatter_add_rows": recorder(fs_ops, "scatter_add_rows", whole=True),
-            "scatter_set_rows": recorder(fs_ops, "scatter_set_rows", whole=True)}
+            "scatter_set_rows": recorder(fs_ops, "scatter_set_rows", whole=True),
+            "flash_attention": recorder(fa_ops, "flash_attention")}
 
     def counts() -> dict:
         return {"fused_gather.gather_rows": fg_ops.LAUNCHES,
                 "segment_reduce.segment_sum": sr_ops.LAUNCHES,
                 "segment_reduce.segment_expand_csr": sr_ops.LAUNCHES_BWD,
                 "fused_scatter.scatter_add_rows": fs_ops.LAUNCHES_ADD,
-                "fused_scatter.scatter_set_rows": fs_ops.LAUNCHES_SET}
+                "fused_scatter.scatter_set_rows": fs_ops.LAUNCHES_SET,
+                "flash_attention.flash_fwd": fa_ops.LAUNCHES}
 
     def reset_counts() -> None:
         fg_ops.LAUNCHES = sr_ops.LAUNCHES = sr_ops.LAUNCHES_BWD = 0
-        fs_ops.LAUNCHES_ADD = fs_ops.LAUNCHES_SET = 0
+        fs_ops.LAUNCHES_ADD = fs_ops.LAUNCHES_SET = fa_ops.LAUNCHES = 0
 
     batches = {s: p99.make_batch(s, vocab=VOCAB) for s in range(N_WARMUP + N_P99_REQUESTS)}
     bulk_batch = bulk.make_batch(10_000, vocab=VOCAB)
@@ -421,7 +547,7 @@ def main() -> None:
             ids = cell.ids_fn(batch)
             eng = cell.engine.engine_ids(ids)["dim128"]
             _, _, plans, _ = cell.engine.fetch_local(
-                recsys_cell._local(state["sparse"]), ids, state["step"], train=False)
+                local_view(state["sparse"]), ids, state["step"], train=False)
         want = torch.unique(eng[eng != -1]).numel()
         got = int(plans["dim128"].valid_r.sum())
         check(got == want, f"{got} of {want} live unique ids found")
@@ -500,7 +626,8 @@ def main() -> None:
             del sample
     train_launches = counts()
     check(inserted[0] > 0, "step 1 inserted nothing")
-    check(all(v > 0 for v in train_launches.values()), f"a kernel of the train path never ran: {train_launches}")
+    check(all(v > 0 for k, v in train_launches.items() if not k.startswith("flash")),
+          f"a kernel of the train path never ran: {train_launches}")
     check(train_launches["fused_gather.gather_rows"] == 4 * n_steps
           and train_launches["fused_scatter.scatter_add_rows"] == 3 * n_steps
           and train_launches["segment_reduce.segment_sum"] == mcfg.n_sparse * n_steps
@@ -533,17 +660,118 @@ def main() -> None:
           "step_transient_bytes": train_peak - base_bytes, "state_bytes": tstate_bytes,
           "launches": train_launches,
           "launches_per_step": {k: v / n_steps for k, v in train_launches.items()}})
-    for fn_name, fn in real.items():  # the wrappers record no more
-        setattr(fg_ops if fn_name == "gather_rows" else fs_ops if fn_name.startswith("scatter") else sr_ops,
-                fn_name, fn)
     del tstate, tbatches, train, step_ids, seen
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------- 4 full-width prefill
+    lm_cfg = qwen2_5_3b.ARCH.model
+    V, d_model, L_lm = lm_cfg.vocab_size, lm_cfg.d_model, lm_cfg.n_layers
+    pshape = ShapeCell("prefill_32k", "prefill", {"seq_len": PREFILL_T, "global_batch": 1})
+    check(qwen2_5_3b.ARCH.shape("prefill_32k")["seq_len"] == PREFILL_T, "prefill_32k seq_len")
+    torch.cuda.synchronize()
+    held_before = torch.cuda.memory_allocated()  # what earlier phases still hold (recorded inputs)
+    t0 = time.perf_counter()
+    pre = build_cell("qwen2.5-3b", "prefill_32k", shape_override=pshape, device=dev)
+    gkey = f"dim{d_model}"
+    pstate = pre.init_state()  # weights from a seeded generator
+    vocab = {"tokens": Ragged(torch.arange(V, dtype=torch.int64, device=dev),
+                              torch.tensor([0, V], dtype=torch.int32, device=dev))}
+    all_ids = pre.engine.engine_ids(vocab)[gkey]
+    check(torch.unique(all_ids).numel() == V, "engine ids of distinct tokens collide")
+    emb = torch.randn((V, d_model), generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    zeros = torch.zeros((V, d_model), dtype=torch.float32, device=dev)
+    pstate["sparse"] = pre.engine.import_rows({gkey: {
+        "ids": all_ids, "emb": emb, "slots": {"m": zeros, "v": zeros},
+        "last_use": torch.zeros(V, dtype=torch.int32, device=dev)}})
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    del emb, zeros, all_ids, vocab
+    check(int(pstate["sparse"][gkey]["idmap"].n_live()) == V, "not every token's row is live")
+    dense_bytes = sum(p.numel() * p.element_size() for p in pstate["dense"].parameters())
+    sparse_bytes = sum(t.numel() * t.element_size() for t in _tensors(pstate["sparse"]))
+    pbatches = [pre.make_batch(30_000 + s) for s in range(1 + N_PREFILL)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    prefill_ms = []
+    for s, batch in enumerate(pbatches):
+        phase["name"] = "prefill" if s == 1 else None  # layer 0's attention inputs, first timed request
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        pout = pre.step_fn(pstate, batch)
+        end.record()
+        end.synchronize()
+        phase["name"] = None
+        if s >= 1:
+            prefill_ms.append(start.elapsed_time(end))
+        met = {k: int(v) for k, v in pout.items() if "/" in k}
+        check(all(v == 0 for k, v in met.items() if "overflow" in k), f"prefill overflow: {met}")
+        check(met[f"{gkey}/dev_rows_live"] == V, f"prefill rows live: {met}")
+        check(pout["logits"].shape == (1, V) and pout["logits"].dtype == torch.float32
+              and bool(torch.isfinite(pout["logits"]).all()), "prefill logits")
+        for k in ("cache_k", "cache_v"):
+            c = pout[k]
+            check(c.shape == (L_lm, 1, PREFILL_T, lm_cfg.n_kv_heads, lm_cfg.head_dim)
+                  and c.dtype == torch.bfloat16 and bool(torch.isfinite(c).all()), f"prefill {k}")
+        del pout
+    prefill_launches = counts()
+    prefill_peak = torch.cuda.max_memory_allocated() - held_before
+    n_pre = len(pbatches)
+    check(prefill_launches["flash_attention.flash_fwd"] == L_lm * n_pre
+          and prefill_launches["fused_gather.gather_rows"] == n_pre,
+          f"prefill launches {prefill_launches}")
+    for fn_name, fn in real.items():  # the wrappers record no more
+        setattr(fg_ops if fn_name == "gather_rows" else fs_ops if fn_name.startswith("scatter")
+                else fa_ops if fn_name.startswith("flash") else sr_ops, fn_name, fn)
+    found = []  # every token of every request was found (valid_r), after the counted run
+    for batch in pbatches:
+        with torch.inference_mode():
+            _, _, plans, _ = pre.engine.fetch_local(local_view(pstate["sparse"]), pre.ids_fn(batch),
+                                                    pstate["step"], train=False)
+        got, want = int(plans[gkey].valid_r.sum()), torch.unique(batch).numel()
+        check(got == want, f"prefill: {got} of {want} distinct tokens found")
+        found.append(got)
+        del plans
+    # layer 0's attention on every query row against the plain formula (in
+    # pieces: its whole (H, T, T) score tensor would take 68 GB), and what a
+    # zero output or one from the other kv head would read
+    q0, k0, v0 = recorded[("flash_attention", "prefill")][0]
+    o0, lse0 = fa_ops.flash_fwd(q0, k0, v0)
+    want_o, want_l = plain_flash_chunked(fa_ref, q0, k0, v0)
+    wrong_o, _ = plain_flash_chunked(fa_ref, q0, k0.flip(2), v0.flip(2))
+    layer0 = {"max_abs_o": float(want_o.float().abs().max()),
+              "o_max_abs_err": float((o0.float() - want_o.float()).abs().max()),
+              "o_err_over_tol": flash_excess(o0, want_o, q0.dtype),
+              "lse_max_abs_err": float((lse0 - want_l).abs().max()),
+              "zero_output_err_over_tol": flash_excess(torch.zeros_like(want_o), want_o, q0.dtype),
+              "other_kv_head_err_over_tol": flash_excess(wrong_o, want_o, q0.dtype)}
+    check(layer0["o_err_over_tol"] <= 1.0 and torch.allclose(lse0, want_l, rtol=LSE_TOL, atol=LSE_TOL),
+          f"prefill layer 0 attention {layer0}")
+    check(layer0["zero_output_err_over_tol"] > 1.0 and layer0["other_kv_head_err_over_tol"] > 1.0,
+          f"the layer 0 check cannot tell a wrong output: {layer0}")
+    del o0, lse0, want_o, want_l, wrong_o
+    pm = np.array(prefill_ms)
+    emit({"phase": "full_prefill", "arch": "qwen2.5-3b", "shape": "prefill_32k", "widths": {
+              "n_layers": L_lm, "d_model": d_model, "n_heads": lm_cfg.n_heads, "n_kv_heads": lm_cfg.n_kv_heads,
+              "d_ff": lm_cfg.d_ff, "vocab_size": V, "qkv_bias": lm_cfg.qkv_bias, "rope_theta": lm_cfg.rope_theta},
+          "seq_len": PREFILL_T, "reduced": {"global_batch": [32, 1]},
+          "warmup": 1, "requests": N_PREFILL, "setup_s": setup_s,
+          "request_ms_p50": float(np.percentile(pm, 50)), "request_ms_mean": float(pm.mean()),
+          "request_ms": prefill_ms, "tokens_per_s": PREFILL_T / (float(pm.mean()) / 1e3),
+          "distinct_tokens_found": found, "layer0_attention_vs_plain": layer0,
+          "dense_param_bytes": dense_bytes, "engine_state_bytes": sparse_bytes,
+          "max_memory_allocated_bytes": prefill_peak, "held_from_earlier_phases_bytes": held_before,
+          "launches": prefill_launches,
+          "launches_per_request": {k: v / n_pre for k, v in prefill_launches.items()}})
+    emit(profile_requests("prefill", lambda b: pre.step_fn(pstate, b), pbatches[1:2]))
+    del pstate, pre, pbatches
     torch.cuda.empty_cache()
 
     # ------------------------------- 5 kernels on the serve and train inputs
     kernels_on_path = [  # (entry, wrapper, source, TPU kernel replaced, plain, paths, library call)
         ("fused_gather.gather_rows", "gather_rows", "fused_gather.cu",
          "src/repro/kernels/fused_gather/fused_gather.py:34", fg_ref.gather_rows,
-         ("serve_p99", "serve_bulk", "train"), "torch.index_select"),
+         ("serve_p99", "serve_bulk", "train", "prefill"), "torch.index_select"),
         ("segment_reduce.segment_sum", "segment_sum_csr", "segment_reduce.cu",
          "src/repro/kernels/segment_reduce/segment_reduce.py:87", sr_ref.segment_sum_csr,
          ("serve_p99", "serve_bulk", "train"), "zeros.index_add_"),
@@ -566,7 +794,7 @@ def main() -> None:
             del args
             torch.cuda.empty_cache()
         main_path = at[paths[0]]
-        by_path = {"serve": launches[full], "train": train_launches[full]}
+        by_path = {"serve": launches[full], "train": train_launches[full], "prefill": prefill_launches[full]}
         entries.append({
             "name": full, "route": "cuda", "source": f"src/repro_torch/csrc/{src_file}",
             "replaces": replaces, "ok": True, "launches": sum(by_path.values()),
@@ -576,6 +804,17 @@ def main() -> None:
             "ms": main_path["ms"], "kernel_ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
             "bound_ms": main_path["bound_ms"], "bound_by": main_path["bound_by"],
             "library_ms": main_path["library_ms"], "library_call": lib_call, "at": at})
+    flash = _measure_flash(real["flash_attention"], fa_ref, *recorded.pop(("flash_attention", "prefill"))[0])
+    entries.append({
+        "name": "flash_attention.flash_fwd", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:83", "ok": True,
+        "launches": prefill_launches["flash_attention.flash_fwd"],
+        "launches_by_path": {"serve": launches["flash_attention.flash_fwd"],
+                             "train": train_launches["flash_attention.flash_fwd"],
+                             "prefill": prefill_launches["flash_attention.flash_fwd"]},
+        "main_path": "prefill", "max_abs_err": layer0["o_max_abs_err"],
+        "max_err": layer0["o_max_abs_err"], "kernel_ms": flash["ms"], "library_call":
+        "F.scaled_dot_product_attention(is_causal=True), kv expanded", **flash})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
 
@@ -650,6 +889,30 @@ def _measure(kname: str, real, plain, args: list, kw: dict, iters: int, dev) -> 
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     return {"shape": shape, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
             "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes}
+
+
+def _measure_flash(real, ref, q, k, v) -> dict:
+    """The flash kernel on layer 0's recorded prefill inputs, timed beside
+    its plain version (in query-row pieces, ``plain_flash_chunked``) and
+    scaled_dot_product_attention on the same q and the expanded k, v."""
+    import torch.nn.functional as F
+
+    B, T, H, hd = q.shape
+    ke, ve = (ref.expand_kv(x, H // k.shape[2]).transpose(1, 2) for x in (k, v))
+    qt = q.transpose(1, 2)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, ke, ve, is_causal=True), 3)
+    del ke, ve, qt
+    k_ms = time_ms(lambda: real(q, k, v), 3)
+    p_ms = time_ms(lambda: plain_flash_chunked(ref, q, k, v), 2)
+    n_ops = 4.0 * hd * H * B * T * (T + 1) / 2  # two products over the causal triangle
+    # q, k, v read once; O (q's shape and type) and the fp32 LSE written once
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + B * H * T * 4
+    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "plain_rows_per_piece": PLAIN_ROWS,
+            "at": {"prefill": {"shape": {"B": B, "T": T, "H": H, "Hk": k.shape[2], "hd": hd,
+                                         "dtype": str(q.dtype), "causal": True},
+                               "flops": n_ops, "bytes": n_bytes, "tflops_per_s": n_ops / k_ms / 1e9}}}
 
 
 def _row_sample(state, touched: torch.Tensor, live: torch.Tensor, idmap_lib, n: int = 4096) -> dict:

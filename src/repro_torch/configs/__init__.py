@@ -7,6 +7,7 @@ from repro_torch.configs.base import ArchConfig
 
 _MODULES = {
     "dlrm-mlperf": "dlrm_mlperf",
+    "qwen2.5-3b": "qwen2_5_3b",
 }
 
 ARCH_IDS = tuple(_MODULES)

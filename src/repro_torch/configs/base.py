@@ -1,5 +1,5 @@
 """Config framework: architectures × input-shape cells (port of
-``repro/configs/base.py``, recsys shapes only)."""
+``repro/configs/base.py``, recsys and LM shapes)."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,7 +9,7 @@ from typing import Any, Mapping
 @dataclasses.dataclass(frozen=True)
 class ShapeCell:
     name: str
-    kind: str                      # train | serve | retrieval
+    kind: str                      # train | serve | retrieval | prefill | decode
     params: Mapping[str, Any] = dataclasses.field(default_factory=dict)
 
     def __getitem__(self, k):
@@ -22,7 +22,7 @@ class ShapeCell:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     arch_id: str
-    family: str                    # recsys
+    family: str                    # recsys | lm
     model: Any                     # family-specific model config
     shapes: tuple[ShapeCell, ...]
     source: str = ""
@@ -40,4 +40,11 @@ RECSYS_SHAPES = (
     ShapeCell("serve_p99", "serve", {"batch": 512}),
     ShapeCell("serve_bulk", "serve", {"batch": 262_144}),
     ShapeCell("retrieval_cand", "retrieval", {"batch": 1, "n_candidates": 1_000_000}),
+)
+
+LM_SHAPES = (
+    ShapeCell("train_4k", "train", {"seq_len": 4096, "global_batch": 256}),
+    ShapeCell("prefill_32k", "prefill", {"seq_len": 32768, "global_batch": 32}),
+    ShapeCell("decode_32k", "decode", {"seq_len": 32768, "global_batch": 128}),
+    ShapeCell("long_500k", "decode", {"seq_len": 524288, "global_batch": 1, "long_context": True}),
 )

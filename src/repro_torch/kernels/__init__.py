@@ -26,13 +26,14 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
-_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_P, _I64, _INT, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 # C entry points: name → argtypes. Each returns cudaGetLastError() as int.
 _SIGNATURES = {
     "repro_gather_rows": [_P, _P, _INT, _P, _I64, _I64, _I64, _P],
     "repro_segment_sum_sorted": [_P, _P, _INT, _P, _I64, _I64, _I64, _P],
     "repro_segment_expand_csr": [_P, _I64, _P, _INT, _P, _I64, _I64, _I64, _P],
     "repro_scatter_rows": [_P, _P, _INT, _P, _P, _I64, _I64, _I64, _INT, _P],
+    "repro_flash_fwd": [_P, _P, _P, _P, _P, _INT, *[_I64] * 5, *[_I64] * 9, _F32, _INT, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,0 +1,1 @@
+"""Causal flash attention, forward: CUDA kernel, wrapper and plain version."""

@@ -14,8 +14,12 @@ def build_cell(arch_id: str, shape_name: str, opts: CellOptions = CellOptions(),
     no card is present and no device was named."""
     arch = get_config(arch_id, smoke=smoke)
     shape = shape_override or arch.shape(shape_name)
-    if arch.family != "recsys":
-        raise NotImplementedError(f"the {arch.family} family is not ported yet")
-    from repro_torch.launch import recsys_cell
+    if arch.family == "recsys":
+        from repro_torch.launch import recsys_cell
 
-    return recsys_cell.build(arch, shape, opts, device)
+        return recsys_cell.build(arch, shape, opts, device)
+    if arch.family == "lm":
+        from repro_torch.launch import lm_cell
+
+        return lm_cell.build(arch, shape, opts, device)
+    raise NotImplementedError(f"the {arch.family} family is not ported yet")

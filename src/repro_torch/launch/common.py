@@ -45,3 +45,9 @@ def resolve_device(device=None) -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def local_view(sparse: dict) -> dict:
+    """The one device's view of the stacked [D, ...] sparse state."""
+    return {k: {"idmap": v["idmap"].map(lambda x: x[0]),
+                "blocks": v["blocks"].map(lambda x: x[0])} for k, v in sparse.items()}

@@ -21,7 +21,7 @@ from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.core.embedding_engine import EmbeddingEngine, EngineConfig
 from repro_torch.core.feature_engine import FeatureEngine, FeatureSpec
 from repro_torch.io.ragged import Ragged
-from repro_torch.launch.common import Cell, CellOptions, resolve_device, round_up
+from repro_torch.launch.common import Cell, CellOptions, local_view, resolve_device, round_up
 from repro_torch.models.layers import MIXED
 from repro_torch.optim import adamw
 from repro_torch.optim.sparse_adam import SparseAdamConfig
@@ -104,15 +104,9 @@ def _plumbing(arch: ArchConfig, b_loc: int, specs: list[FeatureSpec],
                      device=device)
 
 
-def _local(sparse: dict) -> dict:
-    """The one device's view of the stacked [D, ...] sparse state."""
-    return {k: {"idmap": v["idmap"].map(lambda x: x[0]),
-                "blocks": v["blocks"].map(lambda x: x[0])} for k, v in sparse.items()}
-
-
 def _stacked(local: dict, sparse: dict) -> dict:
     """The stacked [1, ...] sparse state after a train step: the new IDMap
-    gains its device axis; the Blocks were written through ``_local``'s
+    gains its device axis; the Blocks were written through ``local_view``'s
     views, so the stacked tensors already hold the update."""
     return {k: {"idmap": v["idmap"].map(lambda x: x.unsqueeze(0)),
                 "blocks": sparse[k]["blocks"]} for k, v in local.items()}
@@ -138,7 +132,7 @@ def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
         with torch.inference_mode():
             ids, _ = pl.prepared(batch)
             _, rows_r, plans, met = pl.engine.fetch_local(
-                _local(state["sparse"]), ids, state["step"], train=False)
+                local_view(state["sparse"]), ids, state["step"], train=False)
             acts = pl.engine.activations(rows_r, plans, ids)
             logits = model.apply(state["dense"], mcfg, acts, dense_fn(batch), MIXED)
         return {"logits": logits, **met}
@@ -152,7 +146,7 @@ def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
         with torch.no_grad():
             ids, _ = pl.prepared(batch)
             local, rows_r, plans, met = pl.engine.fetch_local(
-                _local(state["sparse"]), ids, step, train=True)
+                local_view(state["sparse"]), ids, step, train=True)
         rows_r = {k: v.requires_grad_() for k, v in rows_r.items()}
         params = dict(state["dense"].named_parameters())
         acts = pl.engine.activations(rows_r, plans, ids)

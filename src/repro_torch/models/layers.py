@@ -27,18 +27,41 @@ MIXED = Precision()
 
 
 def dense_init_(layer: nn.Linear, gen: torch.Generator) -> None:
-    """weight ~ U(-1/sqrt(d_in), 1/sqrt(d_in)), bias = 0, drawn on the CPU
-    from ``gen`` so every device gets the same numbers from one seed."""
+    """weight ~ U(-1/sqrt(d_in), 1/sqrt(d_in)), bias (if any) = 0, drawn on
+    the CPU from ``gen`` so every device gets the same numbers from one seed."""
     d_out, d_in = layer.weight.shape
     s = 1.0 / np.sqrt(d_in)
     w = torch.empty((d_out, d_in), dtype=torch.float32).uniform_(-s, s, generator=gen)
     with torch.no_grad():
         layer.weight.copy_(w)
-        layer.bias.zero_()
+        if layer.bias is not None:
+            layer.bias.zero_()
+
+
+def dense(d_in: int, d_out: int, gen: torch.Generator, bias: bool = True, device=None) -> nn.Linear:
+    """An ``nn.Linear`` drawn by ``dense_init_`` (the reference's ``make_dense``)."""
+    layer = nn.Linear(d_in, d_out, bias=bias, device=device)
+    dense_init_(layer, gen)
+    return layer
 
 
 def dense_apply(layer: nn.Linear, x: torch.Tensor, prec: Precision = MIXED) -> torch.Tensor:
-    return F.linear(prec.cast(x), prec.cast(layer.weight), prec.cast(layer.bias))
+    b = layer.bias
+    return F.linear(prec.cast(x), prec.cast(layer.weight), None if b is None else prec.cast(b))
+
+
+class RMSNorm(nn.Module):
+    """``x * rsqrt(mean(x²) + eps) * scale`` in fp32, returned in x's type;
+    ``scale`` starts at ones."""
+
+    def __init__(self, dim: int, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        return (xf * torch.rsqrt(var + eps) * self.scale).to(x.dtype)
 
 
 class MLP(nn.Module):
@@ -49,9 +72,7 @@ class MLP(nn.Module):
         super().__init__()
         self.n_layers = len(dims) - 1
         for i in range(self.n_layers):
-            layer = nn.Linear(dims[i], dims[i + 1], device=device)
-            dense_init_(layer, gen)
-            self.add_module(f"l{i}", layer)
+            self.add_module(f"l{i}", dense(dims[i], dims[i + 1], gen, device=device))
 
     def forward(self, x: torch.Tensor, prec: Precision = MIXED, final_act: bool = False) -> torch.Tensor:
         for i in range(self.n_layers):
@@ -59,3 +80,17 @@ class MLP(nn.Module):
             if i < self.n_layers - 1 or final_act:
                 x = F.relu(x)
         return x
+
+
+class SwiGLU(nn.Module):
+    """``down(silu(gate(x)) · up(x))``, no biases."""
+
+    def __init__(self, d_model: int, d_ff: int, gen: torch.Generator, device=None):
+        super().__init__()
+        self.gate = dense(d_model, d_ff, gen, bias=False, device=device)
+        self.up = dense(d_model, d_ff, gen, bias=False, device=device)
+        self.down = dense(d_ff, d_model, gen, bias=False, device=device)
+
+    def forward(self, x: torch.Tensor, prec: Precision = MIXED) -> torch.Tensor:
+        g = F.silu(dense_apply(self.gate, x, prec))
+        return dense_apply(self.down, g * dense_apply(self.up, x, prec), prec)

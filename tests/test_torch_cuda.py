@@ -13,6 +13,7 @@ import torch
 from repro_torch.configs.base import ShapeCell
 from repro_torch.core.feature_engine import FeatureEngine, FeatureSpec
 from repro_torch.io.ragged import Ragged
+from repro_torch.kernels.flash_attention import ops as t_fa, ref as t_fa_ref
 from repro_torch.kernels.fused_gather import ops as t_fg, ref as t_fg_ref
 from repro_torch.kernels.fused_scatter import ops as t_fs, ref as t_fs_ref
 from repro_torch.kernels.segment_reduce import ops as t_sr, ref as t_sr_ref
@@ -211,3 +212,116 @@ def test_smoke_train_cell_card_matches_cpu(cuda):
     for n, p in states["cpu"]["dense"].state_dict().items():
         np.testing.assert_allclose(states["cuda"]["dense"].state_dict()[n].cpu().numpy(), p.numpy(),
                                    rtol=0, atol=6e-3, err_msg=n)
+
+
+# flash attention forward: the kernel against its plain version on the card.
+# Both keep fp32 statistics and round O once, so O may differ by one rounding:
+# |got - want| <= rtol * |want| + atol * max|want|, with rtol 1e-2 in bf16 (one
+# bf16 ulp is at most 2^-7 of the value) and 1e-4 in fp32 (summation order),
+# atol 1e-3 in bf16 and 1e-4 in fp32. A zero output reads max|want| and fails.
+# LSE within 1e-4.
+FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-3)}
+FLASH_CASES = [  # B, T, H, Hk, hd, dtype, causal
+    (1, 128, 2, 2, 64, torch.float32, True), (2, 200, 4, 2, 16, torch.float32, True),
+    (1, 1024, 8, 1, 128, torch.bfloat16, True), (2, 1024, 16, 2, 128, torch.bfloat16, True),
+    (1, 200, 8, 8, 32, torch.bfloat16, True), (2, 128, 4, 4, 128, torch.float32, True),
+    (1, 1024, 4, 2, 64, torch.bfloat16, True), (1, 200, 2, 1, 128, torch.float32, True),
+    (2, 200, 4, 2, 64, torch.float32, False), (1, 1024, 2, 1, 16, torch.bfloat16, False),
+]
+
+
+def _flash_inputs(b, t, h, hk, hd, dtype, cuda, seed=0):
+    g = torch.Generator().manual_seed(seed + b * t + h * hk + hd)
+    return [torch.randn((b, t, n, hd), generator=g).to(dtype).to(cuda) for n in (h, hk, hk)]
+
+
+def _check_flash(q, k, v, causal):
+    before = t_fa.LAUNCHES
+    o, lse = t_fa.flash_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert t_fa.LAUNCHES == before + 1
+    want_o, want_lse = t_fa_ref.flash_fwd(q, k, v, causal)
+    rtol, atol = FLASH_TOL[q.dtype]
+    assert o.dtype == q.dtype and o.shape == q.shape and lse.shape == (q.shape[0], q.shape[2], q.shape[1])
+    want = want_o.float().cpu().numpy()
+    np.testing.assert_allclose(o.float().cpu().numpy(), want, rtol=rtol, atol=atol * np.abs(want).max())
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,hk,hd,dtype,causal", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, monkeypatch, b, t, h, hk, hd, dtype, causal):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)  # a full-fp32 oracle
+    _check_flash(*_flash_inputs(b, t, h, hk, hd, dtype, cuda), causal)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_and_unaligned_inputs(cuda, monkeypatch):
+    """q, k, v as head slices of one fused projection are read by stride;
+    q at an address 4 bytes off a 16-byte boundary is refused."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    b, t, h, hk, hd = 2, 300, 8, 2, 64
+    g = torch.Generator().manual_seed(1)
+    fused = torch.randn((b, t, h + 2 * hk, hd), generator=g).to(cuda)
+    q, k, v = fused[:, :, :h], fused[:, :, h:h + hk], fused[:, :, h + hk:]
+    assert not q.is_contiguous()
+    _check_flash(q, k, v, True)
+    buf = torch.randn(b * t * h * hd + 1, generator=g).to(cuda)
+    before = t_fa.LAUNCHES
+    with pytest.raises(ValueError, match="16-byte"):
+        t_fa.flash_fwd(buf[1:].view(b, t, h, hd), k.contiguous(), v.contiguous())
+    assert t_fa.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_gradients_and_bad_inputs(cuda):
+    q, k, v = _flash_inputs(1, 64, 2, 1, 32, torch.float32, cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP B7"):
+        t_fa.flash_attention(q.requires_grad_(), k, v)
+    with torch.no_grad():
+        t_fa.flash_attention(q, k, v)  # no gradient wanted: the kernel runs
+    q = q.detach()
+    with pytest.raises(ValueError):
+        t_fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        t_fa.flash_attention(q[..., :24], k[..., :24], v[..., :24])
+    with pytest.raises(ValueError):
+        t_fa.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError):
+        t_fa.flash_attention(q[:, :, :1], k.expand(1, 64, 2, 32), v)  # H not a multiple of Hk
+
+
+@pytest.mark.cuda
+def test_smoke_prefill_cell_card_matches_cpu(cuda):
+    """The qwen2.5 smoke prefill (T = 256, B = 2) on the card and on the CPU
+    from the same rows and weights: metrics equal, logits and cache within
+    bf16 tolerances (the stack runs in bf16 on both; sums are taken in
+    another order), one flash launch per layer."""
+    shape = ShapeCell("prefill_32k", "prefill", {"seq_len": 256, "global_batch": 2})
+    cells = {d: build_cell("qwen2.5-3b", "prefill_32k", smoke=True, shape_override=shape, device=d)
+             for d in ("cpu", "cuda")}
+    cfg = cells["cpu"].arch.model
+    vocab = torch.arange(cfg.vocab_size, dtype=torch.int64)
+    ids = cells["cpu"].engine.engine_ids(
+        {"tokens": Ragged(vocab, torch.tensor([0, cfg.vocab_size], dtype=torch.int32))})["dim64"]
+    ids = ids[torch.arange(ids.numel()) % 7 != 0]  # some tokens read zero rows
+    n = ids.numel()
+    r = np.random.default_rng(0)
+    rows = {"dim64": {"ids": ids.numpy(), "emb": r.normal(size=(n, 64)).astype(np.float32),
+                      "slots": {k: np.zeros((n, 64), np.float32) for k in ("m", "v")},
+                      "last_use": np.ones(n, np.int32)}}
+    states = {}
+    for d, c in cells.items():
+        states[d] = c.init_state()
+        states[d]["sparse"] = c.engine.import_rows(rows)
+    states["cuda"]["dense"].load_state_dict(states["cpu"]["dense"].state_dict())
+    for s in range(2):
+        before = t_fa.LAUNCHES
+        outs = {d: c.step_fn(states[d], c.make_batch(s)) for d, c in cells.items()}
+        assert t_fa.LAUNCHES == before + cfg.n_layers
+        met = {d: {k: int(v) for k, v in o.items() if "/" in k} for d, o in outs.items()}
+        assert met["cuda"] == met["cpu"] and met["cpu"]["dim64/dev_rows_live"] == n
+        for k in ("logits", "cache_k", "cache_v"):
+            got, want = outs["cuda"][k].float().cpu().numpy(), outs["cpu"][k].float().numpy()
+            assert np.isfinite(got).all()
+            np.testing.assert_allclose(got, want, rtol=3e-2, atol=3e-2, err_msg=k)

@@ -8,9 +8,11 @@ import pytest
 import torch
 
 from repro.io.ragged import Ragged as JRagged
+from repro.kernels.flash_attention import ops as j_fa
 from repro.kernels.fused_gather import ops as j_fg
 from repro.kernels.fused_scatter import ops as j_fs, ref as j_fs_ref
 from repro.kernels.segment_reduce import ops as j_sr
+from repro_torch.kernels.flash_attention import ops as t_fa
 from repro_torch.kernels.fused_gather import ops as t_fg
 from repro_torch.kernels.fused_scatter import ops as t_fs
 from repro_torch.kernels.segment_reduce import ops as t_sr
@@ -152,3 +154,57 @@ def test_segment_sum_csr_vjp_matches_pallas(n_rows, d, budget, split_dtype):
     wide[:, 1] = torch.from_numpy(g)
     np.testing.assert_array_equal(
         t_sr.segment_expand_csr(wide[:, 1], torch.from_numpy(splits), budget).numpy(), np.asarray(want))
+
+
+# flash attention: the port's plain version (the CPU path of ops.flash_fwd)
+# against the JAX Pallas kernel in interpret mode, on the shapes of
+# tests/test_kernels.py and with grouped kv heads. Tolerances as there:
+# 2e-3 in fp32 (online against one-pass softmax), 3e-2 in bf16.
+
+def _qkv(b, t, h, hk, hd, seed):
+    r = np.random.default_rng(seed)
+    return (r.normal(size=(b, t, h, hd)).astype(np.float32),
+            r.normal(size=(b, t, hk, hd)).astype(np.float32),
+            r.normal(size=(b, t, hk, hd)).astype(np.float32))
+
+
+def _jax_flash(q, k, v, causal, dtype=jnp.float32):
+    """O (B, T, H, hd) and LSE (B, H, T) of the Pallas kernel, kv heads expanded."""
+    from repro.models.attention import _expand_kv
+
+    b, t, h, _ = q.shape
+    g = h // k.shape[2]
+    jq, jk, jv = (jnp.asarray(x).astype(dtype) for x in (q, k, v))
+    o, res = j_fa._fwd_impl(jq, _expand_kv(jk, g), _expand_kv(jv, g), causal, None)
+    lse = np.asarray(res[4])[:, :t].reshape(b, h, t)
+    return np.asarray(o.astype(jnp.float32)), lse
+
+
+@pytest.mark.parametrize("b,t,h,hk,hd", [
+    (1, 128, 2, 2, 64), (2, 256, 4, 2, 128), (1, 200, 1, 1, 32), (1, 200, 8, 1, 16),
+])
+def test_flash_plain_matches_pallas(b, t, h, hk, hd):
+    q, k, v = _qkv(b, t, h, hk, hd, seed=b * t + h + hd)
+    want_o, want_lse = _jax_flash(q, k, v, True)
+    got_o, got_lse = t_fa.flash_fwd(*(torch.from_numpy(x) for x in (q, k, v)), causal=True)
+    assert got_lse.shape == (b, h, t) and got_lse.dtype == torch.float32
+    np.testing.assert_allclose(got_o.numpy(), want_o, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse, rtol=2e-3, atol=2e-3)
+
+
+def test_flash_plain_matches_pallas_not_causal():
+    q, k, v = _qkv(1, 128, 4, 2, 64, seed=5)
+    want_o, want_lse = _jax_flash(q, k, v, False)
+    got_o, got_lse = t_fa.flash_fwd(*(torch.from_numpy(x) for x in (q, k, v)), causal=False)
+    np.testing.assert_allclose(got_o.numpy(), want_o, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("b,t,h,hk,hd", [(1, 128, 2, 2, 64), (2, 128, 4, 2, 16)])
+def test_flash_plain_matches_pallas_bf16(b, t, h, hk, hd):
+    q, k, v = _qkv(b, t, h, hk, hd, seed=7)
+    want_o, _ = _jax_flash(q, k, v, True, jnp.bfloat16)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    got = t_fa.flash_attention(tq, tk, tv)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want_o, rtol=3e-2, atol=3e-2)

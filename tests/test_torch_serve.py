@@ -23,7 +23,7 @@ from repro_torch.convert import dense_from_numpy
 from repro_torch.io.ragged import Ragged
 from repro_torch.launch import recsys_cell as t_recsys
 from repro_torch.launch.cells import build_cell as t_build_cell
-from repro_torch.launch.common import CellOptions as TOpts
+from repro_torch.launch.common import CellOptions as TOpts, local_view
 from repro_torch.models import layers as t_layers
 from repro_torch.models.recsys import dlrm as t_dlrm
 
@@ -107,7 +107,7 @@ def _acts(cells, seed):
     jacts = jcell.engine.activations(jrows, jplans, jids)
     tb = _t_batch(jb)
     tids = tcell.ids_fn(tb)
-    tst = t_recsys._local(cells["tstate"]["sparse"])
+    tst = local_view(cells["tstate"]["sparse"])
     _, trows, tplans, _ = tcell.engine.fetch_local(tst, tids, torch.tensor(0), train=False)
     tacts = tcell.engine.activations(trows, tplans, tids)
     return jb, jacts, tacts
