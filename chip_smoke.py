@@ -1,23 +1,26 @@
 #!/usr/bin/env python3
 """The PyTorch port serving and training dlrm-mlperf, and serving the
-qwen2.5-3b prefill, on one NVIDIA card, through its own CUDA kernels.
+qwen2.5-3b prefill and training qwen2.5-3b, on one NVIDIA card, through its
+own CUDA kernels.
 
     python3 chip_smoke.py
 
 Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
 
-  1. device   — the card, its power limit, the kernel build time;
+  1. device   — the card, its power limit, the kernel build time, and
+                each kernel's registers, spills and static shared memory
+                as ptxas reported them in the build;
   2. kernels  — each CUDA kernel against its plain PyTorch version on random
                 inputs (PAD and out-of-range ids, unsorted and empty
                 segments, invalid scatter slots, D not a multiple of 4,
                 unaligned pointers, views of stacked tables; flash
-                attention over head dims 16-128, T not a multiple of the
-                tile, grouped kv heads, bf16 and fp32, strided inputs, an
-                unaligned q refused);
+                attention forward and backward over head dims 16-128, T not
+                a multiple of the tile, grouped kv heads, bf16 and fp32,
+                strided inputs, an unaligned q refused);
   3. smoke    — the smoke-size serve cell, then three steps of the smoke
-                train cell, then two qwen2.5 smoke prefill requests, on the
-                card against the same cells on the CPU: same rows, params
-                and batches;
+                train cell, then two qwen2.5 smoke prefill requests, then
+                three qwen2.5 smoke train steps, on the card against the
+                same cells on the CPU: same rows, params and batches;
   4. serve    — full-width dlrm-mlperf (vocab cut to 250,000 per feature):
                 6.5 M rows imported, 20 serve_p99 requests (batch 512) and
                 two serve_bulk requests (batch 262,144: the first at that
@@ -33,11 +36,19 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 rows for all 151,936 tokens imported, 1 warm-up and 3 timed
                 requests with the kernels' launch counts, output checks,
                 layer 0's attention against the plain formula on every
-                query row, a torch.profiler trace of one request;
+                query row, a torch.profiler trace of one request; then the
+                serve, train and prefill kernels are measured (phase 5) and
+                everything those paths held is released;
+     lm train — full-width qwen2.5-3b train_4k (T 4,096, batch cut to 1)
+                from a fresh state on an emptied card: 2 warm-up and 5
+                timed steps with the kernels' launch counts, state and
+                memory checks, layer 0's attention gradients against the
+                plain backward on every row, a torch.profiler trace of one
+                step, three steps on one repeated batch (the loss falls);
   5. a ``{"kernels": [...]}`` line: each kernel on the exact inputs the
-     serve, train and prefill paths fed it, against its plain version,
-     timed beside the plain version, one PyTorch library call and the
-     card's bound.
+     serve, train, prefill and LM train paths fed it, against its plain
+     version, timed beside the plain version, one PyTorch library call and
+     the card's bound.
 
 Every check raises on failure, so the script exits non-zero. It prints one
 JSON object per line; the last is ``{"ok": true, "device": {...}}``.
@@ -46,6 +57,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -86,6 +99,8 @@ FLASH_CASES = [  # B, T, H, Hk, hd, dtype, causal
     (2, 200, 4, 2, 64, torch.float32, False), (1, 1024, 2, 1, 16, torch.bfloat16, False),
 ]
 PREFILL_T, N_PREFILL = 32_768, 3   # prefill_32k; timed requests after one warm-up
+LM_TRAIN_T = 4_096  # train_4k
+N_LM_WARMUP, N_LM_STEPS, N_LM_REPEAT = 2, 5, 3
 PLAIN_ROWS = 1_024  # query rows per piece of the plain version at T 32,768 (whole, its scores take 68 GB)
 
 
@@ -119,6 +134,24 @@ def flash_excess(got: torch.Tensor, want: torch.Tensor, dtype) -> float:
     return float(((got - want).abs() / allow).max())
 
 
+GRAD_NAMES = ("dq", "dk", "dv")
+
+
+def flash_bwd_readings(got, want, dtype) -> dict:
+    """dQ, dK, dV against the plain backward: each one's largest magnitude,
+    largest error and error over FLASH_TOL, what a zero gradient reads, and
+    what the dK of the other kv head reads (None with one kv head)."""
+    out = {}
+    for n, g, w in zip(GRAD_NAMES, got, want):
+        out[f"{n}_max_abs"] = float(w.float().abs().max())
+        out[f"{n}_max_abs_err"] = float((g.float() - w.float()).abs().max())
+        out[f"{n}_err_over_tol"] = flash_excess(g, w, dtype)
+        out[f"{n}_zero_err_over_tol"] = flash_excess(torch.zeros_like(w), w, dtype)
+    dk = want[1]
+    out["dk_other_kv_head_err_over_tol"] = flash_excess(dk.flip(2), dk, dtype) if dk.shape[2] > 1 else None
+    return out
+
+
 def plain_flash_chunked(ref, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rows: int = PLAIN_ROWS):
     """The plain causal formula (``ref.flash_fwd``) over query rows [s, e),
     each against keys [0, e): the whole result, in pieces that fit."""
@@ -129,6 +162,31 @@ def plain_flash_chunked(ref, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
         outs.append(o)
         lses.append(lse)
     return torch.cat(outs, 1), torch.cat(lses, 2)
+
+
+def ptxas_report(log_path: Path) -> list[dict]:
+    """Registers, spills and static shared memory of each kernel, from the
+    ptxas report the build keeps beside the library; names demangled by
+    c++filt where it is installed."""
+    entries, cur = [], None
+    for line in log_path.read_text().splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            cur = {"function": m.group(1)}
+            entries.append(cur)
+        elif cur is not None and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            cur["spill_store_bytes"], cur["spill_load_bytes"] = int(m.group(1)), int(m.group(2))
+        elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
+            cur["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    cxxfilt = shutil.which("c++filt")
+    if cxxfilt and entries:
+        names = subprocess.run([cxxfilt], input="\n".join(e["function"] for e in entries), capture_output=True,
+                               text=True, timeout=60).stdout.splitlines()
+        if len(names) == len(entries):
+            for e, n in zip(entries, names):
+                e["function"] = n.replace("(anonymous namespace)::", "")
+    return entries
 
 
 def bound_ms(n_bytes: float, n_ops: float = 0.0, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
@@ -168,9 +226,11 @@ def main() -> None:
     kernels.load_library()
     build_s = time.perf_counter() - t0
     name = torch.cuda.get_device_name(0)
+    ptxas = ptxas_report(lib_path.parent / "ptxas.log")
+    check(len(ptxas) > 0 and all("registers" in e for e in ptxas), "no ptxas report beside the library")
     emit({"phase": "device", "device": name, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "kernel_build_s": build_s, "library": str(lib_path.relative_to(ROOT))})
+          "kernel_build_s": build_s, "library": str(lib_path.relative_to(ROOT)), "ptxas": ptxas})
 
     # ------------------------------------------------- 2 kernels vs plain, random
     rng = np.random.default_rng(SEED)
@@ -304,6 +364,30 @@ def main() -> None:
         check(fa_ops.LAUNCHES == before + 1, f"flash_fwd did not launch at {cases[-1]}")
         check(o.dtype == dt and excess <= 1.0 and torch.allclose(lse, want_lse, rtol=LSE_TOL, atol=LSE_TOL),
               f"flash_fwd disagrees at {cases[-1]}")
+    for B, T, H, Hk, hd, dt, causal, layout in [(*c, "contiguous") for c in FLASH_CASES] + [
+            (2, 300, 8, 2, 64, torch.float32, True, "fused qkv view")]:
+        if layout == "fused qkv view":  # q, k, v as head slices of one projection
+            fused = torch.from_numpy(rng.normal(size=(B, T, H + 2 * Hk, hd)).astype(np.float32)).to(dev)
+            q, k, v = fused[:, :, :H], fused[:, :, H:H + Hk], fused[:, :, H + Hk:]
+        else:
+            q, k, v = (torch.from_numpy(rng.normal(size=(B, T, n, hd)).astype(np.float32)).to(dt).to(dev)
+                       for n in (H, Hk, Hk))
+        do = torch.from_numpy(rng.normal(size=(B, T, H, hd)).astype(np.float32)).to(dt).to(dev)
+        o, lse = fa_ops.flash_fwd(q, k, v, causal)
+        before = fa_ops.BWD_LAUNCHES
+        got = fa_ops.flash_bwd(q, k, v, o, lse, do, causal)
+        torch.cuda.synchronize()
+        want = fa_ref.flash_bwd(q, k, v, o, lse, do, causal)
+        case = {"kernel": "flash_bwd", "B": B, "T": T, "H": H, "Hk": Hk, "hd": hd, "dtype": str(dt),
+                "causal": causal, "layout": layout}
+        case.update(flash_bwd_readings(got, want, dt))
+        cases.append(case)
+        check(fa_ops.BWD_LAUNCHES == before + 1, f"flash_bwd did not launch at {case}")
+        check(all(g.dtype == dt for g in got) and max(case[f"{n}_err_over_tol"] for n in GRAD_NAMES) <= 1.0,
+              f"flash_bwd disagrees at {case}")
+        other = case["dk_other_kv_head_err_over_tol"]
+        check(min(case[f"{n}_zero_err_over_tol"] for n in GRAD_NAMES) > 1.0 and (other is None or other > 1.0),
+              f"the flash_bwd check cannot tell a wrong gradient at {case}")
     emit({"phase": "kernels_vs_plain", "cases": cases, "tolerance": {
         "gather_rows": "bit-equal", "segment_sum": "rtol=atol=1e-5 (summation order)",
         "segment_sum_csr": "rtol=atol=1e-5 (summation order)",
@@ -311,7 +395,9 @@ def main() -> None:
         "segment_expand_csr": "bit-equal (a copy)",
         "flash_fwd": "O: |got - want| <= rtol |want| + atol max|want| (o_err_over_tol <= 1), (rtol, atol) "
                      f"{FLASH_TOL[torch.float32]} fp32, {FLASH_TOL[torch.bfloat16]} bf16 (one rounding); "
-                     f"LSE rtol=atol {LSE_TOL}; an unaligned q is refused"}})
+                     f"LSE rtol=atol {LSE_TOL}; an unaligned q is refused",
+        "flash_bwd": "dQ, dK, dV each as O of flash_fwd (err_over_tol <= 1); a zero gradient and the dK "
+                     "of the other kv head (Hk > 1) read above 1"}})
 
     # ----------------------------------------------- 3 smoke serve, card vs CPU
     shape = ShapeCell("serve_p99", "serve", {"batch": 32})
@@ -424,6 +510,45 @@ def main() -> None:
           "requests": 2, "metrics": met["cuda"], "max_abs_diff": diffs, "tolerance": MIXED_PREFILL_TOL})
     del psmoke, states, outs
 
+    # ----------------------------------------- 3 smoke LM train, card vs CPU
+    lshape = ShapeCell("train_4k", "train", {"seq_len": 256, "global_batch": 2})
+    lsmoke = {d: build_cell("qwen2.5-3b", "train_4k", smoke=True, shape_override=lshape, device=d)
+              for d in ("cpu", "cuda")}
+    lcfg = lsmoke["cpu"].arch.model
+    lkey = f"dim{lcfg.d_model}"
+    states = {d: cell.init_state() for d, cell in lsmoke.items()}  # fresh engines: every token inserted
+    states["cuda"]["dense"].load_state_dict(states["cpu"]["dense"].state_dict())
+    losses = []
+    for s in seeds:
+        before = (fa_ops.LAUNCHES, fa_ops.BWD_LAUNCHES)
+        outs = {}
+        for d, cell in lsmoke.items():
+            states[d], outs[d] = cell.step_fn(states[d], cell.make_batch(s))
+        check((fa_ops.LAUNCHES - before[0], fa_ops.BWD_LAUNCHES - before[1]) == (2 * lcfg.n_layers, lcfg.n_layers),
+              "smoke LM train: two flash forward launches (layer, recompute) and one backward per layer")
+        met = {d: {k: int(v) for k, v in o.items() if k != "loss"} for d, o in outs.items()}
+        check(met["cuda"] == met["cpu"], f"smoke LM train metrics differ: {met}")
+        lc, lg = float(outs["cpu"]["loss"]), float(outs["cuda"]["loss"])
+        check(np.isfinite(lg) and abs(lg - lc) <= MIXED_TOL["atol"] + MIXED_TOL["rtol"] * abs(lc),
+              f"smoke LM train loss {lg} on the card, {lc} on the CPU")
+        losses.append({"cpu": lc, "cuda": lg})
+    for f in idmap_lib.TENSOR_FIELDS:
+        got, want = (getattr(states[d]["sparse"][lkey]["idmap"], f).cpu() for d in ("cuda", "cpu"))
+        check(torch.equal(got, want), f"smoke LM train IDMap field {f} differs")
+    exp = {d: lsmoke[d].engine.export_rows(states[d]["sparse"])[lkey] for d in states}
+    for k in ("ids", "last_use"):
+        check(np.array_equal(exp["cuda"][k], exp["cpu"][k]), f"smoke LM train export {k} differs")
+    diffs = {"emb": float(np.abs(exp["cuda"]["emb"] - exp["cpu"]["emb"]).max())}
+    dense = {d: states[d]["dense"].state_dict() for d in states}
+    diffs["dense"] = max(float((dense["cuda"][k].cpu() - v).abs().max()) for k, v in dense["cpu"].items())
+    check(diffs["emb"] <= TRAIN_PARAM_ATOL and diffs["dense"] <= TRAIN_PARAM_ATOL,
+          f"smoke LM train rows or params differ: {diffs}")
+    emit({"phase": "smoke_lm_train_card_vs_cpu", "arch": "qwen2.5-3b (smoke)", "seq_len": 256, "batch": 2,
+          "steps": len(seeds), "loss": losses, "metrics": met["cuda"], "idmap_equal": True,
+          "export_ids_equal": True, "max_abs_diff": diffs,
+          "tolerance": {"loss": MIXED_TOL, "emb_and_dense_atol": TRAIN_PARAM_ATOL}})
+    del lsmoke, states, outs, exp, dense
+
     # ------------------------------------------------------ 4 full-width serve
     arch = dataclasses.replace(dlrm_mlperf.ARCH, model=dataclasses.replace(
         dlrm_mlperf.ARCH.model, vocab_per_feature=VOCAB))
@@ -494,11 +619,12 @@ def main() -> None:
                 "segment_reduce.segment_expand_csr": sr_ops.LAUNCHES_BWD,
                 "fused_scatter.scatter_add_rows": fs_ops.LAUNCHES_ADD,
                 "fused_scatter.scatter_set_rows": fs_ops.LAUNCHES_SET,
-                "flash_attention.flash_fwd": fa_ops.LAUNCHES}
+                "flash_attention.flash_fwd": fa_ops.LAUNCHES,
+                "flash_attention.flash_bwd": fa_ops.BWD_LAUNCHES}
 
     def reset_counts() -> None:
         fg_ops.LAUNCHES = sr_ops.LAUNCHES = sr_ops.LAUNCHES_BWD = 0
-        fs_ops.LAUNCHES_ADD = fs_ops.LAUNCHES_SET = fa_ops.LAUNCHES = 0
+        fs_ops.LAUNCHES_ADD = fs_ops.LAUNCHES_SET = fa_ops.LAUNCHES = fa_ops.BWD_LAUNCHES = 0
 
     batches = {s: p99.make_batch(s, vocab=VOCAB) for s in range(N_WARMUP + N_P99_REQUESTS)}
     bulk_batch = bulk.make_batch(10_000, vocab=VOCAB)
@@ -553,6 +679,7 @@ def main() -> None:
         check(got == want, f"{got} of {want} live unique ids found")
         n_found.append(got)
         del plans
+    del ids, eng, batch  # the last request's: device tensors the names would keep
     lat = np.array(lat_ms)
     emit({"phase": "full_serve", "arch": arch.arch_id, "widths": {
               "n_dense": mcfg.n_dense, "n_sparse": mcfg.n_sparse, "embed_dim": mcfg.embed_dim,
@@ -593,6 +720,7 @@ def main() -> None:
             step_ids.append(torch.unique(eng[eng != -1]))
             seen = torch.unique(torch.cat([seen, step_ids[-1]]))
             expect_live.append(seen.numel())
+    del b, eng
     tstate = train.init_state()
     torch.cuda.synchronize()
     base_bytes = torch.cuda.memory_allocated()  # the state and what earlier phases still hold
@@ -713,7 +841,7 @@ def main() -> None:
             c = pout[k]
             check(c.shape == (L_lm, 1, PREFILL_T, lm_cfg.n_kv_heads, lm_cfg.head_dim)
                   and c.dtype == torch.bfloat16 and bool(torch.isfinite(c).all()), f"prefill {k}")
-        del pout
+        del pout, c
     prefill_launches = counts()
     prefill_peak = torch.cuda.max_memory_allocated() - held_before
     n_pre = len(pbatches)
@@ -749,7 +877,7 @@ def main() -> None:
           f"prefill layer 0 attention {layer0}")
     check(layer0["zero_output_err_over_tol"] > 1.0 and layer0["other_kv_head_err_over_tol"] > 1.0,
           f"the layer 0 check cannot tell a wrong output: {layer0}")
-    del o0, lse0, want_o, want_l, wrong_o
+    del o0, lse0, want_o, want_l, wrong_o, q0, k0, v0
     pm = np.array(prefill_ms)
     emit({"phase": "full_prefill", "arch": "qwen2.5-3b", "shape": "prefill_32k", "widths": {
               "n_layers": L_lm, "d_model": d_model, "n_heads": lm_cfg.n_heads, "n_kv_heads": lm_cfg.n_kv_heads,
@@ -767,7 +895,8 @@ def main() -> None:
     del pstate, pre, pbatches
     torch.cuda.empty_cache()
 
-    # ------------------------------- 5 kernels on the serve and train inputs
+    # ------------- 5 kernels on the serve, train and prefill inputs, measured
+    # here so that what those paths held is released before the LM train
     kernels_on_path = [  # (entry, wrapper, source, TPU kernel replaced, plain, paths, library call)
         ("fused_gather.gather_rows", "gather_rows", "fused_gather.cu",
          "src/repro/kernels/fused_gather/fused_gather.py:34", fg_ref.gather_rows,
@@ -804,17 +933,146 @@ def main() -> None:
             "ms": main_path["ms"], "kernel_ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
             "bound_ms": main_path["bound_ms"], "bound_by": main_path["bound_by"],
             "library_ms": main_path["library_ms"], "library_call": lib_call, "at": at})
-    flash = _measure_flash(real["flash_attention"], fa_ref, *recorded.pop(("flash_attention", "prefill"))[0])
+    flash_at = {"prefill": _measure_flash(real["flash_attention"], fa_ref,
+                                          *recorded.pop(("flash_attention", "prefill"))[0])}
+    check(not recorded, f"recorded inputs left unmeasured: {list(recorded)}")
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ 4 full-width LM train
+    torch.cuda.synchronize()
+    start_bytes = torch.cuda.memory_allocated()  # what earlier phases still hold: near zero
+    check(start_bytes < (1 << 30), f"{start_bytes} bytes still allocated before the LM train phase")
+    check(qwen2_5_3b.ARCH.shape("train_4k")["seq_len"] == LM_TRAIN_T, "train_4k seq_len")
+    t0 = time.perf_counter()
+    ltrain = build_cell("qwen2.5-3b", "train_4k", device=dev, shape_override=ShapeCell(
+        "train_4k", "train", {"seq_len": LM_TRAIN_T, "global_batch": 1}))
+    lstate = ltrain.init_state()  # weights from a seeded generator, zero moments, an empty engine
+    torch.cuda.synchronize()
+    lsetup_s = time.perf_counter() - t0
+    lstate_bytes = {"dense_params": sum(p.numel() * p.element_size() for p in lstate["dense"].parameters()),
+                    "adamw_moments": sum(t.numel() * t.element_size() for t in _tensors(lstate["opt"])),
+                    "engine": sum(t.numel() * t.element_size() for t in _tensors(lstate["sparse"]))}
+    n_lm = N_LM_WARMUP + N_LM_STEPS
+    lbatches = [ltrain.make_batch(40_000 + s) for s in range(n_lm + 2)]  # then one profiled, one repeated
+    lexpect_live, seen = [], torch.empty(0, dtype=torch.int32, device=dev)
+    for b in lbatches[:n_lm]:  # distinct tokens seen up to each step: the rows it must hold
+        seen = torch.unique(torch.cat([seen, b.reshape(-1)]))
+        lexpect_live.append(seen.numel())
+    recorder(fa_ops, "flash_attention")  # layer 0's forward: the step's first call
+
+    def record_last_bwd(*args, **kw):  # layer 0's backward: the step's last call
+        if phase["name"]:
+            recorded[("flash_bwd", phase["name"])] = ([keep(a, False) for a in args], kw)
+        return real["flash_bwd"](*args, **kw)
+
+    real["flash_bwd"] = fa_ops.flash_bwd
+    fa_ops.flash_bwd = record_last_bwd
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    lstep_ms, llosses, linserted = [], [], []
+    for s in range(n_lm):
+        phase["name"] = "lm_train" if s == N_LM_WARMUP - 1 else None  # the last warm-up step
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        lstate, out = ltrain.step_fn(lstate, lbatches[s])
+        end.record()
+        end.synchronize()
+        phase["name"] = None
+        if s >= N_LM_WARMUP:
+            lstep_ms.append(start.elapsed_time(end))
+        met = {k: int(v) for k, v in out.items() if k != "loss"}
+        llosses.append(float(out["loss"]))
+        linserted.append(met[f"{gkey}/idmap_inserted"])
+        check(all(v == 0 for k, v in met.items() if "overflow" in k), f"LM train overflow at step {s + 1}: {met}")
+        check(np.isfinite(llosses[-1]), f"LM train loss {llosses[-1]} at step {s + 1}")
+        check(met[f"{gkey}/dev_rows_live"] == lexpect_live[s],
+              f"LM step {s + 1}: {met[f'{gkey}/dev_rows_live']} rows live, {lexpect_live[s]} tokens seen")
+    lm_peak = torch.cuda.max_memory_allocated()
+    lm_launches = counts()
+    fa_ops.flash_attention, fa_ops.flash_bwd = real["flash_attention"], real["flash_bwd"]
+    n_new = sum(1 for x in linserted if x > 0)
+    want_launches = {"fused_gather.gather_rows": 4 * n_lm, "segment_reduce.segment_sum": 0,
+                     "segment_reduce.segment_expand_csr": 0, "fused_scatter.scatter_add_rows": 3 * n_lm,
+                     "fused_scatter.scatter_set_rows": 3 * n_new,
+                     "flash_attention.flash_fwd": 2 * L_lm * n_lm, "flash_attention.flash_bwd": L_lm * n_lm}
+    check(lm_launches == want_launches, f"LM train launches {lm_launches}, expected {want_launches}")
+    check(linserted[0] > 0, "LM step 1 inserted nothing")
+    check(all(bool(torch.isfinite(p).all()) for p in lstate["dense"].parameters()), "LM params not finite")
+
+    def lm_step(b):
+        nonlocal lstate
+        lstate, _ = ltrain.step_fn(lstate, b)
+
+    emit(profile_requests("lm_train", lm_step, [lbatches[n_lm]]))
+    lrepeat = []
+    for _ in range(N_LM_REPEAT):  # one batch again and again: the loss must fall
+        lstate, out = ltrain.step_fn(lstate, lbatches[-1])
+        lrepeat.append(float(out["loss"]))
+    check(all(np.isfinite(lrepeat)) and lrepeat[-1] < lrepeat[0], f"LM loss on one repeated batch: {lrepeat}")
+    del lstate, ltrain, lbatches, seen, out
+    torch.cuda.empty_cache()
+    # layer 0's attention gradients on all 4,096 rows against the plain
+    # backward (its (H, T, T) fp32 scores are 1.07 GB), and what a zero
+    # gradient or the dK of the other kv head would read
+    bargs = recorded.pop(("flash_bwd", "lm_train"))[0]
+    got = real["flash_bwd"](*bargs)
+    want = fa_ref.flash_bwd(*bargs)
+    lm_layer0 = flash_bwd_readings(got, want, bargs[0].dtype)
+    check(all(bool(torch.isfinite(g).all()) for g in got), "layer 0 gradients not finite")
+    check(max(lm_layer0[f"{n}_err_over_tol"] for n in GRAD_NAMES) <= 1.0,
+          f"LM train layer 0 attention gradients {lm_layer0}")
+    check(min(lm_layer0[f"{n}_zero_err_over_tol"] for n in GRAD_NAMES) > 1.0
+          and lm_layer0["dk_other_kv_head_err_over_tol"] > 1.0,
+          f"the layer 0 gradient check cannot tell a wrong gradient: {lm_layer0}")
+    del got, want
+    lsm = np.array(lstep_ms)
+    emit({"phase": "full_lm_train", "arch": "qwen2.5-3b", "shape": "train_4k", "widths": {
+              "n_layers": L_lm, "d_model": d_model, "n_heads": lm_cfg.n_heads, "n_kv_heads": lm_cfg.n_kv_heads,
+              "d_ff": lm_cfg.d_ff, "vocab_size": V, "qkv_bias": lm_cfg.qkv_bias, "rope_theta": lm_cfg.rope_theta},
+          "seq_len": LM_TRAIN_T, "reduced": {"global_batch": [256, 1]}, "remat": lm_cfg.remat,
+          "warmup": N_LM_WARMUP, "steps": N_LM_STEPS, "setup_s": lsetup_s,
+          "step_ms_p50": float(np.percentile(lsm, 50)), "step_ms_p99": float(np.percentile(lsm, 99)),
+          "step_ms_mean": float(lsm.mean()), "step_ms": lstep_ms,
+          "tokens_per_s": LM_TRAIN_T / (float(np.percentile(lsm, 50)) / 1e3),
+          "loss": llosses, "idmap_inserted": linserted, "rows_live": lexpect_live,
+          "loss_on_one_repeated_batch": lrepeat, "layer0_attention_grads_vs_plain": lm_layer0,
+          "allocated_at_phase_start_bytes": start_bytes, "state_bytes": lstate_bytes,
+          "max_memory_allocated_bytes": lm_peak, "launches": lm_launches,
+          "launches_per_step": {k: v / n_lm for k, v in lm_launches.items()}})
+
+    # ------------------------------------ 5 the flash kernels on the LM inputs
+    flash_at["lm_train"] = _measure_flash(real["flash_attention"], fa_ref,
+                                          *recorded.pop(("flash_attention", "lm_train"))[0], path="lm_train")
+    bwd = _measure_flash_bwd(real["flash_bwd"], fa_ref, *bargs)
+    del bargs
+    for e in entries:
+        e["launches_by_path"]["lm_train"] = lm_launches[e["name"]]
+        e["launches"] = sum(e["launches_by_path"].values())
+    fwd_by_path = {"serve": launches["flash_attention.flash_fwd"],
+                   "train": train_launches["flash_attention.flash_fwd"],
+                   "prefill": prefill_launches["flash_attention.flash_fwd"],
+                   "lm_train": lm_launches["flash_attention.flash_fwd"]}
     entries.append({
         "name": "flash_attention.flash_fwd", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:83", "ok": True,
-        "launches": prefill_launches["flash_attention.flash_fwd"],
-        "launches_by_path": {"serve": launches["flash_attention.flash_fwd"],
-                             "train": train_launches["flash_attention.flash_fwd"],
-                             "prefill": prefill_launches["flash_attention.flash_fwd"]},
-        "main_path": "prefill", "max_abs_err": layer0["o_max_abs_err"],
-        "max_err": layer0["o_max_abs_err"], "kernel_ms": flash["ms"], "library_call":
-        "F.scaled_dot_product_attention(is_causal=True), kv expanded", **flash})
+        "launches": sum(fwd_by_path.values()), "launches_by_path": fwd_by_path, "main_path": "prefill",
+        "max_abs_err": max(layer0["o_max_abs_err"], *(a["max_abs_err"] for a in flash_at.values())),
+        "max_err": layer0["o_max_abs_err"], "kernel_ms": flash_at["prefill"]["ms"],
+        **{k: flash_at["prefill"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "library_call": "F.scaled_dot_product_attention(is_causal=True), kv expanded", "at": flash_at})
+    bwd_by_path = {"serve": launches["flash_attention.flash_bwd"],
+                   "train": train_launches["flash_attention.flash_bwd"],
+                   "prefill": prefill_launches["flash_attention.flash_bwd"],
+                   "lm_train": lm_launches["flash_attention.flash_bwd"]}
+    entries.append({
+        "name": "flash_attention.flash_bwd", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:210", "ok": True,
+        "launches": sum(bwd_by_path.values()), "launches_by_path": bwd_by_path, "main_path": "lm_train",
+        "max_abs_err": max(lm_layer0[f"{n}_max_abs_err"] for n in GRAD_NAMES),
+        "max_err": max(lm_layer0[f"{n}_max_abs_err"] for n in GRAD_NAMES), "kernel_ms": bwd["ms"],
+        "library_call": "torch.autograd.grad of F.scaled_dot_product_attention(is_causal=True), kv expanded",
+        **bwd})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
 
@@ -891,13 +1149,18 @@ def _measure(kname: str, real, plain, args: list, kw: dict, iters: int, dev) -> 
             "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes}
 
 
-def _measure_flash(real, ref, q, k, v) -> dict:
-    """The flash kernel on layer 0's recorded prefill inputs, timed beside
-    its plain version (in query-row pieces, ``plain_flash_chunked``) and
+def _measure_flash(real, ref, q, k, v, path: str = "prefill") -> dict:
+    """The flash kernel on layer 0's recorded inputs of one path: O held to
+    its plain version (in query-row pieces, ``plain_flash_chunked``) within
+    one rounding, then timed beside the plain version and
     scaled_dot_product_attention on the same q and the expanded k, v."""
     import torch.nn.functional as F
 
     B, T, H, hd = q.shape
+    o, want = real(q, k, v), plain_flash_chunked(ref, q, k, v)[0]
+    err, excess = float((o.float() - want.float()).abs().max()), flash_excess(o, want, q.dtype)
+    check(excess <= 1.0, f"flash_fwd on the {path} inputs: {excess} of the tolerance")
+    del o, want
     ke, ve = (ref.expand_kv(x, H // k.shape[2]).transpose(1, 2) for x in (k, v))
     qt = q.transpose(1, 2)
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, ke, ve, is_causal=True), 3)
@@ -909,10 +1172,35 @@ def _measure_flash(real, ref, q, k, v) -> dict:
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + B * H * T * 4
     b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
     return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "plain_rows_per_piece": PLAIN_ROWS,
-            "at": {"prefill": {"shape": {"B": B, "T": T, "H": H, "Hk": k.shape[2], "hd": hd,
-                                         "dtype": str(q.dtype), "causal": True},
-                               "flops": n_ops, "bytes": n_bytes, "tflops_per_s": n_ops / k_ms / 1e9}}}
+            "max_abs_err": err, "o_err_over_tol": excess, "plain_rows_per_piece": PLAIN_ROWS,
+            "shape": {"B": B, "T": T, "H": H, "Hk": k.shape[2], "hd": hd, "dtype": str(q.dtype), "causal": True},
+            "flops": n_ops, "bytes": n_bytes, "tflops_per_s": n_ops / k_ms / 1e9}
+
+
+def _measure_flash_bwd(real, ref, q, k, v, o, lse, do, causal: bool = True) -> dict:
+    """The backward kernel on layer 0's recorded train inputs (checked by the
+    caller), timed beside its plain version and the backward of
+    scaled_dot_product_attention on the same q, expanded k, v and dO (the
+    graph built once, then ``torch.autograd.grad`` over it)."""
+    import torch.nn.functional as F
+
+    B, T, H, hd = q.shape
+    qt, ke, ve = (x.transpose(1, 2).detach().requires_grad_() for x in
+                  (q, ref.expand_kv(k, H // k.shape[2]), ref.expand_kv(v, H // k.shape[2])))
+    out = F.scaled_dot_product_attention(qt, ke, ve, is_causal=causal)
+    dot = do.transpose(1, 2)
+    lib_ms = time_ms(lambda: torch.autograd.grad(out, (qt, ke, ve), dot, retain_graph=True), 5)
+    del out, qt, ke, ve
+    k_ms = time_ms(lambda: real(q, k, v, o, lse, do, causal), 5)
+    p_ms = time_ms(lambda: ref.flash_bwd(q, k, v, o, lse, do, causal), 3)
+    n_ops = 5.0 * hd * H * B * T * (T + 1)  # five products over the causal triangle
+    # q, k, v, O, dO and the fp32 LSE read once; dQ, dK, dV written once
+    n_bytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + B * H * T * 4
+    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "at": {"lm_train": {"shape": {"B": B, "T": T, "H": H, "Hk": k.shape[2], "hd": hd,
+                                          "dtype": str(q.dtype), "causal": causal},
+                                "flops": n_ops, "bytes": n_bytes, "tflops_per_s": n_ops / k_ms / 1e9}}}
 
 
 def _row_sample(state, touched: torch.Tensor, live: torch.Tensor, idmap_lib, n: int = 4096) -> dict:

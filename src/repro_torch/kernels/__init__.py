@@ -9,7 +9,9 @@ Every kernel package has three files, as in the JAX package:
 All ``csrc/*.cu`` sources build into one shared library with a plain C
 interface, at first use, into ``<checkout>/build/repro_torch/<hash>/``
 keyed by a hash of the sources. Each source compiles in its own ``nvcc``
-process, all started together, then one link. Nothing here runs at import.
+process, all started together, then one link; ptxas's report of each
+kernel's registers, spills and static shared memory is kept beside the
+library (``ptxas.log``). Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I64, _INT, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 # C entry points: name → argtypes. Each returns cudaGetLastError() as int.
@@ -34,6 +36,7 @@ _SIGNATURES = {
     "repro_segment_expand_csr": [_P, _I64, _P, _INT, _P, _I64, _I64, _I64, _P],
     "repro_scatter_rows": [_P, _P, _INT, _P, _P, _I64, _I64, _I64, _INT, _P],
     "repro_flash_fwd": [_P, _P, _P, _P, _P, _INT, *[_I64] * 5, *[_I64] * 9, _F32, _INT, _P],
+    "repro_flash_bwd": [*[_P] * 12, _INT, *[_I64] * 5, *[_I64] * 15, _F32, _INT, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -75,24 +78,28 @@ def build() -> Path:
             procs.append((src.name, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        _wait(procs)
+        logs = _wait(procs)
         lib = Path(tmp) / "libkernels.so"
         _wait([("link", subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objs)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))])
+        (out.parent / "ptxas.log").write_text("".join(logs))
         os.replace(lib, out)  # atomic: a concurrent process never sees a partial file
     return out
 
 
-def _wait(procs: list[tuple[str, subprocess.Popen]]) -> None:
-    """Wait for every compiler process; raise with the logs of those that failed."""
-    errors = []
+def _wait(procs: list[tuple[str, subprocess.Popen]]) -> list[str]:
+    """Wait for every compiler process and return their logs; raise with the
+    logs of those that failed."""
+    logs, errors = [], []
     for what, p in procs:
         log, _ = p.communicate()
+        logs.append(log)
         if p.returncode != 0:
             errors.append(f"{what}:\n{log}")
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    return logs
 
 
 def load_library() -> ctypes.CDLL:

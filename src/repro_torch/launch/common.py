@@ -51,3 +51,11 @@ def local_view(sparse: dict) -> dict:
     """The one device's view of the stacked [D, ...] sparse state."""
     return {k: {"idmap": v["idmap"].map(lambda x: x[0]),
                 "blocks": v["blocks"].map(lambda x: x[0])} for k, v in sparse.items()}
+
+
+def stacked(local: dict, sparse: dict) -> dict:
+    """The stacked [1, ...] sparse state after a train step: the new IDMap
+    gains its device axis; the Blocks were written through ``local_view``'s
+    views, so the stacked tensors already hold the update."""
+    return {k: {"idmap": v["idmap"].map(lambda x: x.unsqueeze(0)),
+                "blocks": sparse[k]["blocks"]} for k, v in local.items()}

@@ -21,7 +21,7 @@ from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.core.embedding_engine import EmbeddingEngine, EngineConfig
 from repro_torch.core.feature_engine import FeatureEngine, FeatureSpec
 from repro_torch.io.ragged import Ragged
-from repro_torch.launch.common import Cell, CellOptions, local_view, resolve_device, round_up
+from repro_torch.launch.common import Cell, CellOptions, local_view, resolve_device, round_up, stacked
 from repro_torch.models.layers import MIXED
 from repro_torch.optim import adamw
 from repro_torch.optim.sparse_adam import SparseAdamConfig
@@ -104,14 +104,6 @@ def _plumbing(arch: ArchConfig, b_loc: int, specs: list[FeatureSpec],
                      device=device)
 
 
-def _stacked(local: dict, sparse: dict) -> dict:
-    """The stacked [1, ...] sparse state after a train step: the new IDMap
-    gains its device axis; the Blocks were written through ``local_view``'s
-    views, so the stacked tensors already hold the update."""
-    return {k: {"idmap": v["idmap"].map(lambda x: x.unsqueeze(0)),
-                "blocks": sparse[k]["blocks"]} for k, v in local.items()}
-
-
 def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
           device=None) -> Cell:
     device = resolve_device(device)
@@ -158,7 +150,7 @@ def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
             local = pl.engine.update_local(local, plans, dict(zip(rows_r, grads[len(params):])),
                                            sopt, step)
         new_state = {"step": step, "dense": state["dense"], "opt": opt,
-                     "sparse": _stacked(local, state["sparse"])}
+                     "sparse": stacked(local, state["sparse"])}
         return new_state, {"loss": loss.detach(), **met}
 
     def init_fn():

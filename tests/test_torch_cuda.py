@@ -274,13 +274,21 @@ def test_flash_kernel_reads_strided_and_unaligned_inputs(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_flash_kernel_refuses_gradients_and_bad_inputs(cuda):
+def test_flash_kernel_refuses_gradients_and_bad_inputs(cuda, monkeypatch):
+    """An input that needs a gradient runs the backward kernel, also for
+    the zero-stride dO of a plain sum; bad inputs raise."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     q, k, v = _flash_inputs(1, 64, 2, 1, 32, torch.float32, cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP B7"):
-        t_fa.flash_attention(q.requires_grad_(), k, v)
+    before = t_fa.BWD_LAUNCHES
+    qg = q.clone().requires_grad_()
+    (dq,) = torch.autograd.grad(t_fa.flash_attention(qg, k, v).sum(), qg)
+    torch.cuda.synchronize()
+    assert t_fa.BWD_LAUNCHES == before + 1
+    o, lse = t_fa_ref.flash_fwd(q, k, v)
+    want = t_fa_ref.flash_bwd(q, k, v, o, lse, torch.ones_like(q))[0]
+    _close_flash(dq, want)
     with torch.no_grad():
-        t_fa.flash_attention(q, k, v)  # no gradient wanted: the kernel runs
-    q = q.detach()
+        t_fa.flash_attention(q, k, v)  # no gradient wanted: the forward kernel runs
     with pytest.raises(ValueError):
         t_fa.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError):
@@ -289,6 +297,82 @@ def test_flash_kernel_refuses_gradients_and_bad_inputs(cuda):
         t_fa.flash_attention(q, k.cpu(), v)
     with pytest.raises(ValueError):
         t_fa.flash_attention(q[:, :, :1], k.expand(1, 64, 2, 32), v)  # H not a multiple of Hk
+    with pytest.raises(ValueError):
+        t_fa.flash_bwd(q, k, v, o, lse[..., :32], torch.ones_like(q))  # LSE of another length
+
+
+def _close_flash(got, want):
+    """Within one rounding, as the forward (FLASH_TOL)."""
+    rtol, atol = FLASH_TOL[want.dtype]
+    w = want.float().cpu().numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(), w, rtol=rtol, atol=atol * np.abs(w).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,hk,hd,dtype,causal", FLASH_CASES)
+def test_flash_bwd_kernel_matches_plain(cuda, monkeypatch, b, t, h, hk, hd, dtype, causal):
+    """dQ, dK and dV of the kernel against ``ref.flash_bwd`` on the same
+    inputs, O and LSE: within one rounding (FLASH_TOL), one launch."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = _flash_inputs(b, t, h, hk, hd, dtype, cuda)
+    do = _flash_inputs(b, t, h, hk, hd, dtype, cuda, seed=1)[0]
+    o, lse = t_fa.flash_fwd(q, k, v, causal)
+    before = t_fa.BWD_LAUNCHES
+    got = t_fa.flash_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert t_fa.BWD_LAUNCHES == before + 1
+    for g, w in zip(got, t_fa_ref.flash_bwd(q, k, v, o, lse, do, causal)):
+        _close_flash(g, w)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_reads_strided_inputs(cuda, monkeypatch):
+    """q, k, v as head slices of one fused projection, and a dO with
+    strides of its own, are read in place."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    b, t, h, hk, hd = 2, 300, 8, 2, 64
+    g = torch.Generator().manual_seed(2)
+    fused = torch.randn((b, t, h + 2 * hk, hd), generator=g).to(cuda)
+    q, k, v = fused[:, :, :h], fused[:, :, h:h + hk], fused[:, :, h + hk:]
+    do = torch.randn((b, h, t, hd), generator=g).to(cuda).transpose(1, 2)
+    assert not do.is_contiguous()
+    o, lse = t_fa.flash_fwd(q, k, v)
+    got = t_fa.flash_bwd(q, k, v, o, lse, do)
+    for g_, w in zip(got, t_fa_ref.flash_bwd(q, k, v, o, lse, do)):
+        _close_flash(g_, w)
+
+
+@pytest.mark.cuda
+def test_checkpointed_layer_gradients_match_plain(cuda):
+    """One smoke transformer layer under torch.utils.checkpoint on the card
+    gives the gradients of the plain call: the recompute runs the same
+    kernels on the same inputs."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import MIXED
+
+    cfg = get_config("qwen2.5-3b", smoke=True).model
+    layer = tfm.Layer(cfg, torch.Generator().manual_seed(0), cuda)
+    g = torch.Generator().manual_seed(3)
+    x0 = torch.randn((2, 256, cfg.d_model), generator=g).to(cuda).to(torch.bfloat16)
+    w = torch.randn((2, 256, cfg.d_model), generator=g).to(cuda)
+    pos = torch.arange(256, dtype=torch.int32, device=cuda).expand(2, 256)
+    grads = {}
+    for remat in (True, False):
+        x = x0.clone().requires_grad_()
+        before = (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES)
+        if remat:
+            y = checkpoint(lambda x: layer(x, pos, MIXED)[0], x, use_reentrant=False)
+        else:
+            y = layer(x, pos, MIXED)[0]
+        grads[remat] = torch.autograd.grad((y.float() * w).sum(), [x, *layer.parameters()])
+        torch.cuda.synchronize()
+        assert (t_fa.LAUNCHES - before[0], t_fa.BWD_LAUNCHES - before[1]) == (2 if remat else 1, 1)
+    for a, b in zip(grads[True], grads[False]):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -325,3 +409,34 @@ def test_smoke_prefill_cell_card_matches_cpu(cuda):
             got, want = outs["cuda"][k].float().cpu().numpy(), outs["cpu"][k].float().numpy()
             assert np.isfinite(got).all()
             np.testing.assert_allclose(got, want, rtol=3e-2, atol=3e-2, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_smoke_lm_train_cell_card_matches_cpu(cuda):
+    """Three qwen2.5 smoke train steps (T = 256, B = 2) on the card and on
+    the CPU from the same weights and a fresh engine: metrics equal, loss
+    within 2e-2, rows and params within 2 * lr * steps (bf16 sign flips of
+    near-zero gradients, as in tests/test_torch_lm.py); two flash forward
+    launches (the layer and its recompute) and one backward per layer and
+    step."""
+    shape = ShapeCell("train_4k", "train", {"seq_len": 256, "global_batch": 2})
+    cells = {d: build_cell("qwen2.5-3b", "train_4k", smoke=True, shape_override=shape, device=d)
+             for d in ("cpu", "cuda")}
+    cfg = cells["cpu"].arch.model
+    states = {d: c.init_state() for d, c in cells.items()}
+    states["cuda"]["dense"].load_state_dict(states["cpu"]["dense"].state_dict())
+    for s in range(3):
+        before = (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES)
+        outs = {}
+        for d, c in cells.items():
+            states[d], outs[d] = c.step_fn(states[d], c.make_batch(s))
+        assert (t_fa.LAUNCHES - before[0], t_fa.BWD_LAUNCHES - before[1]) == (2 * cfg.n_layers, cfg.n_layers)
+        met = {d: {k: int(v) for k, v in o.items() if k != "loss"} for d, o in outs.items()}
+        assert met["cuda"] == met["cpu"]
+        np.testing.assert_allclose(float(outs["cuda"]["loss"]), float(outs["cpu"]["loss"]), atol=2e-2)
+    rows = {d: c.engine.export_rows(states[d]["sparse"])["dim64"] for d, c in cells.items()}
+    np.testing.assert_array_equal(rows["cuda"]["ids"], rows["cpu"]["ids"])
+    np.testing.assert_allclose(rows["cuda"]["emb"], rows["cpu"]["emb"], rtol=0, atol=6e-3)
+    for n, p in states["cpu"]["dense"].state_dict().items():
+        np.testing.assert_allclose(states["cuda"]["dense"].state_dict()[n].cpu().numpy(), p.numpy(),
+                                   rtol=0, atol=6e-3, err_msg=n)

@@ -12,7 +12,7 @@ from repro.kernels.flash_attention import ops as j_fa
 from repro.kernels.fused_gather import ops as j_fg
 from repro.kernels.fused_scatter import ops as j_fs, ref as j_fs_ref
 from repro.kernels.segment_reduce import ops as j_sr
-from repro_torch.kernels.flash_attention import ops as t_fa
+from repro_torch.kernels.flash_attention import ops as t_fa, ref as t_fa_ref
 from repro_torch.kernels.fused_gather import ops as t_fg
 from repro_torch.kernels.fused_scatter import ops as t_fs
 from repro_torch.kernels.segment_reduce import ops as t_sr
@@ -208,3 +208,74 @@ def test_flash_plain_matches_pallas_bf16(b, t, h, hk, hd):
     got = t_fa.flash_attention(tq, tk, tv)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want_o, rtol=3e-2, atol=3e-2)
+
+
+# flash attention backward: the port's plain version (the CPU path of the op's
+# backward) against jax.grad of the Pallas op in interpret mode, whose
+# backward runs the Pallas flash_bwd. The JAX op takes the kv heads expanded,
+# so the expansion sits inside the differentiated function and jax.grad
+# returns dK and dV summed over each group. 2e-3 in fp32, as
+# tests/test_kernels.py::test_flash_grads (online against one-pass softmax).
+
+def _do(b, t, h, hd, seed):
+    return np.random.default_rng(seed).normal(size=(b, t, h, hd)).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,t,h,hk,hd", [(1, 128, 2, 1, 64), (2, 256, 4, 2, 128), (1, 200, 8, 2, 32)])
+def test_flash_bwd_plain_matches_pallas(b, t, h, hk, hd):
+    from repro.models.attention import _expand_kv
+
+    q, k, v = _qkv(b, t, h, hk, hd, seed=b * t + h + hd + 1)
+    do = _do(b, t, h, hd, seed=t + hd)
+    g = h // hk
+
+    def f(q, k, v):
+        return jnp.sum(j_fa.flash_attention(q, _expand_kv(k, g), _expand_kv(v, g), True) * do)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = t_fa.flash_fwd(tq, tk, tv)
+    got = t_fa_ref.flash_bwd(tq, tk, tv, o, lse, tdo)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == w.shape and a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=2e-3, atol=2e-3, err_msg=name)
+
+
+def _ref_autograd(q, k, v, do, causal):
+    """dQ, dK, dV by torch autograd through the plain forward."""
+    q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
+    o, _ = t_fa_ref.flash_fwd(q, k, v, causal)
+    return torch.autograd.grad(o, (q, k, v), do)
+
+
+@pytest.mark.parametrize("b,t,h,hk,hd,causal", [
+    (1, 128, 2, 1, 64, True), (2, 256, 4, 2, 128, True), (1, 200, 8, 2, 32, True), (2, 96, 4, 4, 16, False),
+])
+def test_flash_bwd_plain_matches_autograd(b, t, h, hk, hd, causal):
+    """The step-by-step backward against autograd of the plain forward:
+    the same fp32 arithmetic in another order, 1e-5."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(b, t, h, hk, hd, seed=t + h))
+    do = torch.from_numpy(_do(b, t, h, hd, seed=hd))
+    o, lse = t_fa_ref.flash_fwd(q, k, v, causal)
+    got = t_fa_ref.flash_bwd(q, k, v, o, lse, do, causal)
+    for name, a, w in zip(("dq", "dk", "dv"), got, _ref_autograd(q, k, v, do, causal)):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("loss", ["weighted", "sum"])
+def test_flash_op_gradient_on_cpu(loss):
+    """The op's autograd.Function on CPU tensors: its backward is the plain
+    one (no kernel launch is counted), LSE is not differentiable, and a
+    zero-stride dO (the gradient of a plain sum) is taken as it is."""
+    b, t, h, hk, hd = 2, 100, 4, 2, 32
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(b, t, h, hk, hd, seed=3))
+    w = torch.from_numpy(_do(b, t, h, hd, seed=4))
+    before = (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES)
+    o, lse = t_fa.flash_fwd(q, k, v)
+    assert o.requires_grad and not lse.requires_grad
+    out = (o * w).sum() if loss == "weighted" else o.sum()
+    got = torch.autograd.grad(out, (q, k, v))
+    assert (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES) == before
+    do = w if loss == "weighted" else torch.ones_like(w)
+    for name, a, want in zip(("dq", "dk", "dv"), got, _ref_autograd(q.detach(), k.detach(), v.detach(), do, True)):
+        np.testing.assert_allclose(a.numpy(), want.numpy(), rtol=1e-5, atol=1e-5, err_msg=name)

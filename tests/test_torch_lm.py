@@ -1,9 +1,11 @@
-"""The LM prefill slice, JAX package against the PyTorch port on the CPU:
-RoPE, GQA expansion, RMSNorm, SwiGLU, attention, the transformer stack in
-FP32 and the qwen2.5 smoke prefill cell under MIXED, on the same numpy
-inputs and converted weights. The JAX side runs its Pallas flash kernel in
-interpret mode (``attn_impl="pallas"``); the port runs the kernel's plain
-version, as it does for every CPU tensor."""
+"""The LM prefill and train slices, JAX package against the PyTorch port on
+the CPU: RoPE, GQA expansion, RMSNorm, SwiGLU, attention, the transformer
+stack in FP32, the next-token loss and its gradients in FP32, the qwen2.5
+smoke prefill cell and three steps of the smoke train cell under MIXED, on
+the same numpy inputs and converted weights. The JAX side runs its Pallas
+flash kernels (forward and backward) in interpret mode
+(``attn_impl="pallas"``); the port runs the kernels' plain versions, as it
+does for every CPU tensor."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +30,7 @@ from repro_torch.launch.cells import build_cell as t_build_cell
 from repro_torch.launch.common import CellOptions as TOpts
 from repro_torch.models import attention as t_attn
 from repro_torch.models import layers as t_layers
+from repro_torch.core import idmap as t_idmap
 from repro_torch.models import transformer as t_tfm
 
 T, B, SEEDS = 128, 2, (0, 1)
@@ -250,7 +253,7 @@ def test_prefill_logits_and_cache_match_reference(prefill):
             np.testing.assert_allclose(to[k].float().numpy(), jo[k].astype(np.float32), **MIXED_TOL)
 
 
-@pytest.mark.parametrize("shape_name", ["train_4k", "decode_32k", "long_500k"])
+@pytest.mark.parametrize("shape_name", ["decode_32k", "long_500k"])
 def test_lm_train_and_decode_cells_raise(shape_name):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         t_build_cell("qwen2.5-3b", shape_name, smoke=True, device="cpu")
@@ -268,3 +271,179 @@ def test_build_lm_cell_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_build_cell("qwen2.5-3b", "prefill_32k", smoke=True)
+
+
+# ------------------------------------------------------------------ training
+
+def test_lm_loss_and_grads_fp32_match_reference():
+    """The smoke stack's next-token loss in FP32 and its gradient in every
+    dense param and in x_emb, against tfm.lm_loss and jax.grad with the
+    Pallas kernels (remat on in both): the loss within 1e-5, each gradient
+    within 1e-4 of its largest magnitude (two layers of flash backward and
+    fp32 matmuls summed in another order)."""
+    jcfg, tcfg = _smoke_cfgs()
+    jparams = j_tfm.init(jax.random.PRNGKey(4), jcfg)
+    r = np.random.default_rng(6)
+    x = r.normal(size=(B, T, jcfg.d_model)).astype(np.float32)
+    labels = r.integers(0, jcfg.vocab_size, size=(B, T)).astype(np.int32)
+
+    def jloss(p, x):
+        return j_tfm.lm_loss(p, jcfg, x, jnp.asarray(labels), j_tfm.MeshCtx(), j_layers.FP32,
+                             attn_impl="pallas")[0]
+
+    jval, (jgp, jgx) = jax.value_and_grad(jloss, argnums=(0, 1))(jparams, jnp.asarray(x))
+    model = _transformer(jparams, tcfg)
+    tx = torch.from_numpy(x).requires_grad_()
+    loss = t_tfm.lm_loss(model, tx, torch.from_numpy(labels), t_layers.FP32)
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, [*model.parameters(), tx])
+    np.testing.assert_allclose(loss.item(), float(jval), rtol=1e-5)
+    want = transformer_from_numpy(jax.tree.map(np.asarray, jgp), tcfg)
+    assert set(names) == set(want)
+    for n, g in zip(names, grads):
+        _within_frac(g.numpy(), want[n].numpy(), 1e-4, f"grad {n}")
+    _within_frac(grads[-1].numpy(), _np(jgx), 1e-4, "grad x_emb")
+
+
+def test_remat_recomputes_each_layer_and_keeps_the_gradients(monkeypatch):
+    """With remat each layer's attention runs again in the backward, and
+    loss and gradients are those of the plain stack: the same CPU
+    arithmetic, so equal bit for bit."""
+    import dataclasses
+
+    _, tcfg = _smoke_cfgs()
+    r = np.random.default_rng(7)
+    x = torch.from_numpy(r.normal(size=(B, T, tcfg.d_model)).astype(np.float32))
+    labels = torch.from_numpy(r.integers(0, tcfg.vocab_size, size=(B, T)))
+    calls = {"n": 0}
+    fwd = t_fa_ref.flash_fwd
+
+    def counted(*a, **kw):
+        calls["n"] += 1
+        return fwd(*a, **kw)
+
+    monkeypatch.setattr(t_fa_ref, "flash_fwd", counted)
+    out = {}
+    for remat in (True, False):
+        model = t_tfm.init(dataclasses.replace(tcfg, remat=remat), seed=3)
+        xe = x.clone().requires_grad_()
+        calls["n"] = 0
+        loss = t_tfm.lm_loss(model, xe, labels, t_layers.FP32)
+        grads = torch.autograd.grad(loss, [*model.parameters(), xe])
+        out[remat] = (loss, grads, calls["n"])
+    assert out[True][2] == 2 * tcfg.n_layers and out[False][2] == tcfg.n_layers
+    assert torch.equal(out[True][0], out[False][0])
+    for a, b in zip(out[True][1], out[False][1]):
+        assert torch.equal(a, b)
+
+
+TRAIN_STEPS, LR = 3, 1e-3  # LR: CellOptions' dense_opt_lr and sparse_opt_lr
+
+
+@pytest.fixture(scope="module")
+def train():
+    """The JAX smoke train cell (Pallas attention, remat, no ZeRO-1) and the
+    port's, both from a fresh state with the JAX cell's dense params and
+    zero AdamW moments, three steps on the same batches under MIXED."""
+    mesh = make_test_mesh()
+    shape = {"seq_len": T, "global_batch": B}
+    jopts = JOpts(attn_impl="pallas", remat=True, zero1=False)
+    jcell = j_build_cell("qwen2.5-3b", "train_4k", mesh, jopts, smoke=True,
+                         shape_override=JShape("train_4k", "train", shape))
+    tcell = t_build_cell("qwen2.5-3b", "train_4k", smoke=True,
+                         shape_override=TShape("train_4k", "train", shape), device="cpu")
+    cfg, tcfg = jcell.arch.model, tcell.arch.model
+    jeng, gkey = j_lm._engine_for(cfg, mesh, B * T, jopts)  # the cell keeps its engine to itself
+    out = []
+    with mesh:
+        jstate = jcell.init_state()
+        tstate = tcell.init_state()
+        tstate["dense"].load_state_dict(transformer_from_numpy(jax.tree.map(np.asarray, jstate["dense"]), tcfg))
+        params0 = {k: v.detach().clone() for k, v in tstate["dense"].state_dict().items()}
+        jstep = jax.jit(jcell.step_fn)
+        for s in range(TRAIN_STEPS):
+            jstate, jo = jstep(jstate, jcell.make_batch(s))
+            tstate, to = tcell.step_fn(tstate, tcell.make_batch(s))
+            out.append(dict(
+                jo=jax.tree.map(np.asarray, jo), to=to,
+                jmap=jax.tree.map(np.asarray, jstate["sparse"][gkey]["idmap"]),
+                tmap=tstate["sparse"][gkey]["idmap"],
+                jrows=jeng.export_rows(jstate["sparse"])[gkey],
+                trows=tcell.engine.export_rows(tstate["sparse"])[gkey],
+                jdense=transformer_from_numpy(jax.tree.map(np.asarray, jstate["dense"]), tcfg),
+                tdense={k: v.detach().clone() for k, v in tstate["dense"].state_dict().items()}))
+    return dict(jcell=jcell, tcell=tcell, steps=out, params0=params0, gkey=gkey)
+
+
+def test_lm_train_batches_equal(train):
+    for s in range(TRAIN_STEPS):
+        np.testing.assert_array_equal(train["tcell"].make_batch(s).numpy(),
+                                      np.asarray(train["jcell"].make_batch(s)))
+
+
+def test_lm_train_integers_bit_equal(train):
+    """Engine metrics, every IDMap field (offsets included) and the
+    exported ids and last-use steps after each step."""
+    inserted = 0
+    for st in train["steps"]:
+        jm = {k: int(v) for k, v in st["jo"].items() if k != "loss"}
+        tm = {k: int(v) for k, v in st["to"].items() if k != "loss"}
+        assert tm == jm
+        inserted += tm[f"{train['gkey']}/idmap_inserted"]
+        for f in t_idmap.TENSOR_FIELDS:
+            np.testing.assert_array_equal(getattr(st["tmap"], f)[0].numpy(),
+                                          np.asarray(getattr(st["jmap"], f))[0], err_msg=f)
+        for k in ("ids", "last_use"):
+            np.testing.assert_array_equal(st["trows"][k], st["jrows"][k], err_msg=k)
+    assert inserted > 0
+
+
+def _adam_close(got: np.ndarray, want: np.ndarray, what: str) -> None:
+    """Params or rows after Adam steps under MIXED. Adam normalises the
+    gradient, so where bf16 noise flips the sign of a gradient near 0 the
+    two frameworks move that element up to 2 * lr apart in a step: none may
+    be more than 2 * lr * steps apart, and at most 2% of them more than
+    lr / 10 (0.9% at most after three steps here; an optimizer that moved
+    nothing would put nearly all of them lr * steps apart)."""
+    d = np.abs(got - want)
+    assert d.max() <= 2 * LR * TRAIN_STEPS, f"{what}: max diff {d.max()}"
+    frac = float((d > LR / 10).mean())
+    assert frac <= 0.02, f"{what}: {frac:.4f} of the elements more than lr / 10 apart"
+
+
+def test_lm_train_loss_rows_and_params_agree(train):
+    """MIXED (bf16 dense compute in both): each framework rounds matmul
+    sums, bias adds and the attention's bf16 inputs at other places.
+      * loss, a mean near log 512 = 6.2: within 5e-3 (3.2e-4 seen; the
+        loss falls by 4e-2 from step 1 to 2);
+      * token rows and dense params: ``_adam_close``;
+      * the rows' Adam moments: 5e-2 of the largest magnitude, as in
+        tests/test_torch_train.py (2.9e-2 seen)."""
+    for i, st in enumerate(train["steps"]):
+        np.testing.assert_allclose(float(st["to"]["loss"]), float(st["jo"]["loss"]), rtol=0, atol=5e-3,
+                                   err_msg=f"step {i} loss")
+        tr, jr = st["trows"], st["jrows"]
+        _adam_close(tr["emb"], jr["emb"], f"step {i} rows")
+        for k in ("m", "v"):
+            w = jr["slots"][k]
+            np.testing.assert_allclose(tr["slots"][k], w, rtol=0, atol=5e-2 * np.abs(w).max(),
+                                       err_msg=f"step {i} rows {k}")
+        _adam_close(np.concatenate([st["tdense"][n].numpy().ravel() for n in st["jdense"]]),
+                    np.concatenate([w.numpy().ravel() for w in st["jdense"].values()]), f"step {i} dense")
+
+
+def test_lm_train_moves_rows_and_params(train):
+    """The comparison above is not vacuous: the params moved from their
+    start, the loss fell, and the rows moved between steps."""
+    first, last = train["steps"][0], train["steps"][-1]
+    for n, p0 in train["params0"].items():
+        assert not torch.equal(last["tdense"][n], p0), n
+    n0 = first["trows"]["emb"].shape[0]
+    assert not np.array_equal(last["trows"]["emb"][:n0], first["trows"]["emb"])
+    assert all(p.requires_grad for p in train["tcell"].init_state()["dense"].parameters())
+
+
+def test_build_lm_train_cell_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_build_cell("qwen2.5-3b", "train_4k", smoke=True)
