@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The PyTorch port serving and training dlrm-mlperf, and serving the
-qwen2.5-3b prefill and training qwen2.5-3b, on one NVIDIA card, through its
-own CUDA kernels.
+"""The PyTorch port serving and training dlrm-mlperf, training the MSE
+ranking model of examples/train_mse.py, and serving the qwen2.5-3b prefill
+and training qwen2.5-3b, on one NVIDIA card, through its own CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -16,10 +16,15 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 unaligned pointers, views of stacked tables; flash
                 attention forward and backward over head dims 16-128, T not
                 a multiple of the tile, grouped kv heads, bf16 and fp32,
-                strided inputs, an unaligned q refused);
+                strided inputs, an unaligned q refused; fused bucketize on
+                every boundary and a float step either side, ±inf, NaN,
+                ±0.0, subnormals, widths 1 to 3,000 and fp64 input; sequence
+                tile and untile over empty rows, rows longer than k and a
+                padding tail, D 8-128, k 1-50, int32 and int64 splits);
   3. smoke    — the smoke-size serve cell, then three steps of the smoke
                 train cell, then two qwen2.5 smoke prefill requests, then
-                three qwen2.5 smoke train steps, on the card against the
+                three qwen2.5 smoke train steps, then three steps of the MSE
+                example's cell at its own size, on the card against the
                 same cells on the CPU: same rows, params and batches;
   4. serve    — full-width dlrm-mlperf (vocab cut to 250,000 per feature):
                 6.5 M rows imported, 20 serve_p99 requests (batch 512) and
@@ -39,6 +44,13 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 query row, a torch.profiler trace of one request; then the
                 serve, train and prefill kernels are measured (phase 5) and
                 everything those paths held is released;
+     mse      — the MSE example's widths at batch 65,536 with its budgets
+                raised to hold the whole batch, from a fresh state: 3
+                warm-up and 10 timed steps with the kernels' launch counts,
+                overflow and row checks, a torch.profiler trace of three
+                steps, ten steps on one repeated batch; then the step at the
+                example's own batch of 128; then the MSE kernels are
+                measured (phase 5) and everything is released;
      lm train — full-width qwen2.5-3b train_4k (T 4,096, batch cut to 1)
                 from a fresh state on an emptied card: 2 warm-up and 5
                 timed steps with the kernels' launch counts, state and
@@ -46,9 +58,10 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 plain backward on every row, a torch.profiler trace of one
                 step, three steps on one repeated batch (the loss falls);
   5. a ``{"kernels": [...]}`` line: each kernel on the exact inputs the
-     serve, train, prefill and LM train paths fed it, against its plain
-     version, timed beside the plain version, one PyTorch library call and
-     the card's bound.
+     serve, train, prefill, MSE train and LM train paths fed it (and the
+     bucketize kernel at the operator benchmark's shape too), against its
+     plain version, timed beside the plain version, one PyTorch library
+     call and the card's bound.
 
 Every check raises on failure, so the script exits non-zero. It prints one
 JSON object per line; the last is ``{"ok": true, "device": {...}}``.
@@ -102,6 +115,22 @@ PREFILL_T, N_PREFILL = 32_768, 3   # prefill_32k; timed requests after one warm-
 LM_TRAIN_T = 4_096  # train_4k
 N_LM_WARMUP, N_LM_STEPS, N_LM_REPEAT = 2, 5, 3
 PLAIN_ROWS = 1_024  # query rows per piece of the plain version at T 32,768 (whole, its scores take 68 GB)
+# The MSE model at full size: the example's widths at the recsys train_batch
+# batch, every budget raised so the card does the whole batch's work (about
+# 5.05 M ids and 0.7 M unique ids a step; 8 M rows after 25 steps)
+MSE_BATCH = 65_536
+MSE_BUDGET = 2_097_152          # u_budget = per_dest_cap = recv_budget
+MSE_ROWS, MSE_MAP = 16_777_216, 33_554_432
+MSE_ROW_ATOL = 2 * 1e-2 * 3     # SparseAdam lr 1e-2, 3 steps (reasons in tests/test_torch_mse.py)
+MSE_LATER_MOMENT_FRAC = 0.25    # the rows' moments after 3 steps, of their largest magnitude
+# the operator benchmark's bucketize (benchmarks/table1_operators.py:34-45):
+# 100 columns of 2,000 values, column widths 8-63
+OP_COLS, OP_VALS = 100, 2_000
+DLRM_TRAIN_KERNELS = ("fused_gather", "segment_reduce", "fused_scatter")
+BUCKET_CASES = [  # column widths, N, value type
+    ([17] * 20, 2_560, np.float32), ([1], 1_000, np.float32), ([1_000, 17, 1], 4_097, np.float32),
+    ([3_000] * 5, 70_001, np.float32), ([17] * 20, 5_003, np.float64),
+]
 
 
 def emit(obj) -> None:
@@ -189,6 +218,23 @@ def ptxas_report(log_path: Path) -> list[dict]:
     return entries
 
 
+def bucket_case(rng, widths, n: int, vdt=np.float32):
+    """Sorted boundaries per column, column ids, and values: random, on
+    every boundary, one float step either side of it, ±inf, NaN, ±0.0 and
+    subnormals (the bucketize kernel compares those as zero, as XLA does)."""
+    bnds = np.concatenate([np.sort(rng.normal(size=w)).astype(np.float32) for w in widths])
+    offs = np.concatenate([[0], np.cumsum(widths)]).astype(np.int32)
+    vals = rng.normal(size=n).astype(np.float32)
+    on = bnds[rng.integers(0, bnds.size, n // 4)]
+    m = on.size
+    vals[:m] = on
+    vals[m:2 * m] = np.nextafter(on, np.float32(np.inf))
+    vals[2 * m:3 * m] = np.nextafter(on, np.float32(-np.inf))
+    vals[3 * m:3 * m + 9] = [np.inf, -np.inf, np.nan, -0.0, 0.0, 1e-45, -1e-45, 1e-39, -3e-39]
+    cids = rng.integers(0, len(widths), n).astype(np.int32)
+    return vals.astype(vdt), cids, bnds, offs
+
+
 def bound_ms(n_bytes: float, n_ops: float = 0.0, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -201,16 +247,37 @@ def main() -> None:
     from repro_torch import kernels
     from repro_torch.configs import dlrm_mlperf, qwen2_5_3b
     from repro_torch.configs.base import ShapeCell
+    from repro_torch.core.embedding_engine import EngineConfig
     from repro_torch.core.feature_engine import FeatureEngine
     from repro_torch.io.ragged import Ragged
     from repro_torch.core import idmap as idmap_lib
+    from repro_torch.examples import train_mse as mse
     from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
     from repro_torch.kernels.fused_gather import ops as fg_ops, ref as fg_ref
     from repro_torch.kernels.fused_scatter import ops as fs_ops, ref as fs_ref
+    from repro_torch.kernels.fused_transform import ops as ft_ops, ref as ft_ref
     from repro_torch.kernels.segment_reduce import ops as sr_ops, ref as sr_ref
+    from repro_torch.kernels.sequence_tile import ops as st_ops, ref as st_ref
     from repro_torch.launch import recsys_cell
     from repro_torch.launch.cells import build_cell
     from repro_torch.launch.common import local_view
+
+    def counts() -> dict:
+        return {"fused_gather.gather_rows": fg_ops.LAUNCHES,
+                "segment_reduce.segment_sum": sr_ops.LAUNCHES,
+                "segment_reduce.segment_expand_csr": sr_ops.LAUNCHES_BWD,
+                "fused_scatter.scatter_add_rows": fs_ops.LAUNCHES_ADD,
+                "fused_scatter.scatter_set_rows": fs_ops.LAUNCHES_SET,
+                "flash_attention.flash_fwd": fa_ops.LAUNCHES,
+                "flash_attention.flash_bwd": fa_ops.BWD_LAUNCHES,
+                "fused_transform.fused_bucketize": ft_ops.LAUNCHES,
+                "sequence_tile.sequence_tile": st_ops.LAUNCHES,
+                "sequence_tile.sequence_untile": st_ops.BWD_LAUNCHES}
+
+    def reset_counts() -> None:
+        fg_ops.LAUNCHES = sr_ops.LAUNCHES = sr_ops.LAUNCHES_BWD = 0
+        fs_ops.LAUNCHES_ADD = fs_ops.LAUNCHES_SET = fa_ops.LAUNCHES = fa_ops.BWD_LAUNCHES = 0
+        ft_ops.LAUNCHES = st_ops.LAUNCHES = st_ops.BWD_LAUNCHES = 0
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -388,6 +455,38 @@ def main() -> None:
         other = case["dk_other_kv_head_err_over_tol"]
         check(min(case[f"{n}_zero_err_over_tol"] for n in GRAD_NAMES) > 1.0 and (other is None or other > 1.0),
               f"the flash_bwd check cannot tell a wrong gradient at {case}")
+    op_widths = rng.integers(8, 64, OP_COLS)  # the operator benchmark's widths
+    for widths, n, vdt in BUCKET_CASES + [(list(op_widths), OP_COLS * OP_VALS, np.float32)]:
+        args = [torch.from_numpy(x).to(dev) for x in bucket_case(rng, widths, n, vdt)]
+        before = ft_ops.LAUNCHES
+        got = ft_ops.fused_bucketize(*args)
+        torch.cuda.synchronize()
+        launched = ft_ops.LAUNCHES == before + 1
+        want = ft_ref.fused_bucketize(*args)
+        cases.append({"kernel": "fused_bucketize", "columns": len(widths), "width_min": int(min(widths)),
+                      "width_max": int(max(widths)), "boundaries": int(sum(widths)), "N": n, "values": str(vdt.__name__),
+                      "launched": launched, "equal": bool(torch.equal(got, want))})
+        check(launched and got.dtype == torch.int64 and torch.equal(got, want),
+              f"fused_bucketize disagrees at {cases[-1]}")
+    for D in (8, 13, 50, 128):
+        for k in (1, 8, 50):
+            for sdt in (torch.int32, torch.int64):
+                lengths = rng.integers(0, 12, size=97)
+                lengths[::5] = 0   # empty rows
+                lengths[1] = 60    # a row longer than any k
+                budget = int(lengths.sum()) + 9  # a padding tail
+                sp = torch.from_numpy(np.concatenate([[0], np.cumsum(lengths)])).to(sdt).to(dev)
+                vals = torch.from_numpy(rng.normal(size=(budget, D)).astype(np.float32)).to(dev)
+                g = torch.from_numpy(rng.normal(size=(97, k, D)).astype(np.float32)).to(dev)
+                before = (st_ops.LAUNCHES, st_ops.BWD_LAUNCHES)
+                got, got_g = st_ops.sequence_tile(vals, sp, k), st_ops.sequence_untile(g, sp, budget)
+                torch.cuda.synchronize()
+                launched = (st_ops.LAUNCHES, st_ops.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+                eq = torch.equal(got, st_ref.sequence_tile(vals, sp, k))
+                eq_g = torch.equal(got_g, st_ref.sequence_untile(g, sp, budget))
+                cases.append({"kernel": "sequence_tile+untile", "n_rows": 97, "N": budget, "D": D, "k": k,
+                              "splits": str(sdt), "launched": launched, "tile_equal": eq, "untile_equal": eq_g})
+                check(launched and eq and eq_g, f"sequence tile or untile disagrees at {cases[-1]}")
     emit({"phase": "kernels_vs_plain", "cases": cases, "tolerance": {
         "gather_rows": "bit-equal", "segment_sum": "rtol=atol=1e-5 (summation order)",
         "segment_sum_csr": "rtol=atol=1e-5 (summation order)",
@@ -397,7 +496,9 @@ def main() -> None:
                      f"{FLASH_TOL[torch.float32]} fp32, {FLASH_TOL[torch.bfloat16]} bf16 (one rounding); "
                      f"LSE rtol=atol {LSE_TOL}; an unaligned q is refused",
         "flash_bwd": "dQ, dK, dV each as O of flash_fwd (err_over_tol <= 1); a zero gradient and the dK "
-                     "of the other kv head (Hk > 1) read above 1"}})
+                     "of the other kv head (Hk > 1) read above 1",
+        "fused_bucketize": "equal", "sequence_tile": "equal (torch.equal)",
+        "sequence_untile": "equal (torch.equal)"}})
 
     # ----------------------------------------------- 3 smoke serve, card vs CPU
     shape = ShapeCell("serve_p99", "serve", {"batch": 32})
@@ -549,6 +650,50 @@ def main() -> None:
           "tolerance": {"loss": MIXED_TOL, "emb_and_dense_atol": TRAIN_PARAM_ATOL}})
     del lsmoke, states, outs, exp, dense
 
+    # --------------------------------------------- 3 smoke MSE train, card vs CPU
+    mcells = {d: mse.MSECell(d) for d in ("cpu", "cuda")}  # the example's own constants
+    states = {d: cell.init_state() for d, cell in mcells.items()}
+    states["cuda"]["dense"].load_state_dict(states["cpu"]["dense"].state_dict())
+    losses, per_step = [], {"fused_transform.fused_bucketize": 1, "sequence_tile.sequence_tile": mse.N_SEQ,
+                            "sequence_tile.sequence_untile": mse.N_SEQ,
+                            "segment_reduce.segment_sum": mse.N_HASH + mse.N_BUCKET + 1,
+                            "segment_reduce.segment_expand_csr": mse.N_HASH + mse.N_BUCKET + 1,
+                            "fused_gather.gather_rows": 4, "fused_scatter.scatter_add_rows": 3}
+    for s in seeds:
+        arrays = mse.batch_arrays(mcells["cpu"].specs, mse.BATCH, seed=50_000 + s)
+        before = counts()
+        outs = {}
+        for d, cell in mcells.items():
+            states[d], outs[d] = cell.step_fn(states[d], mse.to_batch(arrays, cell.device))
+        torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in counts().items()}
+        check(all(delta[k] == v for k, v in per_step.items()), f"smoke MSE launches per step {delta}")
+        met = {d: {k: int(v) for k, v in o.items() if k != "loss"} for d, o in outs.items()}
+        check(met["cuda"] == met["cpu"], f"smoke MSE metrics differ: {met}")
+        lc, lg = float(outs["cpu"]["loss"]), float(outs["cuda"]["loss"])
+        check(np.isfinite(lg) and abs(lg - lc) <= MIXED_TOL["atol"] + MIXED_TOL["rtol"] * abs(lc),
+              f"smoke MSE loss {lg} on the card, {lc} on the CPU")
+        losses.append({"cpu": lc, "cuda": lg})
+    sp = {d: states[d]["sparse"]["dim8"] for d in states}
+    for f in idmap_lib.TENSOR_FIELDS:
+        check(torch.equal(getattr(sp["cuda"]["idmap"], f).cpu(), getattr(sp["cpu"]["idmap"], f)),
+              f"smoke MSE IDMap field {f} differs")
+    diffs = {"emb": float((sp["cuda"]["blocks"].emb.cpu() - sp["cpu"]["blocks"].emb).abs().max())}
+    check(diffs["emb"] <= MSE_ROW_ATOL, f"smoke MSE rows differ by {diffs['emb']}")
+    for k in ("m", "v"):
+        got, want = sp["cuda"]["blocks"].slots[k].cpu(), sp["cpu"]["blocks"].slots[k]
+        diffs[k] = float((got - want).abs().max())
+        check(diffs[k] <= MSE_LATER_MOMENT_FRAC * float(want.abs().max()), f"smoke MSE {k} differs by {diffs[k]}")
+    dense = {d: states[d]["dense"].state_dict() for d in states}
+    diffs["dense"] = max(float((dense["cuda"][k].cpu() - v).abs().max()) for k, v in dense["cpu"].items())
+    check(diffs["dense"] <= TRAIN_PARAM_ATOL, f"smoke MSE dense params differ by {diffs['dense']}")
+    emit({"phase": "smoke_mse_train_card_vs_cpu", "model": "examples/train_mse.py", "batch": mse.BATCH,
+          "steps": len(seeds), "loss": losses, "metrics": met["cuda"], "idmap_equal": True,
+          "launches_per_step": per_step, "max_abs_diff": diffs, "tolerance": {
+              "loss": MIXED_TOL, "emb_atol": MSE_ROW_ATOL, "dense_atol": TRAIN_PARAM_ATOL,
+              "moments": f"{MSE_LATER_MOMENT_FRAC} of the largest magnitude"}})
+    del mcells, states, outs, sp, dense
+
     # ------------------------------------------------------ 4 full-width serve
     arch = dataclasses.replace(dlrm_mlperf.ARCH, model=dataclasses.replace(
         dlrm_mlperf.ARCH.model, vocab_per_feature=VOCAB))
@@ -612,19 +757,6 @@ def main() -> None:
             "scatter_add_rows": recorder(fs_ops, "scatter_add_rows", whole=True),
             "scatter_set_rows": recorder(fs_ops, "scatter_set_rows", whole=True),
             "flash_attention": recorder(fa_ops, "flash_attention")}
-
-    def counts() -> dict:
-        return {"fused_gather.gather_rows": fg_ops.LAUNCHES,
-                "segment_reduce.segment_sum": sr_ops.LAUNCHES,
-                "segment_reduce.segment_expand_csr": sr_ops.LAUNCHES_BWD,
-                "fused_scatter.scatter_add_rows": fs_ops.LAUNCHES_ADD,
-                "fused_scatter.scatter_set_rows": fs_ops.LAUNCHES_SET,
-                "flash_attention.flash_fwd": fa_ops.LAUNCHES,
-                "flash_attention.flash_bwd": fa_ops.BWD_LAUNCHES}
-
-    def reset_counts() -> None:
-        fg_ops.LAUNCHES = sr_ops.LAUNCHES = sr_ops.LAUNCHES_BWD = 0
-        fs_ops.LAUNCHES_ADD = fs_ops.LAUNCHES_SET = fa_ops.LAUNCHES = fa_ops.BWD_LAUNCHES = 0
 
     batches = {s: p99.make_batch(s, vocab=VOCAB) for s in range(N_WARMUP + N_P99_REQUESTS)}
     bulk_batch = bulk.make_batch(10_000, vocab=VOCAB)
@@ -754,7 +886,7 @@ def main() -> None:
             del sample
     train_launches = counts()
     check(inserted[0] > 0, "step 1 inserted nothing")
-    check(all(v > 0 for k, v in train_launches.items() if not k.startswith("flash")),
+    check(all(v > 0 for k, v in train_launches.items() if k.split(".")[0] in DLRM_TRAIN_KERNELS),
           f"a kernel of the train path never ran: {train_launches}")
     check(train_launches["fused_gather.gather_rows"] == 4 * n_steps
           and train_launches["fused_scatter.scatter_add_rows"] == 3 * n_steps
@@ -938,6 +1070,170 @@ def main() -> None:
     check(not recorded, f"recorded inputs left unmeasured: {list(recorded)}")
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------ 4 full-size MSE train
+    torch.cuda.synchronize()
+    mse_held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    mcfg_full = EngineConfig(n_devices=1, rows_per_shard=MSE_ROWS, map_capacity_per_shard=MSE_MAP,
+                             u_budget=MSE_BUDGET, per_dest_cap=MSE_BUDGET, recv_budget=MSE_BUDGET)
+    mcell = mse.MSECell(dev, batch=MSE_BATCH, engine_cfg=mcfg_full)
+    n_m = N_TRAIN_WARMUP + N_TRAIN_STEPS
+    t0 = time.perf_counter()
+    mbatches = [mse.to_batch(mse.batch_arrays(mcell.specs, MSE_BATCH, seed=60_000 + s), dev)
+                for s in range(n_m + 3 + 1)]  # then three profiled, one repeated
+    torch.cuda.synchronize()
+    mbatch_s = time.perf_counter() - t0
+    # the distinct engine ids of each batch, and of all batches up to it
+    # (the rows the engine must hold after that step)
+    m_uniq, m_expect, mseen = [], [], torch.empty(0, dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        for b in mbatches[:n_m]:
+            eng = mcell.engine.engine_ids(mcell.fe.apply(b)[0])["dim8"]
+            u = torch.unique(eng[eng != -1])
+            mseen = torch.unique(torch.cat([mseen, u]))
+            m_uniq.append(u.numel())
+            m_expect.append(mseen.numel())
+    m_ids_per_step = int(eng.numel())
+    del eng, u, mseen
+    mstate = mcell.init_state()  # dense from a seeded generator, an empty engine
+    mstate_bytes = sum(t.numel() * t.element_size() for t in _tensors(mstate["sparse"]))
+    torch.cuda.synchronize()
+    mbase = torch.cuda.memory_allocated()
+    for fn_name, mod in (("fused_bucketize", ft_ops), ("sequence_tile", st_ops), ("sequence_untile", st_ops)):
+        real[fn_name] = recorder(mod, fn_name)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    mstep_ms, mlosses, mlive, movf = [], [], [], {}
+    for s in range(n_m):
+        phase["name"] = "mse_train" if s == N_TRAIN_WARMUP - 1 else None  # the last warm-up step
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        mstate, out = mcell.step_fn(mstate, mbatches[s])
+        end.record()
+        end.synchronize()
+        phase["name"] = None
+        if s >= N_TRAIN_WARMUP:
+            mstep_ms.append(start.elapsed_time(end))
+        met = {k: int(v) for k, v in out.items() if k != "loss"}
+        for k, v in met.items():
+            movf[k] = max(movf.get(k, 0), v)
+        mlosses.append(float(out["loss"]))
+        mlive.append(int(mstate["sparse"]["dim8"]["idmap"].n_live()))
+        check(all(v == 0 for v in met.values()), f"MSE train overflow at step {s + 1}: {met}")
+        check(np.isfinite(mlosses[-1]), f"MSE train loss {mlosses[-1]} at step {s + 1}")
+        check(mlive[-1] == m_expect[s], f"MSE step {s + 1}: {mlive[-1]} rows live, {m_expect[s]} ids seen")
+        if s == N_TRAIN_WARMUP - 2:  # steps 1-2: before the probe step's recorded copies
+            mse_peak = torch.cuda.max_memory_allocated()
+    mse_launches = counts()
+    for fn_name, mod in (("fused_bucketize", ft_ops), ("sequence_tile", st_ops), ("sequence_untile", st_ops)):
+        setattr(mod, fn_name, real[fn_name])  # the wrappers record no more
+    n_cols = mse.N_HASH + mse.N_BUCKET + 1
+    want_m = {"fused_gather.gather_rows": 4 * n_m, "segment_reduce.segment_sum": n_cols * n_m,
+              "segment_reduce.segment_expand_csr": n_cols * n_m, "fused_scatter.scatter_add_rows": 3 * n_m,
+              "fused_scatter.scatter_set_rows": 3 * n_m, "flash_attention.flash_fwd": 0,
+              "flash_attention.flash_bwd": 0, "fused_transform.fused_bucketize": n_m,
+              "sequence_tile.sequence_tile": mse.N_SEQ * n_m, "sequence_tile.sequence_untile": mse.N_SEQ * n_m}
+    check(mse_launches == want_m, f"MSE train launches {mse_launches}, expected {want_m}")
+    check(all(bool(torch.isfinite(p).all()) for p in mstate["dense"].parameters()), "MSE params not finite")
+
+    def mse_step(b):
+        nonlocal mstate
+        mstate, _ = mcell.step_fn(mstate, b)
+
+    emit(profile_requests("mse_train", mse_step, mbatches[n_m:n_m + 3]))
+    mrepeat = []
+    for _ in range(N_REPEAT):  # one batch again and again: the loss must fall
+        mstate, out = mcell.step_fn(mstate, mbatches[-1])
+        mrepeat.append(float(out["loss"]))
+    check(all(np.isfinite(mrepeat)) and mrepeat[-1] < mrepeat[0], f"MSE loss on one repeated batch: {mrepeat}")
+    del mstate, mcell, mbatches, out
+    torch.cuda.empty_cache()
+    # the example's own size (batch 128, its budgets): a step of little device work
+    small = mse.MSECell(dev)
+    sstate = small.init_state()
+    sbatches = [mse.to_batch(mse.batch_arrays(small.specs, mse.BATCH, seed=70_000 + s), dev)
+                for s in range(n_m + 3)]
+    small_ms = []
+    for s in range(n_m):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sstate, out = small.step_fn(sstate, sbatches[s])
+        torch.cuda.synchronize()
+        if s >= N_TRAIN_WARMUP:
+            small_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def small_step(b):
+        nonlocal sstate
+        sstate, _ = small.step_fn(sstate, b)
+
+    small_profile = profile_requests("mse_train_batch_128", small_step, sbatches[n_m:])
+    emit(small_profile)
+    del small, sstate, sbatches, out
+    msm, ssm = np.array(mstep_ms), np.array(small_ms)
+    emit({"phase": "full_mse_train", "model": "examples/train_mse.py (its widths)", "batch": MSE_BATCH,
+          "widths": {"dim": mse.DIM, "hash": mse.N_HASH, "bucketize": mse.N_BUCKET, "sequences": mse.N_SEQ,
+                     "seq_len": mse.SEQ_LEN, "dnn": list(mse.DNN_DIMS)},
+          "reduced": {"batch": [mse.BATCH, MSE_BATCH], "budgets": {
+              "u_budget": [2048, MSE_BUDGET], "per_dest_cap": [2048, MSE_BUDGET],
+              "recv_budget": [2048, MSE_BUDGET], "rows_per_shard": [1 << 14, MSE_ROWS],
+              "map_capacity_per_shard": [1 << 15, MSE_MAP]}},
+          "ids_per_step": m_ids_per_step, "unique_ids_per_step": m_uniq, "batch_build_s": mbatch_s,
+          "warmup": N_TRAIN_WARMUP, "steps": N_TRAIN_STEPS,
+          "step_ms_p50": float(np.percentile(msm, 50)), "step_ms_p99": float(np.percentile(msm, 99)),
+          "step_ms_mean": float(msm.mean()), "step_ms": mstep_ms,
+          "samples_per_s": MSE_BATCH / (float(np.percentile(msm, 50)) / 1e3),
+          "loss": mlosses, "overflow_max": movf, "dev_rows_live": mlive, "distinct_ids_seen": m_expect,
+          "loss_on_one_repeated_batch": mrepeat, "state_bytes": mstate_bytes,
+          "allocated_before_bytes": mbase, "held_from_earlier_phases_bytes": mse_held,
+          "max_memory_allocated_bytes_steps_1_2": mse_peak, "step_transient_bytes": mse_peak - mbase,
+          "launches": mse_launches, "launches_per_step": {k: v / n_m for k, v in mse_launches.items()},
+          "example_size": {"batch": mse.BATCH, "steps": N_TRAIN_STEPS,
+                           "step_ms_p50_host_clock": float(np.percentile(ssm, 50)),
+                           "step_ms_p99_host_clock": float(np.percentile(ssm, 99)), "step_ms": small_ms}})
+
+    # ------------------------------------------ 5 the MSE kernels, measured
+    op_r = np.random.default_rng(SEED + 1)  # the operator benchmark's shape: contiguous columns
+    op_w = op_r.integers(8, 64, OP_COLS)
+    op_b = np.concatenate([np.sort(op_r.normal(size=w)) for w in op_w]).astype(np.float32)
+    op_args = [torch.from_numpy(x).to(dev) for x in (
+        op_r.normal(size=OP_COLS * OP_VALS).astype(np.float32),
+        np.repeat(np.arange(OP_COLS, dtype=np.int32), OP_VALS), op_b,
+        np.concatenate([[0], np.cumsum(op_w)]).astype(np.int32))]
+    mse_kernels = [  # (entry, wrapper, plain, library call, at)
+        ("fused_transform.fused_bucketize", "fused_bucketize", ft_ref.fused_bucketize,
+         "torch.searchsorted(bounds padded with +inf to (C, max width)[cids], values[:, None], right=True), "
+         "with the gather; library_loop_ms: torch.bucketize per column",
+         {"mse_train": recorded.pop(("fused_bucketize", "mse_train"))[0], "operator_table1": op_args}),
+        ("sequence_tile.sequence_tile", "sequence_tile", st_ref.sequence_tile,
+         "torch.index_select at the clamped indices, times the mask",
+         {"mse_train": recorded.pop(("sequence_tile", "mse_train"))[0]}),
+        ("sequence_tile.sequence_untile", "sequence_untile", st_ref.sequence_untile,
+         "torch.index_select of g (a zero row appended) at each value position's slot",
+         {"mse_train": recorded.pop(("sequence_untile", "mse_train"))[0]}),
+    ]
+    for e in entries:  # the earlier kernels' launches on the MSE path
+        e["launches_by_path"]["mse_train"] = mse_launches[e["name"]]
+    for full, kname, plain, lib_call, inputs in mse_kernels:
+        at = {path: _measure_mse_kernel(kname, real[kname], plain, args) for path, args in inputs.items()}
+        main_at = at["mse_train"]
+        by_path = {"serve": launches[full], "train": train_launches[full], "prefill": prefill_launches[full],
+                   "mse_train": mse_launches[full]}
+        entries.append({
+            "name": full, "route": "cuda", "source": f"src/repro_torch/csrc/{full.split('.')[0]}.cu",
+            "replaces": ("src/repro/kernels/fused_transform/fused_transform.py:47" if kname == "fused_bucketize"
+                         else "src/repro/kernels/sequence_tile/sequence_tile.py:33"), "ok": True,
+            "launches": sum(by_path.values()), "launches_by_path": by_path, "main_path": "mse_train",
+            "max_abs_err": max(a["max_abs_err"] for a in at.values()),
+            "max_err": max(a["max_abs_err"] for a in at.values()), "kernel_ms": main_at["ms"],
+            **{k: main_at[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "library_call": lib_call, "at": at})
+        if kname == "sequence_untile":
+            entries[-1]["replaces_note"] = ("the gradient of the sequence tile: the reference differentiates "
+                                            "_pool's none branch, src/repro/core/embedding_engine.py:418-423")
+        del inputs
+    del mse_kernels, op_args
+    check(not recorded, f"recorded inputs left unmeasured: {list(recorded)}")
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------ 4 full-width LM train
     torch.cuda.synchronize()
     start_bytes = torch.cuda.memory_allocated()  # what earlier phases still hold: near zero
@@ -995,7 +1291,9 @@ def main() -> None:
     want_launches = {"fused_gather.gather_rows": 4 * n_lm, "segment_reduce.segment_sum": 0,
                      "segment_reduce.segment_expand_csr": 0, "fused_scatter.scatter_add_rows": 3 * n_lm,
                      "fused_scatter.scatter_set_rows": 3 * n_new,
-                     "flash_attention.flash_fwd": 2 * L_lm * n_lm, "flash_attention.flash_bwd": L_lm * n_lm}
+                     "flash_attention.flash_fwd": 2 * L_lm * n_lm, "flash_attention.flash_bwd": L_lm * n_lm,
+                     "fused_transform.fused_bucketize": 0, "sequence_tile.sequence_tile": 0,
+                     "sequence_tile.sequence_untile": 0}
     check(lm_launches == want_launches, f"LM train launches {lm_launches}, expected {want_launches}")
     check(linserted[0] > 0, "LM step 1 inserted nothing")
     check(all(bool(torch.isfinite(p).all()) for p in lstate["dense"].parameters()), "LM params not finite")
@@ -1052,6 +1350,7 @@ def main() -> None:
     fwd_by_path = {"serve": launches["flash_attention.flash_fwd"],
                    "train": train_launches["flash_attention.flash_fwd"],
                    "prefill": prefill_launches["flash_attention.flash_fwd"],
+                   "mse_train": mse_launches["flash_attention.flash_fwd"],
                    "lm_train": lm_launches["flash_attention.flash_fwd"]}
     entries.append({
         "name": "flash_attention.flash_fwd", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -1064,6 +1363,7 @@ def main() -> None:
     bwd_by_path = {"serve": launches["flash_attention.flash_bwd"],
                    "train": train_launches["flash_attention.flash_bwd"],
                    "prefill": prefill_launches["flash_attention.flash_bwd"],
+                   "mse_train": mse_launches["flash_attention.flash_bwd"],
                    "lm_train": lm_launches["flash_attention.flash_bwd"]}
     entries.append({
         "name": "flash_attention.flash_bwd", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -1147,6 +1447,96 @@ def _measure(kname: str, real, plain, args: list, kw: dict, iters: int, dev) -> 
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     return {"shape": shape, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
             "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes}
+
+
+def _measure_mse_kernel(kname: str, real, plain, args: list, iters: int = 100) -> dict:
+    """A kernel of the MSE path on one input: held to its plain version
+    (equal), then timed beside the plain version and the library call, with
+    the card's bound (each input read once, each output written once)."""
+    got, want = real(*args), plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"{kname} disagrees with its plain version")
+    err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+    del got, want
+    n_ops, loop_ms = 0.0, None
+    if kname == "fused_bucketize":
+        vals, cids, bnds, offs = args
+        N, B, C = vals.numel(), bnds.numel(), offs.numel() - 1
+        widths = (offs[1:] - offs[:-1]).long()
+        max_w = int(widths.max())
+        n_bytes = N * (vals.element_size() + 4 + 8) + (B + C + 1) * 4
+        n_ops = float(N * max(1, int(np.ceil(np.log2(max_w + 1)))))  # compares
+        pos = torch.arange(B, device=bnds.device)
+        col = torch.searchsorted(offs, pos.to(offs.dtype), right=True).long() - 1
+        table = torch.full((C, max_w), float("inf"), device=bnds.device)
+        table[col, pos - offs[col].long()] = bnds
+        vf, cl = vals.float(), cids.long()
+        lib = lambda: torch.searchsorted(table[cl], vf[:, None], right=True)
+        # per-column calls, the unfused shape: each column's values are one
+        # contiguous block of the concatenated buffer, as the engine lays them out
+        starts = torch.searchsorted(cids, torch.arange(C + 1, dtype=cids.dtype, device=cids.device)).tolist()
+        o = offs.tolist()
+        cols = [(vf[starts[c]:starts[c + 1]], bnds[o[c]:o[c + 1]]) for c in range(C)]
+        loop_ms = time_ms(lambda: [torch.bucketize(v, b, right=True) for v, b in cols], 20)
+        shape = {"N": N, "columns": C, "boundaries": B, "width_max": max_w,
+                 "contiguous_columns": bool((cids[1:] >= cids[:-1]).all())}
+    elif kname == "sequence_tile":
+        vals, splits, k = args
+        (N, D), S = vals.shape, splits.numel() - 1
+        lens = (splits[1:] - splits[:-1]).long()
+        live = int(lens.clamp(0, k).sum())
+        n_bytes = (live * D + S * k * D) * 4 + (S + 1) * splits.element_size()
+        j = torch.arange(k, device=vals.device)
+        idx = (splits[:-1, None].long() + j).clamp(0, N - 1).reshape(-1)
+        mask = (j[None, :] < lens[:, None]).float()[..., None]
+        lib = lambda: torch.index_select(vals, 0, idx).view(S, k, D) * mask
+        shape = {"N": N, "D": D, "S": S, "k": k, "live_slots": live}
+    else:  # sequence_untile: g (S, k, D) → (N, D)
+        g, splits, N = args
+        S, k, D = g.shape
+        pos = torch.arange(N, dtype=splits.dtype, device=g.device)
+        row = (torch.searchsorted(splits, pos, right=True) - 1).clamp(0, S - 1).long()
+        off = pos.long() - splits[row].long()
+        ok = (pos >= splits[0]) & (pos < splits[-1]) & (off < k)
+        live = int(ok.sum())
+        n_bytes = (live * D + N * D) * 4 + (S + 1) * splits.element_size()
+        idx = torch.where(ok, row * k + off, S * k)
+        g_ext = torch.cat([g.reshape(S * k, D), g.new_zeros((1, D))])
+        lib = lambda: torch.index_select(g_ext, 0, idx)
+        shape = {"N": N, "D": D, "S": S, "k": k, "live_slots": live}
+    lib_ms = time_ms(lib, iters)
+    k_ms = time_ms(lambda: real(*args), iters)
+    p_ms = time_ms(lambda: plain(*args), max(3, iters // 10))
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    out = {"shape": shape, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+           "kernel_device_ms": kernel_device_ms(lambda: real(*args), f"{kname}_kernel")}
+    if loop_ms is not None:
+        out["library_loop_ms"] = loop_ms
+    return out
+
+
+def kernel_device_ms(fn, name_part: str, iters: int = 20) -> float | None:
+    """The device time of one launch of the kernels whose name holds
+    ``name_part``, from a torch.profiler trace of ``iters`` calls of ``fn``:
+    the kernel alone, without the host cost of its wrapper, which CUDA
+    events around a small kernel's calls measure instead. A 256 MB write
+    before each call leaves the 50 MB L2 cold, as the HBM bound assumes.
+    None when the trace holds no such event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(1 << 26, dtype=torch.float32, device=torch.device("cuda"))
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    del flush
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA and name_part in e.name]
+    return sum(e.time_range.end - e.time_range.start for e in ev) / 1e3 / iters if ev else None
 
 
 def _measure_flash(real, ref, q, k, v, path: str = "prefill") -> dict:

@@ -7,6 +7,8 @@ Dense params: the reference keeps a nested dict of numpy-convertible arrays
 moments ``{"m": tree, "v": tree}`` have the params' layout and convert the
 same way (``adamw_from_numpy``). The transformer's tree stacks every layer
 leaf on axis 0; ``transformer_from_numpy`` unstacks it into ``layers.{i}``.
+``mse_dense_from_numpy`` takes the MSE example's attention projections and
+DNN.
 
 Engine rows need no converter: the dict the reference's
 ``EmbeddingEngine.export_rows`` returns is what the port's ``import_rows``
@@ -55,6 +57,22 @@ def _linear(p: Mapping, name: str, d_in: int, d_out: int, bias: bool) -> dict[st
     out = {f"{name}.weight": torch.tensor(w.T)}
     if bias:
         out[f"{name}.bias"] = torch.tensor(np.asarray(p["b"], dtype=np.float32))
+    return out
+
+
+def mse_dense_from_numpy(tree: Mapping, dim: int = 8,
+                         dnn_dims: tuple[int, ...] = (496, 64, 64, 32, 32, 1)) -> dict[str, torch.Tensor]:
+    """The MSE example's dense tree ``{"attn_q": dense, "attn_k": dense,
+    "dnn": mlp}`` (``examples/train_mse.py``) → state dict for the twin's
+    ``MSEDense`` (``repro_torch/examples/train_mse.py``)."""
+    out = {}
+    for name in ("attn_q", "attn_k"):
+        out.update(_linear(tree[name], name, dim, dim, True))
+    layers = tree["dnn"]
+    if len(layers) != len(dnn_dims) - 1:
+        raise ValueError(f"dnn: {len(layers)} layers, expected {len(dnn_dims) - 1}")
+    for i in range(len(dnn_dims) - 1):
+        out.update(_linear(layers[f"l{i}"], f"dnn.l{i}", dnn_dims[i], dnn_dims[i + 1], True))
     return out
 
 

@@ -7,7 +7,8 @@
   * Request merging: one exchange per dim-group for all its features.
   * Two-tier storage per device: IDMap + Blocks, with a leading device axis
     ``[D, ...]`` on every state tensor, as the reference lays it out.
-  * Pooling per feature through the segment-sum kernel.
+  * Pooling per feature through the segment-sum kernel (sum, mean) and the
+    sequence-tile kernel (none, tile).
   * Backward update: SparseAdam on the rows the forward fetched, in place.
 """
 from __future__ import annotations
@@ -24,6 +25,7 @@ from repro_torch.core import idmap as idmap_lib
 from repro_torch.core.feature_engine import FeatureSpec, _fnv1a64, hash_combine
 from repro_torch.io.ragged import Ragged
 from repro_torch.kernels.segment_reduce import ops as sr_ops
+from repro_torch.kernels.sequence_tile import ops as st_ops
 from repro_torch.optim.sparse_adam import SparseAdamConfig, apply_row_updates
 
 PAD = -1
@@ -240,7 +242,10 @@ def _stack_blocks(blks: list[blocks_lib.Blocks]) -> blocks_lib.Blocks:
 
 def _pool(rows: torch.Tensor, r: Ragged, s: FeatureSpec) -> torch.Tensor:
     """Per-feature pooling of per-value rows: sum / mean → (n_rows, dim);
-    values → the rows as they are (CSR order)."""
+    none → (n_rows, max_len, dim); tile → (n_rows, tile_k * dim); values →
+    the rows as they are (CSR order). ``none`` is the reference's
+    ``rows[idx] * mask``, the sequence-tile function reshaped, so both go
+    through the sequence-tile kernel."""
     if s.pooling == "values":
         return rows
     if s.pooling in ("sum", "mean"):
@@ -249,4 +254,10 @@ def _pool(rows: torch.Tensor, r: Ragged, s: FeatureSpec) -> torch.Tensor:
             cnt = r.row_lengths().to(rows.dtype).clamp(min=1.0)
             pooled = pooled / cnt[:, None]
         return pooled
-    raise NotImplementedError(f"{s.name}: pooling {s.pooling!r} is not ported yet")
+    if s.pooling == "none":
+        if s.max_len is None:
+            raise ValueError(f"{s.name}: sequence pooling needs max_len")
+        return st_ops.sequence_tile(rows, r.row_splits, s.max_len).view(r.n_rows, s.max_len, rows.shape[1])
+    if s.pooling == "tile":
+        return st_ops.sequence_tile(rows, r.row_splits, s.tile_k or 1)
+    raise ValueError(s.pooling)

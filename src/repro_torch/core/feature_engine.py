@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.io.ragged import Ragged
+from repro_torch.kernels.fused_transform import ops as ft_ops
 
 _U64 = 1 << 64
 
@@ -132,7 +133,10 @@ def fused_bucketize(
 ) -> torch.Tensor:
     """All bucketize columns in one op: a branch-free, fixed-trip binary
     search of each value over its own column's slice of ``boundaries``
-    (``boundary_offsets[c]:boundary_offsets[c+1]``). Bins are right-open."""
+    (``boundary_offsets[c]:boundary_offsets[c+1]``). Bins are right-open.
+
+    The reference's plain version, kept for the tests: it reads the offsets
+    on the host. ``FeatureEngine`` runs the fused_transform kernel's op."""
     starts = boundary_offsets[column_ids]
     ends = boundary_offsets[column_ids + 1]
     widths = np.diff(boundary_offsets.cpu().numpy())
@@ -189,7 +193,7 @@ class FeatureEngine:
         fused_ops = (
             ("hash", lambda v, c: fused_hash(v, c, self._hash_salts)),
             ("mod", lambda v, c: fused_mod(v, c, self._vocab_sizes)),
-            ("bucketize", lambda v, c: fused_bucketize(
+            ("bucketize", lambda v, c: ft_ops.fused_bucketize(
                 v, c, self._boundaries, self._boundary_offsets)),
         )
         for kind, fused in fused_ops:
@@ -198,12 +202,6 @@ class FeatureEngine:
                 continue
             cols = [self._maybe_truncate(batch[s.name], s) for s in specs]
             vals = torch.cat([c.values for c in cols])
-            if kind == "bucketize" and vals.device.type != "cpu":
-                # fused_bucketize is the plain version of the fused_transform
-                # kernel, which has no CUDA port yet: no silent plain path on the card
-                raise NotImplementedError(
-                    "bucketize on the card needs the fused_transform kernel "
-                    "(ROADMAP B4), which is not ported yet")
             cids = torch.cat([torch.full((c.nnz_budget,), i, dtype=torch.int32, device=vals.device)
                               for i, c in enumerate(cols)])
             flat = fused(vals, cids)
@@ -221,5 +219,5 @@ class FeatureEngine:
 
     def _maybe_truncate(self, r: Ragged, s: FeatureSpec) -> Ragged:
         if s.max_len is not None and s.transform != "raw" and s.pooling == "none":
-            raise NotImplementedError("sequence truncation is not ported yet")
+            return r.truncate(s.max_len)
         return r

@@ -37,6 +37,9 @@ _SIGNATURES = {
     "repro_scatter_rows": [_P, _P, _INT, _P, _P, _I64, _I64, _I64, _INT, _P],
     "repro_flash_fwd": [_P, _P, _P, _P, _P, _INT, *[_I64] * 5, *[_I64] * 9, _F32, _INT, _P],
     "repro_flash_bwd": [*[_P] * 12, _INT, *[_I64] * 5, *[_I64] * 15, _F32, _INT, _P],
+    "repro_fused_bucketize": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _P],
+    "repro_sequence_tile": [_P, _P, _INT, _P, _I64, _I64, _I64, _I64, _INT, _P],
+    "repro_sequence_untile": [_P, _P, _INT, _P, _I64, _I64, _I64, _I64, _INT, _P],
 }
 
 _lib: ctypes.CDLL | None = None

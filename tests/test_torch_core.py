@@ -192,3 +192,37 @@ def test_engine_ids_and_salts_equal():
         t_batch[name] = Ragged(_t(jr.values), _t(jr.row_splits))
     np.testing.assert_array_equal(te.engine_ids(t_batch)["dim8"].numpy(),
                                   np.asarray(je.engine_ids(j_batch)["dim8"]))
+
+
+@pytest.mark.parametrize("pooling,k", [("none", 8), ("none", 3), ("tile", 4), ("tile", 1), ("tile", 0)])
+@pytest.mark.parametrize("split_dtype", [np.int32, np.int64])
+def test_pool_sequence_and_tile_equal(pooling, k, split_dtype):
+    """``_pool``'s none and tile branches (the sequence-tile op) against the
+    reference's ``rows[idx] * mask`` in fp32, and their gradients against
+    jax.vjp of it: empty rows, rows longer than k, a padding tail. Exact
+    (torch.equal semantics: the reference's masked slots may hold -0.0)."""
+    import jax
+    import repro.io.ragged as j_ragged
+    from repro_torch.io.ragged import Ragged
+
+    r = np.random.default_rng(k + (pooling == "tile"))
+    n_rows, dim, budget = 12, 8, 60
+    lens = r.integers(0, 7, size=n_rows)
+    lens[::4] = 0
+    splits = np.minimum(np.concatenate([[0], np.cumsum(lens)]), budget - 5).astype(split_dtype)
+    rows = r.normal(size=(budget, dim)).astype(np.float32)
+    g_shape = (n_rows, k, dim) if pooling == "none" else (n_rows, max(k, 1) * dim)
+    g = r.normal(size=g_shape).astype(np.float32)
+    kw = dict(max_len=k) if pooling == "none" else dict(tile_k=k)
+    jspec = JSpec("s", emb_dim=dim, pooling=pooling, **kw)
+    tspec = TSpec("s", emb_dim=dim, pooling=pooling, **kw)
+    jr = j_ragged.Ragged(jnp.zeros(budget, jnp.int64), jnp.asarray(splits))
+    want, vjp = jax.vjp(lambda x: j_engine._pool(x, jr, jspec), jnp.asarray(rows))
+    (want_g,) = vjp(jnp.asarray(g))
+    tr = Ragged(torch.zeros(budget, dtype=torch.int64), _t(splits))
+    x = _t(rows).requires_grad_()
+    got = t_engine._pool(x, tr, tspec)
+    (got_g,) = torch.autograd.grad(got, x, _t(g))
+    assert got.shape == want.shape
+    assert torch.equal(got.detach(), _t(want)) and torch.equal(got_g, _t(want_g))
+    assert got_g[int(splits[-1]):].abs().sum() == 0

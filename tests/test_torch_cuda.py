@@ -16,7 +16,9 @@ from repro_torch.io.ragged import Ragged
 from repro_torch.kernels.flash_attention import ops as t_fa, ref as t_fa_ref
 from repro_torch.kernels.fused_gather import ops as t_fg, ref as t_fg_ref
 from repro_torch.kernels.fused_scatter import ops as t_fs, ref as t_fs_ref
+from repro_torch.kernels.fused_transform import ops as t_ft, ref as t_ft_ref
 from repro_torch.kernels.segment_reduce import ops as t_sr, ref as t_sr_ref
+from repro_torch.kernels.sequence_tile import ops as t_st, ref as t_st_ref
 from repro_torch.launch.cells import build_cell
 
 
@@ -179,11 +181,133 @@ def test_segment_sum_csr_backward_kernel_matches_plain(cuda, n_rows, d, budget, 
 
 
 @pytest.mark.cuda
-def test_bucketize_on_the_card_raises(cuda):
-    spec = FeatureSpec("q", transform="bucketize", emb_dim=4, boundaries=(0.0, 1.0))
-    r = Ragged(torch.zeros(4, device=cuda), torch.zeros(3, dtype=torch.int32, device=cuda))
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-        FeatureEngine([spec], cuda).apply({"q": r})
+def test_bucketize_on_the_card_runs_its_kernel(cuda):
+    """The Feature Engine's bucketize group on the card: one fused_transform
+    launch for both columns, the ids equal to the CPU's."""
+    specs = [FeatureSpec("q", transform="bucketize", emb_dim=4, boundaries=(0.0, 1.0)),
+             FeatureSpec("p", transform="bucketize", emb_dim=4, boundaries=(-2.0, -1.0, 3.0))]
+    g = torch.Generator().manual_seed(3)
+    batch = {s.name: Ragged(torch.randn(6, generator=g) * 2, torch.tensor([0, 2, 5], dtype=torch.int32))
+             for s in specs}
+    want, _ = FeatureEngine(specs, "cpu").apply(batch)
+    before = t_ft.LAUNCHES
+    got, _ = FeatureEngine(specs, cuda).apply(
+        {k: Ragged(r.values.to(cuda), r.row_splits.to(cuda)) for k, r in batch.items()})
+    torch.cuda.synchronize()
+    assert t_ft.LAUNCHES == before + 1
+    for k in want:
+        assert torch.equal(got[k].values.cpu(), want[k].values)
+
+
+def _bucket_case(r, widths, n, dtype=np.float32):
+    """Sorted boundaries per column; values random, on every boundary, one
+    float step either side of it, ±inf, NaN, ±0.0 and subnormals."""
+    bnds = np.concatenate([np.sort(r.normal(size=w)).astype(np.float32) for w in widths])
+    offs = np.concatenate([[0], np.cumsum(widths)]).astype(np.int32)
+    vals = r.normal(size=n).astype(np.float32)
+    on = bnds[r.integers(0, bnds.size, n // 4)]
+    m = on.size
+    vals[:m] = on
+    vals[m:2 * m] = np.nextafter(on, np.float32(np.inf))
+    vals[2 * m:3 * m] = np.nextafter(on, np.float32(-np.inf))
+    vals[3 * m:3 * m + 9] = [np.inf, -np.inf, np.nan, -0.0, 0.0, 1e-45, -1e-45, 1e-39, -3e-39]
+    cids = r.integers(0, len(widths), n).astype(np.int32)
+    return vals.astype(dtype), cids, bnds, offs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths,n,dtype", [
+    ([17] * 20, 2_560, np.float32), ([1], 1_000, np.float32), ([1_000, 17, 1], 4_097, np.float32),
+    ([3_000] * 5, 70_001, np.float32), ([8, 63, 40] * 33 + [9], 200_000, np.float32),
+    ([17] * 20, 5_003, np.float64),
+])
+def test_bucketize_kernel_matches_plain(cuda, widths, n, dtype):
+    """Exact, at column widths 1, 17 and 1,000, N not a multiple of the
+    block, a table too large for shared memory (15,000 boundaries), the
+    operator benchmark's widths and fp64 input."""
+    r = np.random.default_rng(n)
+    vals, cids, bnds, offs = _bucket_case(r, widths, n, dtype)
+    args = [torch.from_numpy(x) for x in (vals, cids, bnds, offs)]
+    before = t_ft.LAUNCHES
+    got = t_ft.fused_bucketize(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    assert t_ft.LAUNCHES == before + 1
+    assert got.dtype == torch.int64 and torch.equal(got.cpu(), t_ft_ref.fused_bucketize(*args))
+
+
+def _tile_case(r, n_rows, d, split_dtype, tail=9):
+    lens = r.integers(0, 12, n_rows)
+    lens[::5] = 0      # empty rows
+    lens[1] = 60       # a row longer than any k
+    budget = int(lens.sum()) + tail  # a padding tail
+    splits = np.concatenate([[0], np.cumsum(lens)]).astype(split_dtype)
+    return torch.from_numpy(r.normal(size=(budget, d)).astype(np.float32)), torch.from_numpy(splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 13, 50, 128])
+@pytest.mark.parametrize("k", [1, 8, 50])
+@pytest.mark.parametrize("split_dtype", [np.int32, np.int64])
+def test_sequence_tile_and_untile_kernels_match_plain(cuda, d, k, split_dtype):
+    r = np.random.default_rng(d * k)
+    vals, splits = _tile_case(r, 97, d, split_dtype)
+    g = torch.from_numpy(r.normal(size=(97, k, d)).astype(np.float32))
+    before = (t_st.LAUNCHES, t_st.BWD_LAUNCHES)
+    got = t_st.sequence_tile(vals.to(cuda), splits.to(cuda), k)
+    got_g = t_st.sequence_untile(g.to(cuda), splits.to(cuda), vals.shape[0])
+    torch.cuda.synchronize()
+    assert (t_st.LAUNCHES, t_st.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got.cpu(), t_st_ref.sequence_tile(vals, splits, k))
+    assert torch.equal(got_g.cpu(), t_st_ref.sequence_untile(g, splits, vals.shape[0]))
+
+
+@pytest.mark.cuda
+def test_sequence_tile_autograd_runs_both_kernels(cuda):
+    r = np.random.default_rng(5)
+    vals, splits = _tile_case(r, 64, 8, np.int32)
+    v = vals.to(cuda).requires_grad_()
+    before = (t_st.LAUNCHES, t_st.BWD_LAUNCHES)
+    out = t_st.sequence_tile(v, splits.to(cuda), 8)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(1))
+    (dv,) = torch.autograd.grad(out, v, g.to(cuda))
+    torch.cuda.synchronize()
+    assert (t_st.LAUNCHES, t_st.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(dv.cpu(), t_st_ref.sequence_untile(g.view(64, 8, 8), splits, vals.shape[0]))
+
+
+@pytest.mark.cuda
+def test_smoke_mse_train_card_matches_cpu(cuda):
+    """Three steps of the MSE example's cell (its own constants) on the card
+    and on the CPU from one state, on the same batches: the overflow counters
+    and the IDMap equal, the loss within 2e-2 (bf16 logits), rows within
+    2 * 1e-2 * 3 and dense params within 2 * 1e-3 * 3 (Adam's sign flips,
+    as in tests/test_torch_mse.py); one bucketize, four tile and four untile
+    launches and 61 segment sums a step."""
+    from repro_torch.examples import train_mse as mse
+
+    cells = {d: mse.MSECell(d) for d in ("cpu", cuda)}
+    states = {d: c.init_state() for d, c in cells.items()}
+    states[cuda]["dense"].load_state_dict(states["cpu"]["dense"].state_dict())
+    for s in range(3):
+        arrays = mse.batch_arrays(cells["cpu"].specs, mse.BATCH, seed=s)
+        before = (t_ft.LAUNCHES, t_st.LAUNCHES, t_st.BWD_LAUNCHES, t_sr.LAUNCHES)
+        outs = {}
+        for d, c in cells.items():
+            states[d], outs[d] = c.step_fn(states[d], mse.to_batch(arrays, d))
+        torch.cuda.synchronize()
+        now = (t_ft.LAUNCHES, t_st.LAUNCHES, t_st.BWD_LAUNCHES, t_sr.LAUNCHES)
+        assert tuple(b - a for a, b in zip(before, now)) == (1, 4, 4, 61)
+        met = {d: {k: int(v) for k, v in o.items() if k != "loss"} for d, o in outs.items()}
+        assert met[cuda] == met["cpu"]
+        np.testing.assert_allclose(float(outs[cuda]["loss"]), float(outs["cpu"]["loss"]), atol=2e-2)
+    sp = {d: st["sparse"]["dim8"] for d, st in states.items()}
+    for f in ("keys", "occupied", "offsets", "last_use", "free_stack", "free_size", "next_row"):
+        assert torch.equal(getattr(sp[cuda]["idmap"], f).cpu(), getattr(sp["cpu"]["idmap"], f)), f
+    np.testing.assert_allclose(sp[cuda]["blocks"].emb.cpu().numpy(), sp["cpu"]["blocks"].emb.numpy(),
+                               rtol=0, atol=2 * 1e-2 * 3)
+    for n, p in states["cpu"]["dense"].state_dict().items():
+        np.testing.assert_allclose(states[cuda]["dense"].state_dict()[n].cpu().numpy(), p.numpy(),
+                                   rtol=0, atol=2 * 1e-3 * 3, err_msg=n)
 
 
 @pytest.mark.cuda

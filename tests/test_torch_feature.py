@@ -140,21 +140,111 @@ def test_feature_engine_apply_bit_equal():
         np.testing.assert_array_equal(t_dense[k].numpy(), np.asarray(j_dense[k]))
 
 
-def test_bucketize_off_the_cpu_raises_until_its_kernel_is_ported():
-    """A bucketize column must not run its plain version on the card. The
-    meta device stands in for a card here; the CPU path is held against the
-    reference by test_feature_engine_apply_bit_equal."""
+def test_bucketize_goes_through_the_fused_transform_op(monkeypatch):
+    """The bucketize group runs ``ft_ops.fused_bucketize``, once for all its
+    columns (on a CUDA tensor the kernel, on the CPU its plain version), and
+    off the CPU and the card it raises instead of searching in plain code.
+    The meta device stands in for a device without the kernel."""
+    from repro_torch.kernels.fused_transform import ops as ft_ops
+
+    calls = []
+    real = ft_ops.fused_bucketize
+
+    def spy(values, *args):
+        calls.append(values.shape[0])
+        return real(values, *args)
+
+    monkeypatch.setattr(ft_ops, "fused_bucketize", spy)
     specs = [s for s in _specs(t_fe) if s.transform in ("hash", "bucketize")]
-    fe = t_fe.FeatureEngine(specs, "meta")
+    r = np.random.default_rng(9)
     batch = {s.name: t_ragged.Ragged(
-        torch.zeros(4, dtype=torch.float32 if s.transform == "bucketize" else torch.int64,
-                    device="meta"),
-        torch.zeros(3, dtype=torch.int32, device="meta")) for s in specs}
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-        fe.apply(batch)
-    hash_only = [s for s in specs if s.transform == "hash"]
-    ids, _ = t_fe.FeatureEngine(hash_only, "meta").apply({s.name: batch[s.name] for s in hash_only})
-    assert set(ids) == {s.name for s in hash_only}
+        torch.from_numpy(r.normal(size=4).astype(np.float32) if s.transform == "bucketize"
+                         else r.integers(0, 100, size=4)),
+        torch.tensor([0, 1, 4], dtype=torch.int32)) for s in specs}
+    ids, _ = t_fe.FeatureEngine(specs, "cpu").apply(batch)
+    assert calls == [8]  # the two bucketize columns' budgets, one call
+    for s in specs:
+        if s.transform == "bucketize":
+            want = np.searchsorted(np.float32(s.boundaries), batch[s.name].values.numpy(), side="right")
+            np.testing.assert_array_equal(ids[s.name].values.numpy(), want)
+    meta = {k: t_ragged.Ragged(v.values.to("meta"), v.row_splits.to("meta")) for k, v in batch.items()}
+    with pytest.raises(ValueError, match="fused_bucketize"):
+        t_fe.FeatureEngine(specs, "meta").apply(meta)
+
+
+def test_feature_engine_truncates_sequences_bit_equal():
+    """Bucketize and sequence columns (pooling none, max_len) through both
+    engines: rows longer than max_len cut, the CSR recompacted, bit-equal."""
+    r = np.random.default_rng(10)
+    specs = {m: [m.FeatureSpec("s", transform="hash", emb_dim=8, pooling="none", max_len=3),
+                 m.FeatureSpec("t", transform="hash", emb_dim=8, pooling="none", max_len=1, salt=5),
+                 m.FeatureSpec("q", transform="bucketize", emb_dim=8, boundaries=(-1.0, 0.0, 0.5)),
+                 m.FeatureSpec("x", transform="raw", max_len=2)] for m in (j_fe, t_fe)}
+    jbatch, tbatch = {}, {}
+    for s in specs[j_fe]:
+        lens = r.integers(0, 6, size=7)
+        if s.transform in ("bucketize", "raw"):
+            vals, dtype = [r.normal(size=n).astype(np.float32) for n in lens], jnp.float32
+        else:
+            vals, dtype = [r.integers(0, 1 << 40, size=n) for n in lens], jnp.int64
+        jr = j_ragged.Ragged.from_lists(vals, nnz_budget=int(lens.sum()) + 2, dtype=dtype)
+        jbatch[s.name] = jr
+        tbatch[s.name] = t_ragged.Ragged(torch.from_numpy(np.array(jr.values)),
+                                         torch.from_numpy(np.array(jr.row_splits)))
+    j_ids, j_dense = j_fe.FeatureEngine(specs[j_fe]).apply(jbatch)
+    t_ids, t_dense = t_fe.FeatureEngine(specs[t_fe], "cpu").apply(tbatch)
+    for k in j_ids:
+        np.testing.assert_array_equal(t_ids[k].values.numpy(), np.asarray(j_ids[k].values), err_msg=k)
+        np.testing.assert_array_equal(t_ids[k].row_splits.numpy(), np.asarray(j_ids[k].row_splits), err_msg=k)
+    assert int(t_ids["s"].row_lengths().max()) <= 3 and int(t_ids["t"].row_lengths().max()) <= 1
+    np.testing.assert_array_equal(t_dense["x"].numpy(), np.asarray(j_dense["x"]))
+
+
+@pytest.mark.parametrize("lens,budget,max_len", [
+    ([2, 0, 3, 1], 9, 2), ([0, 0], 1, 1), ([4, 4, 4], 12, 3), ([1], 5, 4), ([6, 1, 5], 12, 2),
+])
+@pytest.mark.parametrize("kind", ["int", "float"])
+def test_ragged_truncate_equal(lens, budget, max_len, kind):
+    r = np.random.default_rng(sum(lens) + budget + max_len)
+    if kind == "int":
+        rows, dtype = [r.integers(-50, 50, size=n) for n in lens], jnp.int64
+    else:
+        rows, dtype = [r.normal(size=n).astype(np.float32) for n in lens], jnp.float32
+    jr = j_ragged.Ragged.from_lists(rows, nnz_budget=budget, dtype=dtype)
+    tr = t_ragged.Ragged(torch.from_numpy(np.array(jr.values)), torch.from_numpy(np.array(jr.row_splits)))
+    jt, tt = jr.truncate(max_len), tr.truncate(max_len)
+    assert tt.values.dtype == tr.values.dtype and tt.row_splits.dtype == tr.row_splits.dtype
+    np.testing.assert_array_equal(tt.values.numpy(), np.asarray(jt.values))
+    np.testing.assert_array_equal(tt.row_splits.numpy(), np.asarray(jt.row_splits))
+
+
+@pytest.mark.parametrize("lens,budget", [
+    ([2, 0, 3, 1], 9), ([2, 0, 3, 1], 4), ([5, 5], 3), ([0, 0], None), ([1, 2], None), ([3, 3, 3], 7),
+])
+@pytest.mark.parametrize("kind,dtype", [("int", "int64"), ("float", "float32"), ("int", "float32"),
+                                        ("float", "int64")])
+def test_ragged_from_lists_equal(lens, budget, kind, dtype):
+    """Whole tail rows dropped first, then a partial row; the padding follows
+    the rows' own type (-1 after integers, 0 after floats or no values)."""
+    r = np.random.default_rng(sum(lens) + (budget or 0))
+    rows = [r.integers(-50, 50, size=n) if kind == "int" else r.normal(size=n) for n in lens]
+    jr = j_ragged.Ragged.from_lists(rows, nnz_budget=budget, dtype=getattr(jnp, dtype))
+    tr = t_ragged.Ragged.from_lists(rows, nnz_budget=budget, dtype=getattr(torch, dtype))
+    assert tr.values.dtype == getattr(torch, dtype) and tr.row_splits.dtype == torch.int32
+    np.testing.assert_array_equal(tr.values.numpy(), np.asarray(jr.values))
+    np.testing.assert_array_equal(tr.row_splits.numpy(), np.asarray(jr.row_splits))
+
+
+def test_concat_ragged_equal():
+    r = np.random.default_rng(13)
+    cols = [j_ragged.Ragged.from_lists([r.integers(0, 9, size=n) for n in lens], nnz_budget=b)
+            for lens, b in (([1, 2], 4), ([0, 3, 1], 6), ([2], 2))]
+    want = j_ragged.concat_ragged(cols)
+    got = t_ragged.concat_ragged([t_ragged.Ragged(torch.from_numpy(np.array(c.values)),
+                                                  torch.from_numpy(np.array(c.row_splits))) for c in cols])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[1].dtype == torch.int32
 
 
 @pytest.mark.parametrize("lens,budget", [([2, 0, 3, 1], 9), ([0, 0], 1), ([4, 4, 4], 12), ([1], 5)])

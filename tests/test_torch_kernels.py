@@ -11,11 +11,15 @@ from repro.io.ragged import Ragged as JRagged
 from repro.kernels.flash_attention import ops as j_fa
 from repro.kernels.fused_gather import ops as j_fg
 from repro.kernels.fused_scatter import ops as j_fs, ref as j_fs_ref
+from repro.kernels.fused_transform import ops as j_ft
 from repro.kernels.segment_reduce import ops as j_sr
+from repro.kernels.sequence_tile import ops as j_st, ref as j_st_ref
 from repro_torch.kernels.flash_attention import ops as t_fa, ref as t_fa_ref
 from repro_torch.kernels.fused_gather import ops as t_fg
 from repro_torch.kernels.fused_scatter import ops as t_fs
+from repro_torch.kernels.fused_transform import ops as t_ft
 from repro_torch.kernels.segment_reduce import ops as t_sr
+from repro_torch.kernels.sequence_tile import ops as t_st
 
 
 SHAPES = [(1, 8, 1), (33, 8, 1), (100, 16, 7), (512, 64, 512), (1024, 128, 300), (777, 32, 111)]
@@ -279,3 +283,100 @@ def test_flash_op_gradient_on_cpu(loss):
     do = w if loss == "weighted" else torch.ones_like(w)
     for name, a, want in zip(("dq", "dk", "dv"), got, _ref_autograd(q.detach(), k.detach(), v.detach(), do, True)):
         np.testing.assert_allclose(a.numpy(), want.numpy(), rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+# fused bucketize: the port's plain version (the CPU path of
+# ops.fused_bucketize) against the Pallas kernel in interpret mode, on the
+# sweep and the boundary-exactness inputs of tests/test_kernels.py. Exact.
+
+def _bucket_table(r, c, width_hi=20, grid=False):
+    widths = r.integers(1, width_hi, size=(c,))
+    bnds, offs = [], [0]
+    for w in widths:
+        col = r.choice(np.arange(-5.0, 5.0, 0.5), w, replace=False) if grid else r.normal(size=w)
+        bnds.extend(np.sort(col))
+        offs.append(len(bnds))
+    return np.array(bnds, np.float32), np.array(offs, np.int32)
+
+
+def _bucketize_both(vals, cids, bnds, offs):
+    want = np.asarray(j_ft.fused_bucketize(jnp.asarray(vals), jnp.asarray(cids), jnp.asarray(bnds),
+                                           jnp.asarray(offs)))
+    got = t_ft.fused_bucketize(*(torch.from_numpy(x) for x in (vals, cids, bnds, offs)))
+    assert got.dtype == torch.int64
+    return got.numpy(), want
+
+
+@pytest.mark.parametrize("n,c", [(7, 1), (100, 3), (5000, 64)])
+def test_bucketize_plain_matches_pallas(n, c):
+    r = np.random.default_rng(n + c)
+    bnds, offs = _bucket_table(r, c)
+    vals = r.normal(size=(n,)).astype(np.float32)
+    cids = r.integers(0, c, size=(n,)).astype(np.int32)
+    got, want = _bucketize_both(vals, cids, bnds, offs)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_bucketize_plain_matches_pallas_on_boundaries(seed):
+    """Values on a boundary, one float step either side of it (subnormal
+    beside a 0.0 boundary, which XLA compares as zero), ±inf, NaN, -0.0 and
+    subnormals; fp64 input (cast to fp32 as the reference's wrapper does)."""
+    r = np.random.default_rng(seed)
+    c = int(r.integers(1, 9))
+    bnds, offs = _bucket_table(r, c, width_hi=10, grid=True)
+    on = r.choice(bnds, 64)
+    vals = np.concatenate([on, np.nextafter(on, np.float32(np.inf)), np.nextafter(on, np.float32(-np.inf)),
+                           np.array([np.inf, -np.inf, np.nan, -0.0, 0.0, 1e-45, -1e-45, 1e-39, -1e-39],
+                                    np.float32)]).astype(np.float32)
+    cids = r.integers(0, c, size=vals.shape).astype(np.int32)
+    got, want = _bucketize_both(vals, cids, bnds, offs)
+    np.testing.assert_array_equal(got, want)
+    w = offs[cids + 1] - offs[cids]
+    assert (got >= 0).all() and (got <= w).all()
+    got64, _ = _bucketize_both(vals.astype(np.float64), cids, bnds, offs)
+    np.testing.assert_array_equal(got64, want)
+
+
+# sequence tile: the port's plain version against the Pallas kernel in
+# interpret mode on the sweep of tests/test_kernels.py, and its gradient
+# (sequence_untile) against jax.vjp of the reference's plain formula: empty
+# rows, rows longer than k, a padding tail. Exact.
+
+def _tile_inputs(r, rows, maxlen, d, tail):
+    lens = r.integers(0, maxlen + 1, size=(rows,))
+    splits = np.zeros(rows + 1, np.int32)
+    np.cumsum(lens, out=splits[1:])
+    n = max(int(splits[-1]) + tail, 1)
+    return r.normal(size=(n, d)).astype(np.float32), splits
+
+
+@pytest.mark.parametrize("rows,maxlen,d,k", [
+    (1, 1, 8, 2), (5, 6, 16, 3), (32, 10, 128, 4), (16, 3, 64, 8), (9, 12, 13, 5),
+])
+def test_sequence_tile_plain_matches_pallas(rows, maxlen, d, k):
+    r = np.random.default_rng(rows * maxlen + d + k)
+    vals, splits = _tile_inputs(r, rows, maxlen, d, tail=0)
+    want = np.asarray(j_st.sequence_tile(jnp.asarray(vals), jnp.asarray(splits), k))
+    got = t_st.sequence_tile(torch.from_numpy(vals), torch.from_numpy(splits), k)
+    assert got.shape == (rows, k * d)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("rows,maxlen,d,k,tail", [
+    (1, 1, 8, 2, 0), (5, 6, 16, 3, 4), (32, 10, 8, 8, 7), (16, 3, 50, 8, 0), (9, 12, 13, 5, 3),
+])
+@pytest.mark.parametrize("split_dtype", [np.int32, np.int64])
+def test_sequence_untile_matches_jax_vjp(rows, maxlen, d, k, tail, split_dtype):
+    r = np.random.default_rng(rows + maxlen * d + k + tail)
+    vals, splits = _tile_inputs(r, rows, maxlen, d, tail)
+    splits = splits.astype(split_dtype)
+    g = r.normal(size=(rows, k * d)).astype(np.float32)
+    _, vjp = jax.vjp(lambda v: j_st_ref.sequence_tile(v, jnp.asarray(splits), k), jnp.asarray(vals))
+    (want,) = vjp(jnp.asarray(g))
+    v = torch.from_numpy(vals).requires_grad_()
+    (got,) = torch.autograd.grad(t_st.sequence_tile(v, torch.from_numpy(splits), k), v, torch.from_numpy(g))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not got.numpy()[splits[-1]:].any()
+    direct = t_st.sequence_untile(torch.from_numpy(g).view(rows, k, d), torch.from_numpy(splits), vals.shape[0])
+    assert torch.equal(direct, got)
