@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The PyTorch port serving and training dlrm-mlperf, training the MSE
-ranking model of examples/train_mse.py, and serving the qwen2.5-3b prefill
-and training qwen2.5-3b, on one NVIDIA card, through its own CUDA kernels.
+ranking model of examples/train_mse.py (its step at full size, its main()
+with checkpoints and a resume), and serving the qwen2.5-3b prefill and
+training qwen2.5-3b, on one NVIDIA card, through its own CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -11,10 +12,11 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 each kernel's registers, spills and static shared memory
                 as ptxas reported them in the build;
   2. kernels  — each CUDA kernel against its plain PyTorch version on random
-                inputs (PAD and out-of-range ids, unsorted and empty
+                inputs (PAD and out-of-range ids, the slab gather's
+                partial-tail and one-PAD traps, unsorted and empty
                 segments, invalid scatter slots, D not a multiple of 4,
                 unaligned pointers, views of stacked tables; flash
-                attention forward and backward over head dims 16-128, T not
+                attention forward and backward over head dims 8-128, T not
                 a multiple of the tile, grouped kv heads, bf16 and fp32,
                 strided inputs, an unaligned q refused; fused bucketize on
                 every boundary and a float step either side, ±inf, NaN,
@@ -51,6 +53,15 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 steps, ten steps on one repeated batch; then the step at the
                 example's own batch of 128; then the MSE kernels are
                 measured (phase 5) and everything is released;
+     loop     — the MSE example's main() (the twin's, on the card, at the
+                example's settings: batch 128, --rows 4096, one loader
+                thread): 60 steps with checkpoints every 20, then 40 steps
+                in a second directory and a run resumed there to step 60;
+                the resumed losses against the uninterrupted run's, the
+                loss falling, the checkpoint's leaf names, the loader's
+                overflow, the launch counts, steps/s and the tracer's phase
+                shares; then the slab gather is called once through its op
+                entry (its launch counted) and measured (phase 5);
      lm train — full-width qwen2.5-3b train_4k (T 4,096, batch cut to 1)
                 from a fresh state on an emptied card: 2 warm-up and 5
                 timed steps with the kernels' launch counts, state and
@@ -59,7 +70,9 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 step, three steps on one repeated batch (the loss falls);
   5. a ``{"kernels": [...]}`` line: each kernel on the exact inputs the
      serve, train, prefill, MSE train and LM train paths fed it (and the
-     bucketize kernel at the operator benchmark's shape too), against its
+     bucketize kernel at the operator benchmark's shape too; the slab
+     gather, which no path calls, at the operator benchmark's gather shape
+     and at D 128), against its
      plain version, timed beside the plain version, one PyTorch library
      call and the card's bound.
 
@@ -68,7 +81,9 @@ JSON object per line; the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import re
 import shutil
@@ -110,7 +125,33 @@ FLASH_CASES = [  # B, T, H, Hk, hd, dtype, causal
     (1, 200, 8, 8, 32, torch.bfloat16, True), (2, 128, 4, 4, 128, torch.float32, True),
     (1, 1024, 4, 2, 64, torch.bfloat16, True), (1, 200, 2, 1, 128, torch.float32, True),
     (2, 200, 4, 2, 64, torch.float32, False), (1, 1024, 2, 1, 16, torch.bfloat16, False),
+    # head dims the kernels take zero-padded to the next of 16, 32, 64, 128
+    (1, 200, 4, 2, 8, torch.float32, True), (2, 128, 2, 1, 8, torch.bfloat16, True),
+    (1, 300, 4, 4, 48, torch.float32, True), (1, 1024, 4, 2, 48, torch.bfloat16, False),
 ]
+# The slab gather against its plain version: (name, R, D, K, ids in [lo, hi),
+# rows_blk, slab, id dtype, unaligned table), sorted ids. "reference" is
+# tests/test_kernels.py's regime; "straddle" the partial-tail trap (a run
+# across the 1,024 window edge, the last run's min the padding's id 0);
+# "one_pad" one PAD id in a run of 128 high ids (the other 127 read zero).
+SLAB_CASES = [
+    ("reference", 2_048, 64, 512, 0, 384, 128, 512, torch.int32, False),
+    ("straddle", 2_048, 16, 200, 1_000, 1_300, 128, 512, torch.int32, False),
+    ("one_pad", 2_048, 32, 128, 1_536, 2_048, 128, 512, torch.int64, False),
+    ("out_of_range", 1_000, 16, 700, -40, 1_040, 128, 512, torch.int64, False),
+    ("small_table", 100, 8, 300, 0, 100, 128, 512, torch.int32, False),
+    ("d1", 4_096, 1, 1_000, 0, 4_096, 128, 512, torch.int64, False),
+    ("d5", 3_000, 5, 777, 0, 3_000, 64, 256, torch.int32, False),
+    ("d16", 8_192, 16, 2_048, 0, 8_192, 128, 512, torch.int64, False),
+    ("d128", 4_096, 128, 640, 0, 600, 128, 512, torch.int32, False),
+    ("unaligned", 4_096, 64, 1_000, 0, 4_096, 128, 512, torch.int64, True),
+]
+# The slab gather at the operator benchmark's gather shape
+# (benchmarks/table1_operators.py:36-38: a 1,048,576 x 16 fp32 table, 200,000
+# ids), with its runs of 128 sorted ids inside one 512-row window, and at D 128
+SLAB_R, SLAB_K = 1_048_576, 200_000
+# The MSE example's main() (examples/train_mse.py: batch 128, --rows 4096)
+LOOP_ROWS, LOOP_STEPS, LOOP_RESUME_AT = 4_096, 60, 40
 PREFILL_T, N_PREFILL = 32_768, 3   # prefill_32k; timed requests after one warm-up
 LM_TRAIN_T = 4_096  # train_4k
 N_LM_WARMUP, N_LM_STEPS, N_LM_REPEAT = 2, 5, 3
@@ -264,6 +305,7 @@ def main() -> None:
 
     def counts() -> dict:
         return {"fused_gather.gather_rows": fg_ops.LAUNCHES,
+                "fused_gather.gather_rows_slab": fg_ops.SLAB_LAUNCHES,
                 "segment_reduce.segment_sum": sr_ops.LAUNCHES,
                 "segment_reduce.segment_expand_csr": sr_ops.LAUNCHES_BWD,
                 "fused_scatter.scatter_add_rows": fs_ops.LAUNCHES_ADD,
@@ -275,7 +317,7 @@ def main() -> None:
                 "sequence_tile.sequence_untile": st_ops.BWD_LAUNCHES}
 
     def reset_counts() -> None:
-        fg_ops.LAUNCHES = sr_ops.LAUNCHES = sr_ops.LAUNCHES_BWD = 0
+        fg_ops.LAUNCHES = fg_ops.SLAB_LAUNCHES = sr_ops.LAUNCHES = sr_ops.LAUNCHES_BWD = 0
         fs_ops.LAUNCHES_ADD = fs_ops.LAUNCHES_SET = fa_ops.LAUNCHES = fa_ops.BWD_LAUNCHES = 0
         ft_ops.LAUNCHES = st_ops.LAUNCHES = st_ops.BWD_LAUNCHES = 0
 
@@ -322,6 +364,22 @@ def main() -> None:
         cases.append({"kernel": "gather_rows", "R": R, "D": D, "K": K, "ids": str(idt),
                       "unaligned": misalign, "bit_equal": bool(torch.equal(got, want))})
         check(torch.equal(got, want), f"gather_rows disagrees at {cases[-1]}")
+    for cname, R, D, K, lo, hi, rows_blk, slab, idt, misalign in SLAB_CASES:
+        table = torch.from_numpy(rng.normal(size=(R, D)).astype(np.float32)).to(dev)
+        table = unaligned(table) if misalign else table
+        ids = np.sort(rng.integers(lo, hi, size=K))
+        if cname == "one_pad":
+            ids[0] = -1
+        ids = torch.from_numpy(ids).to(idt).to(dev)
+        before = fg_ops.SLAB_LAUNCHES
+        got = fg_ops.gather_rows(table, ids, mode="slab", rows_blk=rows_blk, slab=slab)
+        torch.cuda.synchronize()
+        want = fg_ref.gather_rows_slab(table.cpu(), ids.cpu(), rows_blk, slab)
+        cases.append({"kernel": "gather_rows_slab", "case": cname, "R": R, "D": D, "K": K, "rows_blk": rows_blk,
+                      "slab": slab, "ids": str(idt), "unaligned": misalign,
+                      "zero_rows": int((~want.any(dim=1)).sum()), "bit_equal": bool(torch.equal(got.cpu(), want))})
+        check(fg_ops.SLAB_LAUNCHES == before + 1, f"gather_rows_slab did not launch at {cases[-1]}")
+        check(torch.equal(got.cpu(), want), f"gather_rows_slab disagrees at {cases[-1]}")
     for N, D, S, sort, misalign in [(512, 128, 512, True, False), (4_096, 128, 9_000, True, False),
                                     (5_000, 64, 100, False, False), (777, 13, 111, True, False),
                                     (2_000, 128, 300, False, True)]:
@@ -488,7 +546,7 @@ def main() -> None:
                               "splits": str(sdt), "launched": launched, "tile_equal": eq, "untile_equal": eq_g})
                 check(launched and eq and eq_g, f"sequence tile or untile disagrees at {cases[-1]}")
     emit({"phase": "kernels_vs_plain", "cases": cases, "tolerance": {
-        "gather_rows": "bit-equal", "segment_sum": "rtol=atol=1e-5 (summation order)",
+        "gather_rows": "bit-equal", "gather_rows_slab": "bit-equal", "segment_sum": "rtol=atol=1e-5 (summation order)",
         "segment_sum_csr": "rtol=atol=1e-5 (summation order)",
         "scatter_add_rows": "bit-equal", "scatter_set_rows": "bit-equal",
         "segment_expand_csr": "bit-equal (a copy)",
@@ -886,7 +944,8 @@ def main() -> None:
             del sample
     train_launches = counts()
     check(inserted[0] > 0, "step 1 inserted nothing")
-    check(all(v > 0 for k, v in train_launches.items() if k.split(".")[0] in DLRM_TRAIN_KERNELS),
+    check(all(v > 0 for k, v in train_launches.items()  # the slab gather is on no train path
+              if k.split(".")[0] in DLRM_TRAIN_KERNELS and k != "fused_gather.gather_rows_slab"),
           f"a kernel of the train path never ran: {train_launches}")
     check(train_launches["fused_gather.gather_rows"] == 4 * n_steps
           and train_launches["fused_scatter.scatter_add_rows"] == 3 * n_steps
@@ -1127,7 +1186,8 @@ def main() -> None:
     for fn_name, mod in (("fused_bucketize", ft_ops), ("sequence_tile", st_ops), ("sequence_untile", st_ops)):
         setattr(mod, fn_name, real[fn_name])  # the wrappers record no more
     n_cols = mse.N_HASH + mse.N_BUCKET + 1
-    want_m = {"fused_gather.gather_rows": 4 * n_m, "segment_reduce.segment_sum": n_cols * n_m,
+    want_m = {"fused_gather.gather_rows": 4 * n_m, "fused_gather.gather_rows_slab": 0,
+              "segment_reduce.segment_sum": n_cols * n_m,
               "segment_reduce.segment_expand_csr": n_cols * n_m, "fused_scatter.scatter_add_rows": 3 * n_m,
               "fused_scatter.scatter_set_rows": 3 * n_m, "flash_attention.flash_fwd": 0,
               "flash_attention.flash_bwd": 0, "fused_transform.fused_bucketize": n_m,
@@ -1234,6 +1294,126 @@ def main() -> None:
     check(not recorded, f"recorded inputs left unmeasured: {list(recorded)}")
     torch.cuda.empty_cache()
 
+    # ------------------------------------- 4 the MSE example's main(), resumed
+    # The twin's main() at the example's own settings (batch 128, --rows
+    # 4096, its budgets): 60 steps with checkpoints every 20; then 40 steps
+    # in a second directory and a resumed run from that checkpoint to 60.
+    # One loader thread: with two, the readers interleave the row groups in
+    # no fixed order, so two runs see different batch orders.
+    from repro_torch.checkpoint import saver as saver_lib
+    from repro_torch.obs import read_jsonl
+
+    loop_dir = ROOT / "build" / "mse_loop"
+    shutil.rmtree(loop_dir, ignore_errors=True)
+    loop_args = ["--device", "cuda", "--rows", str(LOOP_ROWS), "--ckpt-every", "20", "--io-threads", "1"]
+
+    def run_main(argv: list) -> tuple[dict, str]:
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            out = mse.main(argv + loop_args)
+        return out, printed.getvalue()
+
+    def step_losses(path: Path) -> dict:
+        return {r["step"]: r["metrics"]["loss"] for r in read_jsonl(path) if r.get("type") == "step"}
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    run_a, printed_a = run_main(["--steps", str(LOOP_STEPS), "--workdir", str(loop_dir / "a"),
+                                 "--telemetry", str(loop_dir / "a.jsonl")])
+    loop_a_s = time.perf_counter() - t0
+    loop_launches = counts()
+    run_b1, _ = run_main(["--steps", str(LOOP_RESUME_AT), "--workdir", str(loop_dir / "b"),
+                          "--telemetry", str(loop_dir / "b1.jsonl")])
+    run_b2, printed_b2 = run_main(["--steps", str(LOOP_STEPS), "--workdir", str(loop_dir / "b"), "--resume",
+                                   "--telemetry", str(loop_dir / "b2.jsonl")])
+    la, lb1, lb2 = (step_losses(loop_dir / f) for f in ("a.jsonl", "b1.jsonl", "b2.jsonl"))
+    recs = read_jsonl(loop_dir / "a.jsonl")
+    steps_rec = [r for r in recs if r.get("type") == "step"]
+    total_s = sum(r["dur_s"] for r in steps_rec) + sum(r["dur_s"] for r in recs if r.get("type") == "span")
+    shares = {ph: (sum(r["spans"].get(ph, 0.0) for r in steps_rec)
+                   + sum(r["dur_s"] for r in recs if r.get("type") == "span" and r["name"] == ph)) / total_s
+              for ph in ("data_wait", "device_step", "checkpoint")}
+    emit({"phase": "mse_loop_run", "steps": len(steps_rec), "steps_per_s": len(steps_rec) / total_s,
+          "train_loop_s": total_s, "main_s": loop_a_s, "phase_shares": shares,
+          "step_ms_p50": float(np.percentile([r["dur_s"] * 1e3 for r in steps_rec], 50)),
+          "io_threads": 1, "printed_tail": printed_a.strip().splitlines()[-3:]})
+    ckpt_a = loop_dir / "a" / "ckpt"
+    names = sorted(n[len("state/"):] for n in saver_lib.leaf_names(ckpt_a, LOOP_STEPS) if n.startswith("state/"))
+    lin = [f"{m}/{p}" for m in ("attn_k", "attn_q", *(f"dnn/l{i}" for i in range(5))) for p in ("b", "w")]
+    want_names = sorted([f"dense/{x}" for x in lin] + [f"opt/{mv}/{x}" for mv in ("m", "v") for x in lin]
+                        + [f"sparse/dim8/blocks/{x}" for x in ("0", "1/0", "1/1")]
+                        + [f"sparse/dim8/idmap/{i}" for i in range(7)] + ["step"])
+    resumed_err = max(abs(lb2[st] - la[st]) / abs(la[st]) for st in range(LOOP_RESUME_AT + 1, LOOP_STEPS + 1))
+    first10 = float(np.mean([la[st] for st in range(1, 11)]))
+    last10 = float(np.mean([la[st] for st in range(LOOP_STEPS - 9, LOOP_STEPS + 1)]))
+    n_cols = mse.N_HASH + mse.N_BUCKET + 1
+    every_step = {"fused_gather.gather_rows": 4, "segment_reduce.segment_sum": n_cols,
+                  "segment_reduce.segment_expand_csr": n_cols, "fused_scatter.scatter_add_rows": 3,
+                  "fused_transform.fused_bucketize": 1, "sequence_tile.sequence_tile": mse.N_SEQ,
+                  "sequence_tile.sequence_untile": mse.N_SEQ}
+    emit({"phase": "mse_loop", "model": "examples/train_mse.py main() (its settings: batch 128, --rows "
+          f"{LOOP_ROWS}, its budgets)", "io_threads": 1, "io_threads_note": "one loader thread: with two the "
+          "row groups interleave in no fixed order", "steps": LOOP_STEPS, "ckpt_every": 20,
+          "resumed_from": run_b2["result"].resumed_from, "losses_uninterrupted": [la[st] for st in sorted(la)],
+          "losses_resumed": [lb2[st] for st in sorted(lb2)], "resumed_max_rel_err": resumed_err,
+          "loss_first10_mean": first10, "loss_last10_mean": last10,
+          "ckpt_state_names": len(names), "io_overflow": run_a["overflow"],
+          "launches": loop_launches, "tolerance": "resumed losses within 1e-5 relative of the uninterrupted run"})
+    check(sorted(la) == list(range(1, LOOP_STEPS + 1)) and sorted(lb1) == list(range(1, LOOP_RESUME_AT + 1))
+          and sorted(lb2) == list(range(LOOP_RESUME_AT + 1, LOOP_STEPS + 1)), "loop: missing step records")
+    check(run_b2["result"].resumed_from == LOOP_RESUME_AT and "resumed from step" in printed_b2,
+          "loop: the second run did not resume from its checkpoint")
+    check(all(lb1[st] == la[st] for st in lb1), "loop: two fresh runs differ over their first steps")
+    check(resumed_err <= 1e-5, f"loop: resumed losses differ from the uninterrupted run by {resumed_err}")
+    check(all(np.isfinite(list(la.values()))) and last10 < first10, f"loop: the loss did not fall {first10} {last10}")
+    check(names == want_names, f"loop: checkpoint names {names}")
+    check(run_a["overflow"] >= 0 and "io overflow" in printed_a, "loop: the loader's overflow is not reported")
+    check(all(loop_launches[k] == v * LOOP_STEPS for k, v in every_step.items())
+          and loop_launches["fused_scatter.scatter_set_rows"] > 0
+          and loop_launches["fused_gather.gather_rows_slab"] == 0, f"loop launches {loop_launches}")
+    del run_a, run_b1, run_b2
+    torch.cuda.empty_cache()
+
+    # ------------------- 5 the slab gather at its op entry, counted and measured
+    slab_r = np.random.default_rng(SEED + 2)
+    windows = np.sort(slab_r.integers(0, SLAB_R // 512, -(-SLAB_K // 128)))
+    slab_ids = (windows[:, None] * 512 + np.sort(slab_r.integers(0, 512, (windows.size, 128)), axis=1))
+    slab_ids = torch.from_numpy(slab_ids.reshape(-1)[:SLAB_K]).to(dev)  # runs of 128 inside one window
+    slab_at = {}
+    for label, D in (("operator_table1", 16), ("d128", 128)):
+        table = torch.from_numpy(slab_r.normal(size=(SLAB_R, D)).astype(np.float32)).to(dev)
+        if label == "operator_table1":  # the op entry a user calls, counted
+            reset_counts()
+            fg_ops.gather_rows(table, slab_ids, mode="slab")
+            torch.cuda.synchronize()
+            slab_launches = counts()
+            check(slab_launches["fused_gather.gather_rows_slab"] == 1
+                  and sum(slab_launches.values()) == 1, f"slab op launches {slab_launches}")
+        slab_at[label] = _measure_slab(fg_ops.gather_rows, fg_ref.gather_rows_slab, table, slab_ids)
+        del table
+        torch.cuda.empty_cache()
+    del slab_ids
+    for e in entries:  # the earlier kernels' launches on this slice's paths
+        e["launches_by_path"].update(mse_loop=loop_launches[e["name"]], slab_op=slab_launches[e["name"]])
+    slab_by_path = {"serve": launches["fused_gather.gather_rows_slab"],
+                    "train": train_launches["fused_gather.gather_rows_slab"],
+                    "prefill": prefill_launches["fused_gather.gather_rows_slab"],
+                    "mse_train": mse_launches["fused_gather.gather_rows_slab"],
+                    "mse_loop": loop_launches["fused_gather.gather_rows_slab"],
+                    "slab_op": slab_launches["fused_gather.gather_rows_slab"]}
+    main_slab = slab_at["operator_table1"]
+    entries.append({
+        "name": "fused_gather.gather_rows_slab", "route": "cuda", "source": "src/repro_torch/csrc/fused_gather.cu",
+        "replaces": "src/repro/kernels/fused_gather/fused_gather.py:87", "ok": True,
+        "launches": sum(slab_by_path.values()), "launches_by_path": slab_by_path, "main_path": "slab_op",
+        "main_path_note": "no path of the reference calls it: its entry is the op gather_rows(mode='slab')",
+        "max_abs_err": max(a["max_abs_err"] for a in slab_at.values()),
+        "max_err": max(a["max_abs_err"] for a in slab_at.values()), "kernel_ms": main_slab["ms"],
+        **{k: main_slab[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                     "kernel_device_ms")},
+        "library_call": "torch.index_select at the clamped ids", "at": slab_at})
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------ 4 full-width LM train
     torch.cuda.synchronize()
     start_bytes = torch.cuda.memory_allocated()  # what earlier phases still hold: near zero
@@ -1288,7 +1468,8 @@ def main() -> None:
     lm_launches = counts()
     fa_ops.flash_attention, fa_ops.flash_bwd = real["flash_attention"], real["flash_bwd"]
     n_new = sum(1 for x in linserted if x > 0)
-    want_launches = {"fused_gather.gather_rows": 4 * n_lm, "segment_reduce.segment_sum": 0,
+    want_launches = {"fused_gather.gather_rows": 4 * n_lm, "fused_gather.gather_rows_slab": 0,
+                     "segment_reduce.segment_sum": 0,
                      "segment_reduce.segment_expand_csr": 0, "fused_scatter.scatter_add_rows": 3 * n_lm,
                      "fused_scatter.scatter_set_rows": 3 * n_new,
                      "flash_attention.flash_fwd": 2 * L_lm * n_lm, "flash_attention.flash_bwd": L_lm * n_lm,
@@ -1347,7 +1528,9 @@ def main() -> None:
     for e in entries:
         e["launches_by_path"]["lm_train"] = lm_launches[e["name"]]
         e["launches"] = sum(e["launches_by_path"].values())
-    fwd_by_path = {"serve": launches["flash_attention.flash_fwd"],
+    fwd_by_path = {"mse_loop": loop_launches["flash_attention.flash_fwd"],
+                   "slab_op": slab_launches["flash_attention.flash_fwd"],
+                   "serve": launches["flash_attention.flash_fwd"],
                    "train": train_launches["flash_attention.flash_fwd"],
                    "prefill": prefill_launches["flash_attention.flash_fwd"],
                    "mse_train": mse_launches["flash_attention.flash_fwd"],
@@ -1360,7 +1543,9 @@ def main() -> None:
         "max_err": layer0["o_max_abs_err"], "kernel_ms": flash_at["prefill"]["ms"],
         **{k: flash_at["prefill"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "library_call": "F.scaled_dot_product_attention(is_causal=True), kv expanded", "at": flash_at})
-    bwd_by_path = {"serve": launches["flash_attention.flash_bwd"],
+    bwd_by_path = {"mse_loop": loop_launches["flash_attention.flash_bwd"],
+                   "slab_op": slab_launches["flash_attention.flash_bwd"],
+                   "serve": launches["flash_attention.flash_bwd"],
                    "train": train_launches["flash_attention.flash_bwd"],
                    "prefill": prefill_launches["flash_attention.flash_bwd"],
                    "mse_train": mse_launches["flash_attention.flash_bwd"],
@@ -1514,6 +1699,30 @@ def _measure_mse_kernel(kname: str, real, plain, args: list, iters: int = 100) -
     if loop_ms is not None:
         out["library_loop_ms"] = loop_ms
     return out
+
+
+def _measure_slab(op, plain, table: torch.Tensor, ids: torch.Tensor, iters: int = 100) -> dict:
+    """The slab gather through its op on one input: equal to its plain
+    version, then timed beside it and ``index_select`` at the clamped ids,
+    with the bound of the rows it must read (the distinct rows inside their
+    run's window) and write, and the kernel's device time with a cold L2."""
+    run = lambda: op(table, ids, mode="slab")
+    got, want = run(), plain(table, ids)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "gather_rows_slab disagrees with its plain version at the measured shape")
+    read = want.any(dim=1)
+    K, D = ids.numel(), table.shape[1]
+    n_read = int(torch.unique(ids[read]).numel())
+    n_bytes = (n_read + K) * D * 4 + K * ids.element_size()
+    del got, want
+    idx = torch.where((ids >= 0) & (ids < table.shape[0]), ids, 0)
+    b_ms, b_by = bound_ms(n_bytes)
+    return {"shape": {"R": table.shape[0], "D": D, "K": K, "rows_blk": 128, "slab": 512,
+                      "rows_read": int(read.sum()), "distinct_rows_read": n_read, "zero_rows": K - int(read.sum())},
+            "max_abs_err": 0.0, "ms": time_ms(run, iters), "plain_ms": time_ms(lambda: plain(table, ids), 10),
+            "library_ms": time_ms(lambda: torch.index_select(table, 0, idx), iters),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+            "kernel_device_ms": kernel_device_ms(run, "gather_rows_slab_kernel")}
 
 
 def kernel_device_ms(fn, name_part: str, iters: int = 20) -> float | None:

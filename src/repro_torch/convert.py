@@ -8,11 +8,16 @@ moments ``{"m": tree, "v": tree}`` have the params' layout and convert the
 same way (``adamw_from_numpy``). The transformer's tree stacks every layer
 leaf on axis 0; ``transformer_from_numpy`` unstacks it into ``layers.{i}``.
 ``mse_dense_from_numpy`` takes the MSE example's attention projections and
-DNN.
+DNN, and ``mse_dense_to_numpy`` gives them back in the reference's layout.
 
 Engine rows need no converter: the dict the reference's
 ``EmbeddingEngine.export_rows`` returns is what the port's ``import_rows``
-takes.
+takes. ``sparse_to_tree`` lays the engine state out as the reference's
+pytree flattens it (a Blocks as ``(emb, (slots by name))``, an IDMap as the
+tuple of its tensor fields), and ``mse_state_to_tree`` the whole MSE train
+state, so a checkpoint holds the reference's leaf names
+(``state/dense/attn_k/w``, ``state/sparse/dim8/idmap/2``, ...) and a
+checkpoint of either package restores in the other.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.core import blocks as blocks_lib, idmap as idmap_lib
 from repro_torch.models.recsys.dlrm import DLRMConfig
 from repro_torch.models.transformer import TransformerConfig
 
@@ -68,12 +74,80 @@ def mse_dense_from_numpy(tree: Mapping, dim: int = 8,
     out = {}
     for name in ("attn_q", "attn_k"):
         out.update(_linear(tree[name], name, dim, dim, True))
-    layers = tree["dnn"]
-    if len(layers) != len(dnn_dims) - 1:
-        raise ValueError(f"dnn: {len(layers)} layers, expected {len(dnn_dims) - 1}")
-    for i in range(len(dnn_dims) - 1):
-        out.update(_linear(layers[f"l{i}"], f"dnn.l{i}", dnn_dims[i], dnn_dims[i + 1], True))
+    out.update(mlp_from_numpy(tree["dnn"], dnn_dims, "dnn."))
     return out
+
+
+def mlp_from_numpy(layers: Mapping, dims: tuple[int, ...], prefix: str = "") -> dict[str, torch.Tensor]:
+    """The reference's ``make_mlp`` tree ``{"l0": {"w", "b"}, ...}`` → state
+    dict for ``layers.MLP(dims)``, its keys under ``prefix``."""
+    if len(layers) != len(dims) - 1:
+        raise ValueError(f"{prefix or 'mlp'}: {len(layers)} layers, expected {len(dims) - 1}")
+    out = {}
+    for i in range(len(dims) - 1):
+        out.update(_linear(layers[f"l{i}"], f"{prefix}l{i}", dims[i], dims[i + 1], True))
+    return out
+
+
+def mse_dense_to_numpy(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of ``mse_dense_from_numpy``: a ``MSEDense`` state dict
+    (or AdamW moments keyed alike) → ``{"attn_q": {"w", "b"}, "attn_k":
+    ..., "dnn": {"l0": ..., ...}}`` with ``w`` (d_in, d_out). The tensors
+    stay where they are (``w`` is a transposed view)."""
+    def lin(name):
+        return {"w": sd[f"{name}.weight"].t(), "b": sd[f"{name}.bias"]}
+
+    n_dnn = len({k.split(".")[1] for k in sd if k.startswith("dnn.")})
+    return {"attn_q": lin("attn_q"), "attn_k": lin("attn_k"),
+            "dnn": {f"l{i}": lin(f"dnn.l{i}") for i in range(n_dnn)}}
+
+
+def sparse_to_tree(sparse: Mapping) -> dict:
+    """One device's engine state ``{group: {"idmap", "blocks"}}`` in the
+    reference's pytree layout (the tensors themselves, not copies)."""
+    return {g: {"blocks": (v["blocks"].emb, tuple(v["blocks"].slots[k] for k in sorted(v["blocks"].slots))),
+                "idmap": tuple(getattr(v["idmap"], f) for f in idmap_lib.TENSOR_FIELDS)}
+            for g, v in sparse.items()}
+
+
+def sparse_from_tree(tree: Mapping, like: Mapping, device) -> dict:
+    """The inverse of ``sparse_to_tree``: numpy leaves → an engine state on
+    ``device`` shaped like ``like`` (which gives the static fields)."""
+    def t(a):
+        return torch.tensor(np.asarray(a), device=device)  # a copy: the step writes it in place
+
+    out = {}
+    for g, v in like.items():
+        emb, slot_vals = tree[g]["blocks"]
+        out[g] = {"idmap": idmap_lib.IDMap(*map(t, tree[g]["idmap"]), n_rows=v["idmap"].n_rows,
+                                           max_probes=v["idmap"].max_probes),
+                  "blocks": blocks_lib.Blocks(emb=t(emb), slots=dict(zip(sorted(v["blocks"].slots),
+                                                                         map(t, slot_vals))))}
+    return out
+
+
+def mse_state_to_tree(state: Mapping) -> dict:
+    """The twin's MSE train state ``{"step", "dense": MSEDense, "opt":
+    {"m", "v"}, "sparse"}`` in the layout of the reference example's state."""
+    return {"step": state["step"], "dense": mse_dense_to_numpy(state["dense"].state_dict()),
+            "opt": {k: mse_dense_to_numpy(state["opt"][k]) for k in ("m", "v")},
+            "sparse": sparse_to_tree(state["sparse"])}
+
+
+def mse_state_from_tree(tree: Mapping, state: Mapping) -> dict:
+    """The inverse of ``mse_state_to_tree``: the reference-layout tree of
+    numpy leaves loaded into ``state`` (its module and AdamW moments in
+    place, a new step and engine state on the same device)."""
+    model = state["dense"]
+    device = model.attn_q.weight.device
+    model.load_state_dict(mse_dense_from_numpy(tree["dense"]))
+    with torch.no_grad():
+        for k in ("m", "v"):
+            for name, x in mse_dense_from_numpy(tree["opt"][k]).items():
+                state["opt"][k][name].copy_(x)
+    return {"step": torch.tensor(np.asarray(tree["step"]), dtype=torch.int32, device=device),
+            "dense": model, "opt": state["opt"],
+            "sparse": sparse_from_tree(tree["sparse"], state["sparse"], device)}
 
 
 def transformer_from_numpy(tree: Mapping, cfg: TransformerConfig) -> dict[str, torch.Tensor]:

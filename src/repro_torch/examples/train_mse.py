@@ -1,12 +1,15 @@
 """Twin of ``examples/train_mse.py``: the paper's MSE-like search-ranking
-model (§3.2.1), its train step on the port.
+model (§3.2.1) trained through the port's full stack:
 
-  FeatureEngine (fused hash and bucketize, sequences truncated)
+  datagen → ColumnIO table on disk
+  → AsyncLoader (multi-threaded prefetch, sharded)
+  → FeatureEngine (fused hash and bucketize, sequences truncated)
     → EmbeddingEngine (one merged dim-8 group: 40 hash, 20 bucketize, 4
       sequence columns and the query)
     → cross-attention of the query over each behaviour sequence + 5-layer
       DNN (bf16 compute)
     → SparseAdam (rows) + AdamW (dense)
+  → AsyncSaver checkpoints + resume
 
 On a CUDA tensor the bucketize group runs the fused_transform kernel, the
 four sequence columns' ``none`` pooling the sequence-tile kernel (and its
@@ -20,26 +23,39 @@ float64 promotes the scores to float64 before the softmax; ``interest``
 is the Python sum of the four interests over N_SEQ; the BCE is the inline
 formula, its ``log1p`` term in the compute type.
 
-The reference's ``main()`` (Trainer, AsyncLoader, AsyncSaver, resume)
-waits for the port of the training loop and of the observability layer;
-here ``MSECell`` and ``batch_arrays`` (the batches ``io/datagen.py``'s
-recipes give) drive the step.
+``main()`` is the reference's, on the card unless ``--device cpu``, with
+flags for what the reference fixes (the checkpoint interval, loader
+threads) and a telemetry file of per-step records. One difference: the reference builds its
+loader before it resumes and drops the restored data cursor, so a resumed
+run starts the table over; the twin starts the loader at the restored
+position, so a resumed run with one loader thread continues with the
+batches an uninterrupted run would have trained on. ``batch_arrays`` draws
+single batches as ``io/datagen.py``'s recipes do, for tests.
+
+Run:  PYTHONPATH=src python -m repro_torch.examples.train_mse [--steps 300] [--resume] [--device cpu]
 """
 from __future__ import annotations
 
+import argparse
+import pathlib
+import tempfile
 from typing import Mapping
 
 import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import convert
 from repro_torch.core.embedding_engine import EmbeddingEngine, EngineConfig
 from repro_torch.core.feature_engine import FeatureEngine, FeatureSpec
+from repro_torch.io import datagen
+from repro_torch.io.columnio import AsyncLoader
 from repro_torch.io.ragged import Ragged
 from repro_torch.launch.common import local_view, resolve_device
 from repro_torch.models.layers import MIXED, MLP, Precision, dense, dense_apply
 from repro_torch.optim import adamw
 from repro_torch.optim.sparse_adam import SparseAdamConfig
+from repro_torch.pipelines import TrainConfig, Trainer
 
 DIM = 8
 N_HASH, N_BUCKET, N_SEQ = 40, 20, 4   # "MSE-like", scaled for CPU
@@ -117,11 +133,17 @@ class MSEDense(nn.Module):
 
 
 class MSECell:
-    """The MSE model's (state, batch) → (state, metrics) train step.
+    """The MSE model's (state, batch) → (state, metrics) train step, with
+    the Trainer's contract (``returns_state``, ``init_state``, ``step_fn``,
+    and ``state_tree`` / ``load_state_tree`` for checkpoints in the
+    reference's layout). The step moves a batch to the cell's device.
 
     ``batch``, ``engine_cfg`` and ``prec`` default to the example's BATCH,
     EngineConfig and MIXED; they let a caller run a larger batch or FP32.
     """
+
+    returns_state = True
+    donate_state = True  # the reference's flag; the step updates the state in place
 
     def __init__(self, device=None, *, batch: int = BATCH, engine_cfg: EngineConfig | None = None,
                  prec: Precision = MIXED):
@@ -142,6 +164,8 @@ class MSECell:
         acfg, scfg = adamw.AdamWConfig(lr=1e-3), SparseAdamConfig(lr=1e-2)
 
         def step_fn(state, batch):
+            batch = {k: Ragged(v.values.to(self.device), v.row_splits.to(self.device))
+                     for k, v in batch.items()}
             step = state["step"] + 1
             with torch.no_grad():  # not inference_mode: the plans are saved for backward
                 ids, _ = fe.apply(batch)
@@ -183,3 +207,73 @@ class MSECell:
         return {"step": torch.zeros((), dtype=torch.int32, device=self.device), "dense": model,
                 "opt": adamw.init(dict(model.named_parameters())),
                 "sparse": local_view(self.engine.init_state())}
+
+    @staticmethod
+    def state_tree(state: dict) -> dict:
+        """The state in the reference example's layout (``convert``)."""
+        return convert.mse_state_to_tree(state)
+
+    @staticmethod
+    def load_state_tree(state: dict, tree: Mapping) -> dict:
+        return convert.mse_state_from_tree(tree, state)
+
+
+def main(argv=None) -> dict:
+    """The reference's ``main()``: write the table, train through the
+    AsyncLoader and the Trainer with checkpoints, resume with ``--resume``.
+    Returns the run's ``TrainResult`` (``result``), the loader's overflow
+    and the working directory."""
+    p = argparse.ArgumentParser()
+    p.add_argument("--steps", type=int, default=300)
+    p.add_argument("--rows", type=int, default=4096)
+    p.add_argument("--workdir", default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--ckpt-every", type=int, default=100)
+    p.add_argument("--io-threads", type=int, default=2)
+    p.add_argument("--telemetry", default=None, help="JSONL file of per-step records")
+    args = p.parse_args(argv)
+
+    device = resolve_device(None if args.device == "cuda" else args.device)
+    workdir = pathlib.Path(args.workdir or tempfile.mkdtemp(prefix="recis_mse_"))
+    cell = MSECell(device)
+
+    # 1) synthesize the training table (stands in for the production DFS)
+    table = workdir / "table"
+    if not table.exists():
+        gens = datagen.gen_for_specs(cell.specs, seq_mean_len=SEQ_MEAN_LEN)
+        datagen.write_table(table, gens, n_rows=args.rows, rows_per_group=1024)
+        print(f"wrote table: {table} ({args.rows} rows)")
+
+    # 2) trainer with checkpoint/resume + straggler watchdog
+    tcfg = TrainConfig(total_steps=args.steps, ckpt_dir=str(workdir / "ckpt"),
+                       ckpt_every=args.ckpt_every, resume=args.resume,
+                       log_every=25, telemetry_path=args.telemetry)
+    trainer = Trainer(cell, tcfg)
+    state = cell.init_state()
+    state, start, cursor = trainer.try_resume(state)
+    if start:
+        print(f"resumed from step {start}")
+
+    # 3) async sharded loader with static budgets, from the restored position
+    cursor = cursor or {}
+    loader = AsyncLoader(table, datagen.batch_spec_for(cell.specs, BATCH), n_threads=args.io_threads,
+                         loop=True, start_part=cursor.get("part", 0), start_group=cursor.get("group", 0),
+                         start_batch=cursor.get("batch", 0))
+    res = trainer.run(state, iter(loader), start_step=start, cursor_fn=lambda: loader.position)
+    loader.stop()
+
+    for m in res.metrics_history:
+        print(f"step {m['step']:4d} loss={m['loss']:.4f} wall={m['wall_s']*1e3:.1f}ms"
+              + (" STRAGGLER" if m.get("straggler") else ""))
+    print(f"\nio overflow (budget truncations): {loader.overflow}")
+    print(f"straggler events: {len(res.straggler_events)}")
+    if res.metrics_history:
+        first, last = res.metrics_history[0]["loss"], res.metrics_history[-1]["loss"]
+        print(f"loss {first:.4f} → {last:.4f} over {res.steps_run} steps "
+              f"(ckpts in {workdir/'ckpt'})")
+    return {"result": res, "overflow": loader.overflow, "workdir": workdir}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,1 +1,1 @@
-"""Ragged CSR batches."""
+"""Ragged CSR batches, ColumnIO tables and their loader, the synthetic data generator."""

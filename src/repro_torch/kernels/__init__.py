@@ -32,6 +32,7 @@ _P, _I64, _INT, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_f
 # C entry points: name → argtypes. Each returns cudaGetLastError() as int.
 _SIGNATURES = {
     "repro_gather_rows": [_P, _P, _INT, _P, _I64, _I64, _I64, _P],
+    "repro_gather_rows_slab": [_P, _P, _INT, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "repro_segment_sum_sorted": [_P, _P, _INT, _P, _I64, _I64, _I64, _P],
     "repro_segment_expand_csr": [_P, _I64, _P, _INT, _P, _I64, _I64, _I64, _P],
     "repro_scatter_rows": [_P, _P, _INT, _P, _P, _I64, _I64, _I64, _INT, _P],

@@ -6,12 +6,13 @@ on the card."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention as fa, ref
 
 LAUNCHES = 0      # forward kernel launches since the last reset (read by chip_smoke.py)
 BWD_LAUNCHES = 0  # backward kernel launches, likewise
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)  # the kernels' head dims; a smaller one is padded up
 
 
 def _aligned(x: torch.Tensor) -> bool:
@@ -36,32 +37,42 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, {v.dtype} differ")
 
 
-def _check_card(named: dict[str, torch.Tensor]) -> None:
+def _check_card(named: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """What the kernels take: one CUDA device, fp32 or bf16, a head dim of
-    ``HEAD_DIMS``, and layouts they can read in place."""
+    at most 128, and layouts they can read in place. Returns the inputs with
+    the head dim zero-padded to the next size in ``HEAD_DIMS``, as the
+    reference pads it to a multiple of 128 (``repro/kernels/
+    flash_attention/ops.py:55``): zero columns of q and k add nothing to a
+    score, and those of v, O and dO give zero columns of O, dQ, dK and dV,
+    which the caller slices off. The scale stays 1/sqrt(the original hd)."""
     q = named["q"]
     if q.device.type != "cuda" or any(x.device != q.device for x in named.values()):
         raise ValueError("flash_attention: " + ", ".join(f"{n} on {x.device}" for n, x in named.items()))
-    if q.dtype not in (torch.float32, torch.bfloat16) or q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: takes float32 or bfloat16 with head dim in "
-                         f"{HEAD_DIMS}, got {q.dtype}, head dim {q.shape[3]}")
+    hd = q.shape[3]
+    if q.dtype not in (torch.float32, torch.bfloat16) or not 0 < hd <= HEAD_DIMS[-1]:
+        raise ValueError(f"flash_attention: takes float32 or bfloat16 with head dim at most "
+                         f"{HEAD_DIMS[-1]}, got {q.dtype}, head dim {hd}")
+    hd_k = next(n for n in HEAD_DIMS if n >= hd)
+    if hd_k != hd:
+        named = {n: F.pad(x, (0, hd_k - hd)) for n, x in named.items()}
     for name, x in named.items():
         _check_layout(name, x)
+    return named
 
 
 def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
     global LAUNCHES
     if all(x.device.type == "cpu" for x in (q, k, v)):
         return ref.flash_fwd(q, k, v, causal)
-    _check_card({"q": q, "k": k, "v": v})
     B, T, H, hd = q.shape
-    o = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
+    x = _check_card({"q": q, "k": k, "v": v})
+    o = torch.empty((B, T, H, x["q"].shape[3]), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
-        return o, lse
-    fa.flash_fwd(q, k, v, o, lse, float(1.0 / hd ** 0.5), causal)
+        return o[..., :hd], lse
+    fa.flash_fwd(x["q"], x["k"], x["v"], o, lse, float(1.0 / hd ** 0.5), causal)
     LAUNCHES += 1
-    return o, lse
+    return (o if o.shape[3] == hd else o[..., :hd].contiguous()), lse
 
 
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
@@ -77,22 +88,26 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor
                          f"lse {tuple(lse.shape)} {lse.dtype} do not fit q {tuple(q.shape)} {q.dtype}")
     if all(x.device.type == "cpu" for x in (q, k, v, o, lse, do)):
         return ref.flash_bwd(q, k, v, o, lse, do, causal)
-    _check_card({"q": q, "k": k, "v": v, "o": o, "do": do})
+    x = _check_card({"q": q, "k": k, "v": v, "o": o, "do": do})
     if lse.device != q.device or not lse.is_contiguous():
         raise ValueError(f"flash_attention: lse on {lse.device}, strides {lse.stride()}: must be contiguous "
                          f"on {q.device}")
-    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
-    dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    hd_k = x["q"].shape[3]
+    dq = torch.empty((B, T, H, hd_k), dtype=q.dtype, device=q.device)
+    dk = torch.empty((*k.shape[:3], hd_k), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
     if dq.numel() == 0:
-        return dq, dk, dv
+        return dq[..., :hd], dk[..., :hd], dv[..., :hd]
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     # dK and dV of each query head, summed over each kv head's group afterwards
-    dk_part = torch.empty((B, T, H, hd), dtype=torch.float32, device=q.device)
+    dk_part = torch.empty((B, T, H, hd_k), dtype=torch.float32, device=q.device)
     dv_part = torch.empty_like(dk_part)
-    fa.flash_bwd(q, k, v, o, do, lse, dq, dk, dv, delta, dk_part, dv_part, float(1.0 / hd ** 0.5), causal)
+    fa.flash_bwd(x["q"], x["k"], x["v"], x["o"], x["do"], lse, dq, dk, dv, delta, dk_part, dv_part,
+                 float(1.0 / hd ** 0.5), causal)
     BWD_LAUNCHES += 1
-    return dq, dk, dv
+    if hd_k == hd:
+        return dq, dk, dv
+    return tuple(g[..., :hd].contiguous() for g in (dq, dk, dv))
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -120,7 +135,8 @@ class _FlashAttention(torch.autograd.Function):
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Attention of q (B, T, H, hd) over k, v (B, T, Hk, hd), H a multiple of
-    Hk (query head h reads kv head h // (H // Hk)), scaled by 1/sqrt(hd).
+    Hk (query head h reads kv head h // (H // Hk)), scaled by 1/sqrt(hd);
+    on the card hd is at most 128.
     Returns O (B, T, H, hd) in q's type, differentiable in q, k and v, and
     LSE = m + log l (B, H, T) fp32, not differentiable."""
     _check_shapes(q, k, v)

@@ -1,4 +1,4 @@
-"""Public row-gather op: a CUDA tensor goes through the kernel, a CPU tensor
+"""Public gather op: a CUDA tensor goes through a kernel, a CPU tensor
 through the plain version. There is no fallback: a kernel that fails to
 build or launch raises."""
 from __future__ import annotations
@@ -7,14 +7,29 @@ import torch
 
 from repro_torch.kernels.fused_gather import fused_gather, ref
 
-LAUNCHES = 0  # kernel launches since the last reset (read by chip_smoke.py)
+LAUNCHES = 0       # row-kernel launches since the last reset (read by chip_smoke.py)
+SLAB_LAUNCHES = 0  # slab-kernel launches since the last reset
 
 
-def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Fetch K rows of a (R, D) fp32 table: out[i] = table[ids[i]], with PAD
-    (-1) and out-of-range ids reading row 0 (the overflow row)."""
-    global LAUNCHES
+def gather_rows(table: torch.Tensor, ids: torch.Tensor, mode: str = "row",
+                rows_blk: int = 128, slab: int = 512) -> torch.Tensor:
+    """Fetch K rows of a (R, D) fp32 table, the reference's
+    ``repro.kernels.fused_gather.ops.gather_rows``.
+
+    ``row``  — out[i] = table[ids[i]], PAD (-1) and out-of-range ids reading
+               row 0 (the overflow row); any id order.
+    ``slab`` — the windowed gather of sorted ids (``ref.gather_rows_slab``):
+               each run of ``rows_blk`` ids reads from one slab-aligned
+               window of ``slab`` rows, and rows outside it read zeros.
+    """
+    global LAUNCHES, SLAB_LAUNCHES
+    if mode not in ("row", "slab"):
+        raise ValueError(f"gather_rows: mode must be 'row' or 'slab', got {mode!r}")
+    if mode == "slab" and (rows_blk < 1 or slab < 1):
+        raise ValueError(f"gather_rows: rows_blk {rows_blk} and slab {slab} must be positive")
     if table.device.type == "cpu" and ids.device.type == "cpu":
+        if mode == "slab":
+            return ref.gather_rows_slab(table, ids, rows_blk, slab)
         return ref.gather_rows(table, ids)
     if table.device.type != "cuda" or ids.device != table.device:
         raise ValueError(f"gather_rows: table on {table.device}, ids on {ids.device}")
@@ -29,6 +44,10 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         return out
     if table.shape[0] == 0:
         raise ValueError("gather_rows: empty table")
-    fused_gather.gather_rows(table, ids, out)
-    LAUNCHES += 1
+    if mode == "slab":
+        fused_gather.gather_rows_slab(table, ids, out, rows_blk, min(slab, ref._round_up(table.shape[0], 8)))
+        SLAB_LAUNCHES += 1
+    else:
+        fused_gather.gather_rows(table, ids, out)
+        LAUNCHES += 1
     return out

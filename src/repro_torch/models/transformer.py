@@ -8,7 +8,7 @@ stacked layer params over a mesh; here the layers are a Python loop over an
 ``nn.ModuleList`` on one device, so its ``MeshCtx`` sharding constraints are
 the identity and are left out. With ``remat`` each layer is recomputed in the
 backward (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
-MoE layers, ``remat_policy="dots"``, the chunked loss (ROADMAP A17) and
+MoE layers, ``remat_policy="dots"``, the chunked loss (ROADMAP A7) and
 decode are not ported yet.
 """
 from __future__ import annotations
@@ -35,7 +35,7 @@ class TransformerConfig:
     vocab_size: int
     qkv_bias: bool = False
     rope_theta: float = 10000.0
-    moe: Any = None   # the reference's MoEConfig; not ported (ROADMAP A17)
+    moe: Any = None   # the reference's MoEConfig; not ported (ROADMAP A7)
     remat: bool = True  # recompute each layer in the backward
 
     @property
@@ -74,7 +74,7 @@ class Transformer(nn.Module):
     def __init__(self, cfg: TransformerConfig, seed: int = 0, device=None):
         super().__init__()
         if cfg.moe is not None:
-            raise NotImplementedError(f"{cfg.name}: MoE layers are not ported yet (ROADMAP A17)")
+            raise NotImplementedError(f"{cfg.name}: MoE layers are not ported yet (ROADMAP A7)")
         self.cfg = cfg
         gen = torch.Generator().manual_seed(seed)
         self.layers = nn.ModuleList(Layer(cfg, gen, device) for _ in range(cfg.n_layers))

@@ -54,6 +54,46 @@ def test_gather_kernel_matches_plain(cuda, r_rows, d, k, id_dtype):
     assert torch.equal(got, t_fg_ref.gather_rows(table, ids))
 
 
+# The slab gather's cases, as tests/test_torch_kernels.py holds the plain
+# version to the reference on them: (name, R, D, K, ids in [lo, hi),
+# rows_blk, slab, id dtype); "one_pad" has one PAD id in a run of high ids.
+SLAB_CASES = [
+    ("reference", 2048, 64, 512, 0, 384, 128, 512, torch.int32),
+    ("straddle", 2048, 16, 200, 1000, 1300, 128, 512, torch.int32),
+    ("one_pad", 2048, 32, 128, 1536, 2048, 128, 512, torch.int64),
+    ("out_of_range", 1000, 16, 700, -40, 1040, 128, 512, torch.int64),
+    ("small", 100, 8, 300, 0, 100, 128, 512, torch.int32),
+    ("d1", 4096, 1, 1000, 0, 4096, 128, 512, torch.int64),
+    ("d5", 3000, 5, 777, 0, 3000, 64, 256, torch.int32),
+    ("d16_windows", 8192, 16, 2048, 0, 8192, 128, 512, torch.int64),
+    ("d128", 4096, 128, 640, 0, 600, 128, 512, torch.int32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,r_rows,d,k,lo,hi,rows_blk,slab,id_dtype", SLAB_CASES,
+                         ids=[c[0] for c in SLAB_CASES])
+@pytest.mark.parametrize("unaligned", [False, True])
+def test_gather_slab_kernel_matches_plain(cuda, name, r_rows, d, k, lo, hi, rows_blk, slab, id_dtype,
+                                          unaligned):
+    """Equal to the plain version, one launch; ``unaligned`` reads the table
+    through a view 4 bytes off a 16-byte boundary (the scalar path)."""
+    g = torch.Generator().manual_seed(k + d)
+    table = torch.randn((r_rows, d), generator=g)
+    ids = torch.sort(torch.randint(lo, hi, (k,), generator=g)).values.to(id_dtype)
+    if name == "one_pad":
+        ids[0] = -1
+    tab = table.to(cuda)
+    if unaligned:
+        tab = torch.zeros(table.numel() + 1, device=cuda)[1:].view(table.shape)
+        tab.copy_(table)
+    before = t_fg.SLAB_LAUNCHES
+    got = t_fg.gather_rows(tab, ids.to(cuda), mode="slab", rows_blk=rows_blk, slab=slab)
+    torch.cuda.synchronize()
+    assert t_fg.SLAB_LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), t_fg_ref.gather_rows_slab(table, ids, rows_blk, slab))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,d,s", SHAPES + [(1000, 6, 50)])
 @pytest.mark.parametrize("sort", [True, False])
@@ -93,6 +133,8 @@ def test_kernel_wrappers_reject_bad_inputs(cuda):
         t_fg.gather_rows(table.double(), torch.zeros(2, dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError):
         t_fg.gather_rows(table, torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        t_fg.gather_rows(table, torch.zeros(2, dtype=torch.int32, device=cuda), mode="slab", slab=0)
     with pytest.raises(ValueError):
         t_sr.segment_sum(table, torch.zeros(4, dtype=torch.int64, device=cuda), 2)
     with pytest.raises(ValueError):
@@ -351,6 +393,9 @@ FLASH_CASES = [  # B, T, H, Hk, hd, dtype, causal
     (1, 200, 8, 8, 32, torch.bfloat16, True), (2, 128, 4, 4, 128, torch.float32, True),
     (1, 1024, 4, 2, 64, torch.bfloat16, True), (1, 200, 2, 1, 128, torch.float32, True),
     (2, 200, 4, 2, 64, torch.float32, False), (1, 1024, 2, 1, 16, torch.bfloat16, False),
+    # head dims the kernels take padded to the next of 16, 32, 64, 128
+    (1, 200, 4, 2, 8, torch.float32, True), (2, 128, 2, 1, 8, torch.bfloat16, True),
+    (1, 300, 4, 4, 48, torch.float32, True), (1, 1024, 4, 2, 48, torch.bfloat16, False),
 ]
 
 
@@ -415,8 +460,8 @@ def test_flash_kernel_refuses_gradients_and_bad_inputs(cuda, monkeypatch):
         t_fa.flash_attention(q, k, v)  # no gradient wanted: the forward kernel runs
     with pytest.raises(ValueError):
         t_fa.flash_attention(q.half(), k.half(), v.half())
-    with pytest.raises(ValueError):
-        t_fa.flash_attention(q[..., :24], k[..., :24], v[..., :24])
+    with pytest.raises(ValueError):  # head dims above 128 are refused
+        t_fa.flash_attention(*_flash_inputs(1, 64, 2, 1, 192, torch.float32, cuda))
     with pytest.raises(ValueError):
         t_fa.flash_attention(q, k.cpu(), v)
     with pytest.raises(ValueError):

@@ -82,6 +82,64 @@ def test_gather_plain_matches_pallas(r_rows, d, k, id_dtype):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+# The slab gather's cases: (name, R, D, K, id range [lo, hi), rows_blk, slab,
+# id dtype). "straddle" is the partial-tail trap (most of its 200 rows read
+# zero: the first run straddles the 1,024 window edge, the last run's min is
+# the padding's id 0); "one_pad" puts one PAD id (clamped to 0) in a run of
+# high ids, zeroing the other 127 rows; "small" has R < slab and R % 8 != 0.
+SLAB_CASES = [
+    ("reference", 2048, 64, 512, 0, 384, 128, 512, np.int32),
+    ("straddle", 2048, 16, 200, 1000, 1300, 128, 512, np.int32),
+    ("one_pad", 2048, 32, 128, 1536, 2048, 128, 512, np.int64),
+    ("out_of_range", 1000, 16, 700, -40, 1040, 128, 512, np.int64),
+    ("small", 100, 8, 300, 0, 100, 128, 512, np.int32),
+    ("d1", 4096, 1, 1000, 0, 4096, 128, 512, np.int64),
+    ("d5", 3000, 5, 777, 0, 3000, 64, 256, np.int32),
+    ("d16_windows", 8192, 16, 2048, 0, 8192, 128, 512, np.int64),
+    ("d128", 4096, 128, 640, 0, 600, 128, 512, np.int32),
+]
+
+
+def _slab_inputs(name, r_rows, d, k, lo, hi, id_dtype):
+    """A finite table and sorted ids (the reference's one-hot product turns a
+    non-finite row anywhere in a window into NaN for the whole run)."""
+    r = np.random.default_rng(r_rows * 7 + d + k)
+    table = r.normal(size=(r_rows, d)).astype(np.float32)
+    ids = np.sort(r.integers(lo, hi, size=(k,))).astype(id_dtype)
+    if name == "one_pad":
+        ids[0] = -1
+    return table, ids
+
+
+@pytest.mark.parametrize("name,r_rows,d,k,lo,hi,rows_blk,slab,id_dtype", SLAB_CASES,
+                         ids=[c[0] for c in SLAB_CASES])
+def test_gather_slab_plain_matches_pallas(name, r_rows, d, k, lo, hi, rows_blk, slab, id_dtype):
+    table, ids = _slab_inputs(name, r_rows, d, k, lo, hi, id_dtype)
+    want = np.asarray(j_fg.gather_rows(jnp.asarray(table), jnp.asarray(ids), interpret=True,
+                                       mode="slab", rows_blk=rows_blk, slab=slab))
+    got = t_fg.gather_rows(torch.from_numpy(table), torch.from_numpy(ids), mode="slab",
+                           rows_blk=rows_blk, slab=slab)
+    assert np.array_equal(got.numpy(), want)
+    zeros = int((~want.any(axis=1)).sum())
+    if name == "straddle":  # run 0's window is [512, 1024); run 1's is [0, 512)
+        assert zeros == int((ids[:128] >= 1024).sum()) + (k - 128) > 150
+    if name == "one_pad":
+        assert zeros == 127
+
+
+def test_gather_slab_reads_an_unaligned_view_and_refuses_bad_arguments():
+    table, ids = _slab_inputs("reference", 2048, 64, 512, 0, 384, np.int64)
+    flat = torch.zeros(table.size + 1)
+    view = flat[1:].view(table.shape)  # contiguous, 4 bytes off a 16-byte boundary
+    view.copy_(torch.from_numpy(table))
+    want = np.asarray(j_fg.gather_rows(jnp.asarray(table), jnp.asarray(ids), interpret=True, mode="slab"))
+    assert np.array_equal(t_fg.gather_rows(view, torch.from_numpy(ids), mode="slab").numpy(), want)
+    with pytest.raises(ValueError):
+        t_fg.gather_rows(view, torch.from_numpy(ids), mode="window")
+    with pytest.raises(ValueError):
+        t_fg.gather_rows(view, torch.from_numpy(ids), mode="slab", rows_blk=0)
+
+
 def _scatter_inputs(r_rows, d, k, id_dtype, seed):
     """Unique ids with invalid slots and out-of-range ids (both sides)."""
     r = np.random.default_rng(seed)

@@ -263,7 +263,7 @@ def test_moe_config_raises():
     import dataclasses
 
     cfg = dataclasses.replace(t_get_config("qwen2.5-3b", smoke=True).model, moe=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         t_tfm.init(cfg)
 
 
