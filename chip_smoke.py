@@ -10,15 +10,19 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
 
   1. device   — the card, its power limit, the kernel build time, and
                 each kernel's registers, spills and static shared memory
-                as ptxas reported them in the build;
+                as ptxas reported them in the build, and the HGMMA
+                (wgmma) count of each kernel's SASS: the bf16 flash kernels
+                must have some, and no spills at hd 128;
   2. kernels  — each CUDA kernel against its plain PyTorch version on random
                 inputs (PAD and out-of-range ids, the slab gather's
                 partial-tail and one-PAD traps, unsorted and empty
                 segments, invalid scatter slots, D not a multiple of 4,
                 unaligned pointers, views of stacked tables; flash
                 attention forward and backward over head dims 8-128, T not
-                a multiple of the tile, grouped kv heads, bf16 and fp32,
-                strided inputs, an unaligned q refused; fused bucketize on
+                a multiple of the tile (64, 127, 129, 4,096 among them),
+                grouped kv heads, bf16 and fp32, strided inputs in both, an
+                unaligned q refused, every bf16 launch on the tensor-core
+                kernels (counted on the C side); fused bucketize on
                 every boundary and a float step either side, ±inf, NaN,
                 ±0.0, subnormals, widths 1 to 3,000 and fp64 input; sequence
                 tile and untile over empty rows, rows longer than k and a
@@ -74,7 +78,8 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
      gather, which no path calls, at the operator benchmark's gather shape
      and at D 128), against its
      plain version, timed beside the plain version, one PyTorch library
-     call and the card's bound.
+     call and the card's bound; the flash kernels also launched twice on
+     their path's inputs (bit-equal) and timed by profiler events.
 
 Every check raises on failure, so the script exits non-zero. It prints one
 JSON object per line; the last is ``{"ok": true, "device": {...}}``.
@@ -128,7 +133,18 @@ FLASH_CASES = [  # B, T, H, Hk, hd, dtype, causal
     # head dims the kernels take zero-padded to the next of 16, 32, 64, 128
     (1, 200, 4, 2, 8, torch.float32, True), (2, 128, 2, 1, 8, torch.bfloat16, True),
     (1, 300, 4, 4, 48, torch.float32, True), (1, 1024, 4, 2, 48, torch.bfloat16, False),
+    # the bf16 tensor-core kernels' edges: T below, at and either side of a
+    # 64-row box and at the train length, at qwen2.5-3b's heads (G = 8); a
+    # full (non-causal) hd-128 case; G = 8 at hd 64
+    (1, 64, 16, 2, 128, torch.bfloat16, True), (1, 127, 16, 2, 128, torch.bfloat16, True),
+    (1, 129, 16, 2, 128, torch.bfloat16, True), (1, 4096, 16, 2, 128, torch.bfloat16, True),
+    (2, 300, 8, 2, 128, torch.bfloat16, False), (2, 256, 8, 1, 64, torch.bfloat16, True),
 ]
+# strided layouts: q, k, v as head slices of one fused projection (and, in
+# the backward, a dO with strides of its own), in fp32 and in bf16
+STRIDED_CASES = [(2, 300, 8, 2, 64, torch.float32, True, "fused qkv view"),
+                 (2, 300, 8, 2, 128, torch.bfloat16, True, "fused qkv view"),
+                 (1, 200, 16, 2, 64, torch.bfloat16, False, "fused qkv view")]
 # The slab gather against its plain version: (name, R, D, K, ids in [lo, hi),
 # rows_blk, slab, id dtype, unaligned table), sorted ids. "reference" is
 # tests/test_kernels.py's regime; "straddle" the partial-tail trap (a run
@@ -234,6 +250,33 @@ def plain_flash_chunked(ref, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     return torch.cat(outs, 1), torch.cat(lses, 2)
 
 
+def _demangle(names: list[str]) -> list[str]:
+    """C++ names demangled by c++filt where it is installed, else as they are."""
+    cxxfilt = shutil.which("c++filt")
+    if cxxfilt and names:
+        out = subprocess.run([cxxfilt], input="\n".join(names), capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()
+        if len(out) == len(names):
+            return [n.replace("(anonymous namespace)::", "") for n in out]
+    return names
+
+
+def sass_hgmma(lib_path: Path, nvcc: str) -> dict:
+    """The number of HGMMA (wgmma) instructions in each kernel's SASS, from
+    ``cuobjdump -sass`` of the built library, by the toolkit that built it."""
+    cuobjdump = Path(nvcc).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            cur = m.group(1)
+            counts.setdefault(cur, 0)
+        elif cur is not None and "HGMMA" in line:
+            counts[cur] += 1
+    return dict(zip(_demangle(list(counts)), counts.values()))
+
+
 def ptxas_report(log_path: Path) -> list[dict]:
     """Registers, spills and static shared memory of each kernel, from the
     ptxas report the build keeps beside the library; names demangled by
@@ -249,13 +292,8 @@ def ptxas_report(log_path: Path) -> list[dict]:
             cur["registers"] = int(m.group(1))
             smem = re.search(r"(\d+) bytes smem", line)
             cur["static_smem_bytes"] = int(smem.group(1)) if smem else 0
-    cxxfilt = shutil.which("c++filt")
-    if cxxfilt and entries:
-        names = subprocess.run([cxxfilt], input="\n".join(e["function"] for e in entries), capture_output=True,
-                               text=True, timeout=60).stdout.splitlines()
-        if len(names) == len(entries):
-            for e, n in zip(entries, names):
-                e["function"] = n.replace("(anonymous namespace)::", "")
+    for e, n in zip(entries, _demangle([e["function"] for e in entries])):
+        e["function"] = n
     return entries
 
 
@@ -337,9 +375,27 @@ def main() -> None:
     name = torch.cuda.get_device_name(0)
     ptxas = ptxas_report(lib_path.parent / "ptxas.log")
     check(len(ptxas) > 0 and all("registers" in e for e in ptxas), "no ptxas report beside the library")
+    hgmma = sass_hgmma(lib_path, kernels._nvcc())
+    # the bf16 flash kernels run on the tensor cores (HGMMA in their SASS)
+    # and keep everything in registers at hd 128
+    tc_kernels = {"flash_attention.flash_fwd": ("flash_fwd_tc_kernel",),
+                  "flash_attention.flash_bwd": ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")}
+    flash_build = {}
+    for entry, parts in tc_kernels.items():
+        flash_build[entry] = {
+            "hgmma": {f: n for f, n in hgmma.items() if any(x in f for x in parts)},
+            "ptxas": [{k: e.get(k) for k in ("function", "registers", "spill_store_bytes", "spill_load_bytes")}
+                      for e in ptxas if entry.split(".")[1] in e["function"]]}  # fp32 kernels too
+        tc = flash_build[entry]["hgmma"]
+        check(len(tc) == 2 * len(parts) and all(n > 0 for n in tc.values()), f"{entry}: HGMMA counts {tc}")
+        spills = [e for e in flash_build[entry]["ptxas"] if any(x in e["function"] for x in parts)
+                  and ("<128>" in e["function"] or "ILi128E" in e["function"])
+                  and (e.get("spill_store_bytes") or e.get("spill_load_bytes"))]
+        check(not spills, f"{entry}: the tensor-core kernels spill at hd 128: {spills}")
     emit({"phase": "device", "device": name, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "kernel_build_s": build_s, "library": str(lib_path.relative_to(ROOT)), "ptxas": ptxas})
+          "kernel_build_s": build_s, "library": str(lib_path.relative_to(ROOT)), "ptxas": ptxas,
+          "hgmma_per_kernel": {f: n for f, n in hgmma.items() if n}})
 
     # ------------------------------------------------- 2 kernels vs plain, random
     rng = np.random.default_rng(SEED)
@@ -455,11 +511,12 @@ def main() -> None:
                       "splits": str(sdt), "g_row_stride": stride, "bit_equal": bool(torch.equal(got.cpu(), want))})
         check(torch.equal(got.cpu(), want), f"segment_expand_csr disagrees at {cases[-1]}")
         check(sr_ops.LAUNCHES_BWD == before + 1, "segment_expand_csr did not launch")
-    for B, T, H, Hk, hd, dt, causal, layout in [(*c, "contiguous") for c in FLASH_CASES] + [
-            (2, 300, 8, 2, 64, torch.float32, True, "fused qkv view"),
+    tc_before = fa_ops.tensor_core_launches()
+    n_bf16 = {"fwd": 0, "bwd": 0}
+    for B, T, H, Hk, hd, dt, causal, layout in [(*c, "contiguous") for c in FLASH_CASES] + STRIDED_CASES + [
             (1, 256, 4, 2, 128, torch.bfloat16, True, "q unaligned")]:
         if layout == "fused qkv view":  # q, k, v as head slices of one projection
-            fused = torch.from_numpy(rng.normal(size=(B, T, H + 2 * Hk, hd)).astype(np.float32)).to(dev)
+            fused = torch.from_numpy(rng.normal(size=(B, T, H + 2 * Hk, hd)).astype(np.float32)).to(dt).to(dev)
             q, k, v = fused[:, :, :H], fused[:, :, H:H + Hk], fused[:, :, H + Hk:]
         else:
             q, k, v = (torch.from_numpy(rng.normal(size=(B, T, n, hd)).astype(np.float32)).to(dt).to(dev)
@@ -487,17 +544,18 @@ def main() -> None:
                       "max_abs_o": float(want_o.float().abs().max()), "o_err_over_tol": excess,
                       "zero_output_err_over_tol": flash_excess(torch.zeros_like(want_o), want_o, dt)})
         check(fa_ops.LAUNCHES == before + 1, f"flash_fwd did not launch at {cases[-1]}")
+        n_bf16["fwd"] += dt == torch.bfloat16
         check(o.dtype == dt and excess <= 1.0 and torch.allclose(lse, want_lse, rtol=LSE_TOL, atol=LSE_TOL),
               f"flash_fwd disagrees at {cases[-1]}")
-    for B, T, H, Hk, hd, dt, causal, layout in [(*c, "contiguous") for c in FLASH_CASES] + [
-            (2, 300, 8, 2, 64, torch.float32, True, "fused qkv view")]:
-        if layout == "fused qkv view":  # q, k, v as head slices of one projection
-            fused = torch.from_numpy(rng.normal(size=(B, T, H + 2 * Hk, hd)).astype(np.float32)).to(dev)
+    for B, T, H, Hk, hd, dt, causal, layout in [(*c, "contiguous") for c in FLASH_CASES] + STRIDED_CASES:
+        if layout == "fused qkv view":  # q, k, v as head slices of one projection, dO (B, H, T, hd) transposed
+            fused = torch.from_numpy(rng.normal(size=(B, T, H + 2 * Hk, hd)).astype(np.float32)).to(dt).to(dev)
             q, k, v = fused[:, :, :H], fused[:, :, H:H + Hk], fused[:, :, H + Hk:]
+            do = torch.from_numpy(rng.normal(size=(B, H, T, hd)).astype(np.float32)).to(dt).to(dev).transpose(1, 2)
         else:
             q, k, v = (torch.from_numpy(rng.normal(size=(B, T, n, hd)).astype(np.float32)).to(dt).to(dev)
                        for n in (H, Hk, Hk))
-        do = torch.from_numpy(rng.normal(size=(B, T, H, hd)).astype(np.float32)).to(dt).to(dev)
+            do = torch.from_numpy(rng.normal(size=(B, T, H, hd)).astype(np.float32)).to(dt).to(dev)
         o, lse = fa_ops.flash_fwd(q, k, v, causal)
         before = fa_ops.BWD_LAUNCHES
         got = fa_ops.flash_bwd(q, k, v, o, lse, do, causal)
@@ -508,11 +566,20 @@ def main() -> None:
         case.update(flash_bwd_readings(got, want, dt))
         cases.append(case)
         check(fa_ops.BWD_LAUNCHES == before + 1, f"flash_bwd did not launch at {case}")
+        n_bf16["bwd"] += dt == torch.bfloat16
         check(all(g.dtype == dt for g in got) and max(case[f"{n}_err_over_tol"] for n in GRAD_NAMES) <= 1.0,
               f"flash_bwd disagrees at {case}")
         other = case["dk_other_kv_head_err_over_tol"]
         check(min(case[f"{n}_zero_err_over_tol"] for n in GRAD_NAMES) > 1.0 and (other is None or other > 1.0),
               f"the flash_bwd check cannot tell a wrong gradient at {case}")
+    # every bf16 case went through the tensor-core kernels, and no fp32 one
+    tc_after = fa_ops.tensor_core_launches()
+    tc_cases = {"bf16_fwd_launches": n_bf16["fwd"], "bf16_bwd_launches": n_bf16["bwd"],
+                "tensor_core_fwd_launches": tc_after[0] - tc_before[0],
+                "tensor_core_bwd_launches": tc_after[1] - tc_before[1]}
+    check(tc_cases["tensor_core_fwd_launches"] == n_bf16["fwd"] + n_bf16["bwd"]
+          and tc_cases["tensor_core_bwd_launches"] == n_bf16["bwd"],
+          f"bf16 flash cases and tensor-core launches differ: {tc_cases}")
     op_widths = rng.integers(8, 64, OP_COLS)  # the operator benchmark's widths
     for widths, n, vdt in BUCKET_CASES + [(list(op_widths), OP_COLS * OP_VALS, np.float32)]:
         args = [torch.from_numpy(x).to(dev) for x in bucket_case(rng, widths, n, vdt)]
@@ -545,7 +612,7 @@ def main() -> None:
                 cases.append({"kernel": "sequence_tile+untile", "n_rows": 97, "N": budget, "D": D, "k": k,
                               "splits": str(sdt), "launched": launched, "tile_equal": eq, "untile_equal": eq_g})
                 check(launched and eq and eq_g, f"sequence tile or untile disagrees at {cases[-1]}")
-    emit({"phase": "kernels_vs_plain", "cases": cases, "tolerance": {
+    emit({"phase": "kernels_vs_plain", "cases": cases, "flash_tensor_core_path": tc_cases, "tolerance": {
         "gather_rows": "bit-equal", "gather_rows_slab": "bit-equal", "segment_sum": "rtol=atol=1e-5 (summation order)",
         "segment_sum_csr": "rtol=atol=1e-5 (summation order)",
         "scatter_add_rows": "bit-equal", "scatter_set_rows": "bit-equal",
@@ -554,7 +621,7 @@ def main() -> None:
                      f"{FLASH_TOL[torch.float32]} fp32, {FLASH_TOL[torch.bfloat16]} bf16 (one rounding); "
                      f"LSE rtol=atol {LSE_TOL}; an unaligned q is refused",
         "flash_bwd": "dQ, dK, dV each as O of flash_fwd (err_over_tol <= 1); a zero gradient and the dK "
-                     "of the other kv head (Hk > 1) read above 1",
+                     "of the other kv head (Hk > 1) read above 1; every bf16 launch on the tensor-core kernels",
         "fused_bucketize": "equal", "sequence_tile": "equal (torch.equal)",
         "sequence_untile": "equal (torch.equal)"}})
 
@@ -1012,6 +1079,7 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    tc0 = fa_ops.tensor_core_launches()
     prefill_ms = []
     for s, batch in enumerate(pbatches):
         phase["name"] = "prefill" if s == 1 else None  # layer 0's attention inputs, first timed request
@@ -1034,11 +1102,14 @@ def main() -> None:
                   and c.dtype == torch.bfloat16 and bool(torch.isfinite(c).all()), f"prefill {k}")
         del pout, c
     prefill_launches = counts()
+    prefill_tc = fa_ops.tensor_core_launches()[0] - tc0[0]
     prefill_peak = torch.cuda.max_memory_allocated() - held_before
     n_pre = len(pbatches)
     check(prefill_launches["flash_attention.flash_fwd"] == L_lm * n_pre
           and prefill_launches["fused_gather.gather_rows"] == n_pre,
           f"prefill launches {prefill_launches}")
+    check(prefill_tc == prefill_launches["flash_attention.flash_fwd"],
+          f"prefill: {prefill_tc} tensor-core launches of {prefill_launches['flash_attention.flash_fwd']}")
     for fn_name, fn in real.items():  # the wrappers record no more
         setattr(fg_ops if fn_name == "gather_rows" else fs_ops if fn_name.startswith("scatter")
                 else fa_ops if fn_name.startswith("flash") else sr_ops, fn_name, fn)
@@ -1080,7 +1151,7 @@ def main() -> None:
           "distinct_tokens_found": found, "layer0_attention_vs_plain": layer0,
           "dense_param_bytes": dense_bytes, "engine_state_bytes": sparse_bytes,
           "max_memory_allocated_bytes": prefill_peak, "held_from_earlier_phases_bytes": held_before,
-          "launches": prefill_launches,
+          "launches": prefill_launches, "flash_fwd_tensor_core_launches": prefill_tc,
           "launches_per_request": {k: v / n_pre for k, v in prefill_launches.items()}})
     emit(profile_requests("prefill", lambda b: pre.step_fn(pstate, b), pbatches[1:2]))
     del pstate, pre, pbatches
@@ -1124,7 +1195,7 @@ def main() -> None:
             "ms": main_path["ms"], "kernel_ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
             "bound_ms": main_path["bound_ms"], "bound_by": main_path["bound_by"],
             "library_ms": main_path["library_ms"], "library_call": lib_call, "at": at})
-    flash_at = {"prefill": _measure_flash(real["flash_attention"], fa_ref,
+    flash_at = {"prefill": _measure_flash(real["flash_attention"], fa_ops.flash_fwd, fa_ref,
                                           *recorded.pop(("flash_attention", "prefill"))[0])}
     check(not recorded, f"recorded inputs left unmeasured: {list(recorded)}")
     torch.cuda.empty_cache()
@@ -1446,6 +1517,7 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    tc0 = fa_ops.tensor_core_launches()
     lstep_ms, llosses, linserted = [], [], []
     for s in range(n_lm):
         phase["name"] = "lm_train" if s == N_LM_WARMUP - 1 else None  # the last warm-up step
@@ -1466,6 +1538,7 @@ def main() -> None:
               f"LM step {s + 1}: {met[f'{gkey}/dev_rows_live']} rows live, {lexpect_live[s]} tokens seen")
     lm_peak = torch.cuda.max_memory_allocated()
     lm_launches = counts()
+    lm_tc = [a - b for a, b in zip(fa_ops.tensor_core_launches(), tc0)]
     fa_ops.flash_attention, fa_ops.flash_bwd = real["flash_attention"], real["flash_bwd"]
     n_new = sum(1 for x in linserted if x > 0)
     want_launches = {"fused_gather.gather_rows": 4 * n_lm, "fused_gather.gather_rows_slab": 0,
@@ -1476,6 +1549,8 @@ def main() -> None:
                      "fused_transform.fused_bucketize": 0, "sequence_tile.sequence_tile": 0,
                      "sequence_tile.sequence_untile": 0}
     check(lm_launches == want_launches, f"LM train launches {lm_launches}, expected {want_launches}")
+    check(lm_tc == [lm_launches["flash_attention.flash_fwd"], lm_launches["flash_attention.flash_bwd"]],
+          f"LM train: tensor-core launches {lm_tc} of {lm_launches}")
     check(linserted[0] > 0, "LM step 1 inserted nothing")
     check(all(bool(torch.isfinite(p).all()) for p in lstate["dense"].parameters()), "LM params not finite")
 
@@ -1518,10 +1593,11 @@ def main() -> None:
           "loss_on_one_repeated_batch": lrepeat, "layer0_attention_grads_vs_plain": lm_layer0,
           "allocated_at_phase_start_bytes": start_bytes, "state_bytes": lstate_bytes,
           "max_memory_allocated_bytes": lm_peak, "launches": lm_launches,
+          "flash_tensor_core_launches": {"fwd": lm_tc[0], "bwd": lm_tc[1]},
           "launches_per_step": {k: v / n_lm for k, v in lm_launches.items()}})
 
     # ------------------------------------ 5 the flash kernels on the LM inputs
-    flash_at["lm_train"] = _measure_flash(real["flash_attention"], fa_ref,
+    flash_at["lm_train"] = _measure_flash(real["flash_attention"], fa_ops.flash_fwd, fa_ref,
                                           *recorded.pop(("flash_attention", "lm_train"))[0], path="lm_train")
     bwd = _measure_flash_bwd(real["flash_bwd"], fa_ref, *bargs)
     del bargs
@@ -1541,8 +1617,10 @@ def main() -> None:
         "launches": sum(fwd_by_path.values()), "launches_by_path": fwd_by_path, "main_path": "prefill",
         "max_abs_err": max(layer0["o_max_abs_err"], *(a["max_abs_err"] for a in flash_at.values())),
         "max_err": layer0["o_max_abs_err"], "kernel_ms": flash_at["prefill"]["ms"],
-        **{k: flash_at["prefill"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "library_call": "F.scaled_dot_product_attention(is_causal=True), kv expanded", "at": flash_at})
+        **{k: flash_at["prefill"][k] for k in ("ms", "kernel_device_ms", "plain_ms", "bound_ms", "bound_by",
+                                              "bound_share", "library_ms")},
+        "library_call": "F.scaled_dot_product_attention(is_causal=True), kv expanded", "at": flash_at,
+        "bf16_route": "tensor cores (wgmma, TMA)", **flash_build["flash_attention.flash_fwd"]})
     bwd_by_path = {"mse_loop": loop_launches["flash_attention.flash_bwd"],
                    "slab_op": slab_launches["flash_attention.flash_bwd"],
                    "serve": launches["flash_attention.flash_bwd"],
@@ -1557,7 +1635,7 @@ def main() -> None:
         "max_abs_err": max(lm_layer0[f"{n}_max_abs_err"] for n in GRAD_NAMES),
         "max_err": max(lm_layer0[f"{n}_max_abs_err"] for n in GRAD_NAMES), "kernel_ms": bwd["ms"],
         "library_call": "torch.autograd.grad of F.scaled_dot_product_attention(is_causal=True), kv expanded",
-        **bwd})
+        **bwd, "bf16_route": "tensor cores (wgmma, TMA)", **flash_build["flash_attention.flash_bwd"]})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
 
@@ -1726,8 +1804,10 @@ def _measure_slab(op, plain, table: torch.Tensor, ids: torch.Tensor, iters: int 
 
 
 def kernel_device_ms(fn, name_part: str, iters: int = 20) -> float | None:
-    """The device time of one launch of the kernels whose name holds
-    ``name_part``, from a torch.profiler trace of ``iters`` calls of ``fn``:
+    """The device time of one call's launches of the kernels whose name
+    holds ``name_part`` (for each such kernel its mean over the events the
+    trace holds, summed), from a torch.profiler trace of ``iters`` calls of
+    ``fn``:
     the kernel alone, without the host cost of its wrapper, which CUDA
     events around a small kernel's calls measure instead. A 256 MB write
     before each call leaves the 50 MB L2 cold, as the HBM bound assumes.
@@ -1744,15 +1824,19 @@ def kernel_device_ms(fn, name_part: str, iters: int = 20) -> float | None:
             fn()
         torch.cuda.synchronize()
     del flush
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA and name_part in e.name]
-    return sum(e.time_range.end - e.time_range.start for e in ev) / 1e3 / iters if ev else None
+    by_name: dict = {}  # a call may launch several kernels; a trace may miss some of a long run's events
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and name_part in e.name:
+            by_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+    return sum(sum(d) / len(d) for d in by_name.values()) / 1e3 if by_name else None
 
 
-def _measure_flash(real, ref, q, k, v, path: str = "prefill") -> dict:
+def _measure_flash(real, fwd, ref, q, k, v, path: str = "prefill") -> dict:
     """The flash kernel on layer 0's recorded inputs of one path: O held to
     its plain version (in query-row pieces, ``plain_flash_chunked``) within
-    one rounding, then timed beside the plain version and
-    scaled_dot_product_attention on the same q and the expanded k, v."""
+    one rounding, two launches bit-equal (O and LSE), then timed beside the
+    plain version and scaled_dot_product_attention on the same q and the
+    expanded k, v; its device time from a profiler trace."""
     import torch.nn.functional as F
 
     B, T, H, hd = q.shape
@@ -1760,46 +1844,64 @@ def _measure_flash(real, ref, q, k, v, path: str = "prefill") -> dict:
     err, excess = float((o.float() - want.float()).abs().max()), flash_excess(o, want, q.dtype)
     check(excess <= 1.0, f"flash_fwd on the {path} inputs: {excess} of the tolerance")
     del o, want
+    (o1, l1), (o2, l2) = fwd(q, k, v), fwd(q, k, v)
+    bit_equal = bool(torch.equal(o1, o2) and torch.equal(l1, l2))
+    check(bit_equal, f"flash_fwd on the {path} inputs: two launches differ")
+    del o1, l1, o2, l2
     ke, ve = (ref.expand_kv(x, H // k.shape[2]).transpose(1, 2) for x in (k, v))
     qt = q.transpose(1, 2)
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, ke, ve, is_causal=True), 3)
     del ke, ve, qt
     k_ms = time_ms(lambda: real(q, k, v), 3)
+    dev_ms = kernel_device_ms(lambda: real(q, k, v), "flash_fwd", iters=3 if T > 8192 else 20)
     p_ms = time_ms(lambda: plain_flash_chunked(ref, q, k, v), 2)
     n_ops = 4.0 * hd * H * B * T * (T + 1) / 2  # two products over the causal triangle
     # q, k, v read once; O (q's shape and type) and the fp32 LSE written once
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + B * H * T * 4
     b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
-    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "max_abs_err": err, "o_err_over_tol": excess, "plain_rows_per_piece": PLAIN_ROWS,
+    return {"ms": k_ms, "kernel_device_ms": dev_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": b_ms / (dev_ms or k_ms), "library_ms": lib_ms,
+            "max_abs_err": err, "o_err_over_tol": excess, "two_launches_bit_equal": bit_equal,
+            "plain_rows_per_piece": PLAIN_ROWS,
             "shape": {"B": B, "T": T, "H": H, "Hk": k.shape[2], "hd": hd, "dtype": str(q.dtype), "causal": True},
-            "flops": n_ops, "bytes": n_bytes, "tflops_per_s": n_ops / k_ms / 1e9}
+            "flops": n_ops, "bytes": n_bytes, "tflops_per_s": n_ops / (dev_ms or k_ms) / 1e9}
 
 
 def _measure_flash_bwd(real, ref, q, k, v, o, lse, do, causal: bool = True) -> dict:
     """The backward kernel on layer 0's recorded train inputs (checked by the
-    caller), timed beside its plain version and the backward of
-    scaled_dot_product_attention on the same q, expanded k, v and dO (the
-    graph built once, then ``torch.autograd.grad`` over it)."""
+    caller): two launches bit-equal, timed beside its plain version and the
+    backward of scaled_dot_product_attention on the same q, expanded k, v and
+    dO (the graph built once, then ``torch.autograd.grad`` over it); its
+    device time, and that of each of its three kernels, from profiler traces."""
     import torch.nn.functional as F
 
     B, T, H, hd = q.shape
+    g1, g2 = real(q, k, v, o, lse, do, causal), real(q, k, v, o, lse, do, causal)
+    bit_equal = all(bool(torch.equal(a, b)) for a, b in zip(g1, g2))
+    check(bit_equal, "flash_bwd on the LM train inputs: two launches differ")
+    del g1, g2
     qt, ke, ve = (x.transpose(1, 2).detach().requires_grad_() for x in
                   (q, ref.expand_kv(k, H // k.shape[2]), ref.expand_kv(v, H // k.shape[2])))
     out = F.scaled_dot_product_attention(qt, ke, ve, is_causal=causal)
     dot = do.transpose(1, 2)
     lib_ms = time_ms(lambda: torch.autograd.grad(out, (qt, ke, ve), dot, retain_graph=True), 5)
     del out, qt, ke, ve
-    k_ms = time_ms(lambda: real(q, k, v, o, lse, do, causal), 5)
+    run = lambda: real(q, k, v, o, lse, do, causal)  # noqa: E731
+    k_ms = time_ms(run, 5)
+    dev_ms = kernel_device_ms(run, "flash_bwd")
+    parts = {n: kernel_device_ms(run, f"flash_bwd_{n}") for n in ("dq", "dkv", "group_sum")}
     p_ms = time_ms(lambda: ref.flash_bwd(q, k, v, o, lse, do, causal), 3)
     n_ops = 5.0 * hd * H * B * T * (T + 1)  # five products over the causal triangle
     # q, k, v, O, dO and the fp32 LSE read once; dQ, dK, dV written once
     n_bytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + B * H * T * 4
     b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
-    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+    return {"ms": k_ms, "kernel_device_ms": dev_ms, "kernel_device_ms_by_kernel": parts, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / (dev_ms or k_ms), "library_ms": lib_ms,
+            "two_launches_bit_equal": bit_equal,
             "at": {"lm_train": {"shape": {"B": B, "T": T, "H": H, "Hk": k.shape[2], "hd": hd,
                                           "dtype": str(q.dtype), "causal": causal},
-                                "flops": n_ops, "bytes": n_bytes, "tflops_per_s": n_ops / k_ms / 1e9}}}
+                                "flops": n_ops, "bytes": n_bytes,
+                                "tflops_per_s": n_ops / (dev_ms or k_ms) / 1e9}}}
 
 
 def _row_sample(state, touched: torch.Tensor, live: torch.Tensor, idmap_lib, n: int = 4096) -> dict:

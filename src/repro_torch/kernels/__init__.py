@@ -36,8 +36,8 @@ _SIGNATURES = {
     "repro_segment_sum_sorted": [_P, _P, _INT, _P, _I64, _I64, _I64, _P],
     "repro_segment_expand_csr": [_P, _I64, _P, _INT, _P, _I64, _I64, _I64, _P],
     "repro_scatter_rows": [_P, _P, _INT, _P, _P, _I64, _I64, _I64, _INT, _P],
-    "repro_flash_fwd": [_P, _P, _P, _P, _P, _INT, *[_I64] * 5, *[_I64] * 9, _F32, _INT, _P],
-    "repro_flash_bwd": [*[_P] * 12, _INT, *[_I64] * 5, *[_I64] * 15, _F32, _INT, _P],
+    "repro_flash_fwd": [_P, _P, _P, _P, _P, _INT, *[_I64] * 5, *[_I64] * 9, _F32, _INT, _P, _P],
+    "repro_flash_bwd": [*[_P] * 12, _INT, *[_I64] * 5, *[_I64] * 15, _F32, _INT, _P, _P],
     "repro_fused_bucketize": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _P],
     "repro_sequence_tile": [_P, _P, _INT, _P, _I64, _I64, _I64, _I64, _INT, _P],
     "repro_sequence_untile": [_P, _P, _INT, _P, _I64, _I64, _I64, _I64, _INT, _P],
@@ -115,6 +115,8 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.repro_flash_tc_launches.argtypes = [ctypes.c_int]
+        lib.repro_flash_tc_launches.restype = ctypes.c_int64
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -2,7 +2,8 @@
 tensor through the plain versions. There is no fallback: a kernel that fails
 to build or launch raises. The op is a ``torch.autograd.Function``: its
 forward is ``flash_fwd`` and its backward ``flash_bwd``, each a CUDA kernel
-on the card."""
+on the card: the tensor-core kernels (wgmma fed by TMA) for bf16, the FMA
+kernels for fp32."""
 from __future__ import annotations
 
 import torch
@@ -12,20 +13,44 @@ from repro_torch.kernels.flash_attention import flash_attention as fa, ref
 
 LAUNCHES = 0      # forward kernel launches since the last reset (read by chip_smoke.py)
 BWD_LAUNCHES = 0  # backward kernel launches, likewise
-HEAD_DIMS = (16, 32, 64, 128)  # the kernels' head dims; a smaller one is padded up
+HEAD_DIMS = (16, 32, 64, 128)  # the fp32 kernels' head dims; a smaller one is padded up
+TC_HEAD_DIMS = (64, 128)       # the bf16 (tensor-core) kernels' head dims: one swizzle mode serves both
+
+
+def padded_head_dim(hd: int, dtype: torch.dtype) -> int:
+    """The head dim the kernels run ``hd`` at: the next of ``TC_HEAD_DIMS``
+    for bf16, of ``HEAD_DIMS`` for fp32."""
+    dims = TC_HEAD_DIMS if dtype == torch.bfloat16 else HEAD_DIMS
+    return next(n for n in dims if n >= hd)
+
+
+def pad_head_dim(named: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The tensors with their last (head) dim zero-padded to
+    ``padded_head_dim`` of q's head dim and type."""
+    hd = named["q"].shape[3]
+    hd_k = padded_head_dim(hd, named["q"].dtype)
+    if hd_k == hd:
+        return named
+    return {n: F.pad(x, (0, hd_k - hd)) for n, x in named.items()}
+
+
+tensor_core_launches = fa.tensor_core_launches  # (forward, backward) bf16 launches, counted by the C side
 
 
 def _aligned(x: torch.Tensor) -> bool:
     """The kernels' 16-byte loads can read ``x`` in place: last dim
-    contiguous, the other strides and the address on 16-byte boundaries."""
+    contiguous, the other strides and the address on 16-byte boundaries;
+    for bf16 (read by TMA) no zero stride on a dim longer than 1."""
     e = 16 // x.element_size()
-    return x.stride(-1) == 1 and not any(s % e for s in x.stride()[:3]) and x.data_ptr() % 16 == 0
+    broadcast = x.dtype == torch.bfloat16 and any(s == 0 and n > 1 for s, n in zip(x.stride()[:3], x.shape[:3]))
+    return x.stride(-1) == 1 and not any(s % e for s in x.stride()[:3]) and x.data_ptr() % 16 == 0 \
+        and not broadcast
 
 
 def _check_layout(name: str, x: torch.Tensor) -> None:
     if not _aligned(x):
-        raise ValueError(f"flash_attention: {name} (strides {x.stride()}) must have a contiguous last dim "
-                         "and its address and other strides on 16-byte boundaries")
+        raise ValueError(f"flash_attention: {name} (strides {x.stride()}) must have a contiguous last dim, "
+                         "its address and other strides on 16-byte boundaries, and in bf16 no broadcast dim")
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -40,7 +65,7 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def _check_card(named: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """What the kernels take: one CUDA device, fp32 or bf16, a head dim of
     at most 128, and layouts they can read in place. Returns the inputs with
-    the head dim zero-padded to the next size in ``HEAD_DIMS``, as the
+    the head dim zero-padded to ``padded_head_dim``, as the
     reference pads it to a multiple of 128 (``repro/kernels/
     flash_attention/ops.py:55``): zero columns of q and k add nothing to a
     score, and those of v, O and dO give zero columns of O, dQ, dK and dV,
@@ -52,9 +77,7 @@ def _check_card(named: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     if q.dtype not in (torch.float32, torch.bfloat16) or not 0 < hd <= HEAD_DIMS[-1]:
         raise ValueError(f"flash_attention: takes float32 or bfloat16 with head dim at most "
                          f"{HEAD_DIMS[-1]}, got {q.dtype}, head dim {hd}")
-    hd_k = next(n for n in HEAD_DIMS if n >= hd)
-    if hd_k != hd:
-        named = {n: F.pad(x, (0, hd_k - hd)) for n, x in named.items()}
+    named = pad_head_dim(named)
     for name, x in named.items():
         _check_layout(name, x)
     return named

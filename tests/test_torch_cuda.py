@@ -396,6 +396,12 @@ FLASH_CASES = [  # B, T, H, Hk, hd, dtype, causal
     # head dims the kernels take padded to the next of 16, 32, 64, 128
     (1, 200, 4, 2, 8, torch.float32, True), (2, 128, 2, 1, 8, torch.bfloat16, True),
     (1, 300, 4, 4, 48, torch.float32, True), (1, 1024, 4, 2, 48, torch.bfloat16, False),
+    # the bf16 tensor-core kernels' edges: T below, at and either side of a
+    # 64-row TMA box and at the train length, qwen2.5-3b's heads (G = 8);
+    # a full (non-causal) hd-128 case; G = 8 at hd 64
+    (1, 64, 16, 2, 128, torch.bfloat16, True), (1, 127, 16, 2, 128, torch.bfloat16, True),
+    (1, 129, 16, 2, 128, torch.bfloat16, True), (1, 4096, 16, 2, 128, torch.bfloat16, True),
+    (2, 300, 8, 2, 128, torch.bfloat16, False), (2, 256, 8, 1, 64, torch.bfloat16, True),
 ]
 
 
@@ -509,6 +515,64 @@ def test_flash_bwd_kernel_reads_strided_inputs(cuda, monkeypatch):
     o, lse = t_fa.flash_fwd(q, k, v)
     got = t_fa.flash_bwd(q, k, v, o, lse, do)
     for g_, w in zip(got, t_fa_ref.flash_bwd(q, k, v, o, lse, do)):
+        _close_flash(g_, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,causal", [(128, True), (64, False), (32, True)])
+def test_flash_bf16_kernels_repeat_bit_for_bit(cuda, hd, causal):
+    """Two launches of the tensor-core forward and backward on the same
+    inputs give bit-equal O, LSE, dQ, dK and dV: no atomics, fixed sums."""
+    q, k, v = _flash_inputs(1, 300, 16, 2, hd, torch.bfloat16, cuda)
+    do = _flash_inputs(1, 300, 16, 2, hd, torch.bfloat16, cuda, seed=1)[0]
+    (o1, l1), (o2, l2) = t_fa.flash_fwd(q, k, v, causal), t_fa.flash_fwd(q, k, v, causal)
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    g1, g2 = (t_fa.flash_bwd(q, k, v, o1, l1, do, causal) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+@pytest.mark.cuda
+def test_flash_bf16_takes_the_tensor_core_kernels(cuda):
+    """A bf16 input launches the tensor-core forward and backward (the C
+    side counts them); an fp32 input launches neither."""
+    q, k, v = _flash_inputs(1, 128, 4, 2, 64, torch.bfloat16, cuda)
+    before = t_fa.tensor_core_launches()
+    o, lse = t_fa.flash_fwd(q, k, v)
+    t_fa.flash_bwd(q, k, v, o, lse, torch.ones_like(q))
+    assert t_fa.tensor_core_launches() == (before[0] + 1, before[1] + 1)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    before = t_fa.tensor_core_launches()
+    o, lse = t_fa.flash_fwd(qf, kf, vf)
+    t_fa.flash_bwd(qf, kf, vf, o, lse, torch.ones_like(qf))
+    torch.cuda.synchronize()
+    assert t_fa.tensor_core_launches() == before
+
+
+@pytest.mark.cuda
+def test_flash_bwd_bf16_reads_strided_inputs(cuda):
+    """The bf16 kernels read q, k, v as head slices of one fused projection
+    and a transposed dO through their TMA maps."""
+    b, t, h, hk, hd = 2, 300, 8, 2, 128
+    g = torch.Generator().manual_seed(3)
+    fused = torch.randn((b, t, h + 2 * hk, hd), generator=g).to(torch.bfloat16).to(cuda)
+    q, k, v = fused[:, :, :h], fused[:, :, h:h + hk], fused[:, :, h + hk:]
+    do = torch.randn((b, h, t, hd), generator=g).to(torch.bfloat16).to(cuda).transpose(1, 2)
+    _check_flash(q, k, v, True)
+    o, lse = t_fa.flash_fwd(q, k, v)
+    for g_, w in zip(t_fa.flash_bwd(q, k, v, o, lse, do), t_fa_ref.flash_bwd(q, k, v, o, lse, do)):
+        _close_flash(g_, w)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_backward_takes_a_broadcast_do(cuda):
+    """A dO broadcast along T (stride 0, which TMA cannot map) is laid out
+    afresh by the op's backward, and the gradients match the plain ones."""
+    q, k, v = _flash_inputs(1, 256, 4, 2, 64, torch.bfloat16, cuda)
+    do = _flash_inputs(1, 1, 4, 2, 64, torch.bfloat16, cuda, seed=2)[0].expand(1, 256, 4, 64)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    got = torch.autograd.grad(t_fa.flash_attention(qg, kg, vg), (qg, kg, vg), grad_outputs=do)
+    o, lse = t_fa_ref.flash_fwd(q, k, v)
+    for g_, w in zip(got, t_fa_ref.flash_bwd(q, k, v, o, lse, do.contiguous())):
         _close_flash(g_, w)
 
 
