@@ -16,8 +16,14 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
   2. kernels  — each CUDA kernel against its plain PyTorch version on random
                 inputs (PAD and out-of-range ids, the slab gather's
                 partial-tail and one-PAD traps, unsorted and empty
-                segments, invalid scatter slots, D not a multiple of 4,
-                unaligned pointers, views of stacked tables; flash
+                segments, invalid scatter slots (90% and all of them, no
+                mask, K not a multiple of 32, D 8 to 2,048), D not a
+                multiple of 4, unaligned pointers, views of stacked tables;
+                the grouped segment sum and its gradient over 1 to 70
+                features, one launch a group of up to 64 each way, bit-equal
+                to the per-feature kernel and to the plain gradient, with
+                empty features, other poolings' rows between, strided and
+                missing gradients; flash
                 attention forward and backward over head dims 8-128, T not
                 a multiple of the tile (64, 127, 129, 4,096 among them),
                 grouped kv heads, bf16 and fp32, strided inputs in both, an
@@ -36,9 +42,10 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 6.5 M rows imported, 20 serve_p99 requests (batch 512) and
                 two serve_bulk requests (batch 262,144: the first at that
                 size, then a warm one), with the kernels' launch counts
-                over that run, then torch.profiler traces of
-                five serve_p99 requests and one serve_bulk request (device
-                busy time, idle share, device operations per request);
+                over that run (one grouped segment sum a request), then
+                torch.profiler traces of five serve_p99 requests and one
+                serve_bulk request (device busy time, idle share, device
+                operations and fp32 add and fill time per request);
      train    — full-width train_batch (batch 65,536) from a fresh state:
                 3 warm-up and 10 timed steps with the kernels' launch counts
                 over the 13, state checks, a torch.profiler trace of three
@@ -72,14 +79,19 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 memory checks, layer 0's attention gradients against the
                 plain backward on every row, a torch.profiler trace of one
                 step, three steps on one repeated batch (the loss falls);
+                then the scatter on its D-2,048 inputs and the fp32 flash
+                kernels at T 1,024, H 16, Hk 2, hd 128 are measured;
   5. a ``{"kernels": [...]}`` line: each kernel on the exact inputs the
      serve, train, prefill, MSE train and LM train paths fed it (and the
      bucketize kernel at the operator benchmark's shape too; the slab
      gather, which no path calls, at the operator benchmark's gather shape
-     and at D 128), against its
-     plain version, timed beside the plain version, one PyTorch library
-     call and the card's bound; the flash kernels also launched twice on
-     their path's inputs (bit-equal) and timed by profiler events.
+     and at D 128; the per-feature segment-sum pair, which no path calls
+     since each dim group pools at once, on feature 0's slice of the
+     group's inputs, and driven once at its op entry, counted as path
+     ``csr_op``), against its plain version, timed beside the plain
+     version, one PyTorch library call and the card's bound, and by
+     profiler events with a cold L2; the flash kernels also launched twice
+     on their path's inputs (bit-equal).
 
 Every check raises on failure, so the script exits non-zero. It prints one
 JSON object per line; the last is ``{"ok": true, "device": {...}}``.
@@ -162,6 +174,24 @@ SLAB_CASES = [
     ("d128", 4_096, 128, 640, 0, 600, 128, 512, torch.int32, False),
     ("unaligned", 4_096, 64, 1_000, 0, 4_096, 128, 512, torch.int64, True),
 ]
+# The scatter against its plain version: (R, D, K, id dtype, rows and table
+# 4 bytes off a 16-byte boundary, with a valid mask, share of valid slots).
+# Unique ids, some out of range; D 8 (the MSE step), 13 (the scalar path),
+# 128 (dlrm), 2,048 (qwen2.5-3b); 90% and all slots invalid; no mask; K not a
+# multiple of the kernel's 32-slot chunks, and below one chunk
+SCATTER_CASES = [
+    (100_000, 128, 30_000, torch.int32, False, True, 0.7), (5_000, 13, 1_000, torch.int64, False, True, 0.7),
+    (4_000, 128, 3_000, torch.int64, True, True, 0.7), (2_000, 64, 500, torch.int32, False, False, 0.7),
+    (50, 8, 0, torch.int32, False, True, 0.7), (2_000_000, 8, 1_048_573, torch.int32, False, True, 0.35),
+    (400_000, 128, 350_001, torch.int64, False, True, 0.1), (20_000, 2_048, 10_000, torch.int64, False, True, 0.5),
+    (3_000, 13, 2_999, torch.int32, True, True, 0.5), (10_000, 128, 8_000, torch.int32, False, True, 0.0),
+    (5_000, 16, 4_097, torch.int64, False, False, 1.0), (100, 8, 31, torch.int64, True, True, 0.9),
+]
+# The grouped segment sum and its gradient against their plain versions and
+# the per-feature kernels: (features, D, splits dtype, rows per feature).
+# 26 and 61 are the dlrm and MSE groups' sum features; 70 takes two launches.
+GROUP_CASES = [(1, 8, torch.int32, 300), (26, 128, torch.int32, 512), (61, 8, torch.int64, 700),
+               (3, 13, torch.int64, 200), (70, 16, torch.int32, 100)]
 # The slab gather at the operator benchmark's gather shape
 # (benchmarks/table1_operators.py:36-38: a 1,048,576 x 16 fp32 table, 200,000
 # ids), with its runs of 128 sorted ids inside one 512-row window, and at D 128
@@ -183,7 +213,9 @@ MSE_LATER_MOMENT_FRAC = 0.25    # the rows' moments after 3 steps, of their larg
 # the operator benchmark's bucketize (benchmarks/table1_operators.py:34-45):
 # 100 columns of 2,000 values, column widths 8-63
 OP_COLS, OP_VALS = 100, 2_000
-DLRM_TRAIN_KERNELS = ("fused_gather", "segment_reduce", "fused_scatter")
+DLRM_TRAIN_KERNELS = ("fused_gather.gather_rows", "segment_reduce.segment_sum_csr_group",
+                      "segment_reduce.segment_expand_csr_group", "fused_scatter.scatter_add_rows",
+                      "fused_scatter.scatter_set_rows")
 BUCKET_CASES = [  # column widths, N, value type
     ([17] * 20, 2_560, np.float32), ([1], 1_000, np.float32), ([1_000, 17, 1], 4_097, np.float32),
     ([3_000] * 5, 70_001, np.float32), ([17] * 20, 5_003, np.float64),
@@ -346,6 +378,8 @@ def main() -> None:
                 "fused_gather.gather_rows_slab": fg_ops.SLAB_LAUNCHES,
                 "segment_reduce.segment_sum": sr_ops.LAUNCHES,
                 "segment_reduce.segment_expand_csr": sr_ops.LAUNCHES_BWD,
+                "segment_reduce.segment_sum_csr_group": sr_ops.GROUP_LAUNCHES,
+                "segment_reduce.segment_expand_csr_group": sr_ops.GROUP_LAUNCHES_BWD,
                 "fused_scatter.scatter_add_rows": fs_ops.LAUNCHES_ADD,
                 "fused_scatter.scatter_set_rows": fs_ops.LAUNCHES_SET,
                 "flash_attention.flash_fwd": fa_ops.LAUNCHES,
@@ -356,6 +390,7 @@ def main() -> None:
 
     def reset_counts() -> None:
         fg_ops.LAUNCHES = fg_ops.SLAB_LAUNCHES = sr_ops.LAUNCHES = sr_ops.LAUNCHES_BWD = 0
+        sr_ops.GROUP_LAUNCHES = sr_ops.GROUP_LAUNCHES_BWD = 0
         fs_ops.LAUNCHES_ADD = fs_ops.LAUNCHES_SET = fa_ops.LAUNCHES = fa_ops.BWD_LAUNCHES = 0
         ft_ops.LAUNCHES = st_ops.LAUNCHES = st_ops.BWD_LAUNCHES = 0
 
@@ -466,20 +501,18 @@ def main() -> None:
                       "splits": str(sdt), "unaligned": misalign, "max_abs_err": err})
         check(torch.allclose(got.cpu(), want, rtol=1e-5, atol=1e-5),
               f"segment_sum_csr disagrees at {cases[-1]}")
-    for R, D, K, idt, misalign, with_valid in [(100_000, 128, 30_000, torch.int32, False, True),
-                                               (5_000, 13, 1_000, torch.int64, False, True),
-                                               (4_000, 128, 3_000, torch.int64, True, True),
-                                               (2_000, 64, 500, torch.int32, False, False),
-                                               (50, 8, 0, torch.int32, False, True)]:
+    for R, D, K, idt, misalign, with_valid, share in SCATTER_CASES:
         for op in ("add", "set"):
             stacked = torch.from_numpy(rng.normal(size=(2, R, D)).astype(np.float32)).to(dev)
             ids = torch.from_numpy(rng.permutation(R + 4)[:K] - 2).to(idt).to(dev)  # unique, some out of range
-            valid = torch.from_numpy(rng.random(K) < 0.7).to(dev)
+            valid = torch.from_numpy(rng.random(K) < share).to(dev)
             ids = torch.where(ids == 0, -1, ids)  # no live slot on row 0 ...
             if with_valid:  # ... only invalid ones, which must leave it as it is
                 ids[: K // 10] = torch.where(valid[: K // 10], ids[: K // 10], 0)
             rows = torch.from_numpy(rng.normal(size=(K, D)).astype(np.float32)).to(dev)
-            rows = unaligned(rows) if misalign else rows
+            if misalign:  # the rows and the table view off a 16-byte boundary: the scalar path
+                rows = unaligned(rows)
+                stacked = unaligned(stacked)
             v = valid if with_valid else None
             want = stacked[1].clone()
             (fs_ref.scatter_add_rows if op == "add" else fs_ref.scatter_set_rows)(want, ids, rows, v)
@@ -489,7 +522,7 @@ def main() -> None:
             torch.cuda.synchronize()
             launched = (fs_ops.LAUNCHES_ADD, fs_ops.LAUNCHES_SET) != before
             cases.append({"kernel": f"scatter_{op}_rows", "R": R, "D": D, "K": K, "ids": str(idt),
-                          "valid": with_valid, "unaligned_rows": misalign, "launched": launched,
+                          "valid": with_valid, "valid_share": share, "unaligned": misalign, "launched": launched,
                           "bit_equal": bool(torch.equal(stacked[1], want))})
             check(torch.equal(stacked[1], want) and torch.equal(stacked[0], other),
                   f"scatter disagrees at {cases[-1]}")
@@ -511,6 +544,48 @@ def main() -> None:
                       "splits": str(sdt), "g_row_stride": stride, "bit_equal": bool(torch.equal(got.cpu(), want))})
         check(torch.equal(got.cpu(), want), f"segment_expand_csr disagrees at {cases[-1]}")
         check(sr_ops.LAUNCHES_BWD == before + 1, "segment_expand_csr did not launch")
+    for n_feat, D, sdt, n_rows in GROUP_CASES:
+        # a group's rows: each feature's slice (empty rows, a padding tail),
+        # the second feature's rows all empty, a feature pooled otherwise
+        # before the second and the last, rows past the last slice
+        offsets, splits, sizes, ofs = [], [], [], 0
+        for f in range(n_feat):
+            ofs += 37 if f in (1, n_feat - 1) and n_feat > 1 else 0
+            lengths = rng.integers(0, 4, size=n_rows)
+            lengths[::5] = 0
+            if f == 1:
+                lengths[:] = 0
+            budget = int(1.5 * n_rows)
+            splits.append(torch.from_numpy(np.minimum(np.concatenate([[0], np.cumsum(lengths)]),
+                                                      budget - 3)).to(sdt).to(dev))
+            offsets.append(ofs)
+            sizes.append(budget)
+            ofs += budget
+        vals = torch.from_numpy(rng.normal(size=(ofs + 11, D)).astype(np.float32)).to(dev)
+        n_launch = -(-n_feat // 64)
+        before = (sr_ops.GROUP_LAUNCHES, sr_ops.GROUP_LAUNCHES_BWD)
+        got = sr_ops.segment_sum_csr_group(vals, splits, offsets, sizes)
+        torch.cuda.synchronize()
+        fwd_launched = sr_ops.GROUP_LAUNCHES - before[0]
+        want = sr_ref.segment_sum_csr_group(vals, splits, offsets, sizes)
+        per_feature = [sr_ops.segment_sum_csr(vals[o:o + n], sp) for sp, o, n in zip(splits, offsets, sizes)]
+        err = max(float((a - b).abs().max()) if a.numel() else 0.0 for a, b in zip(got, want))
+        close = all(torch.allclose(a, b, rtol=1e-5, atol=1e-5) for a, b in zip(got, want))
+        same = all(torch.equal(a, b) for a, b in zip(got, per_feature))
+        grads = [torch.from_numpy(rng.normal(size=(n_rows, 3, D)).astype(np.float32)).to(dev)[:, 1] if f == 0
+                 else None if f == n_feat - 1 and n_feat > 1
+                 else torch.from_numpy(rng.normal(size=(n_rows, D)).astype(np.float32)).to(dev)
+                 for f in range(n_feat)]
+        got_g = sr_ops.segment_expand_csr_group(grads, splits, offsets, sizes, vals.shape[0], D)
+        torch.cuda.synchronize()
+        bwd_launched = sr_ops.GROUP_LAUNCHES_BWD - before[1]
+        want_g = sr_ref.segment_expand_csr_group(grads, splits, offsets, sizes, vals.shape[0], D)
+        cases.append({"kernel": "segment_sum_csr_group+segment_expand_csr_group", "features": n_feat, "D": D,
+                      "N": vals.shape[0], "rows_per_feature": n_rows, "splits": str(sdt),
+                      "launches": [fwd_launched, bwd_launched], "max_abs_err": err,
+                      "bit_equal_to_per_feature_kernel": same, "grad_bit_equal": bool(torch.equal(got_g, want_g))})
+        check(fwd_launched == n_launch and bwd_launched == n_launch, f"grouped launches at {cases[-1]}")
+        check(close and same and torch.equal(got_g, want_g), f"grouped segment sum disagrees at {cases[-1]}")
     tc_before = fa_ops.tensor_core_launches()
     n_bf16 = {"fwd": 0, "bwd": 0}
     for B, T, H, Hk, hd, dt, causal, layout in [(*c, "contiguous") for c in FLASH_CASES] + STRIDED_CASES + [
@@ -617,6 +692,8 @@ def main() -> None:
         "segment_sum_csr": "rtol=atol=1e-5 (summation order)",
         "scatter_add_rows": "bit-equal", "scatter_set_rows": "bit-equal",
         "segment_expand_csr": "bit-equal (a copy)",
+        "segment_sum_csr_group": "rtol=atol=1e-5 (summation order), bit-equal to the per-feature kernel",
+        "segment_expand_csr_group": "bit-equal (a copy)",
         "flash_fwd": "O: |got - want| <= rtol |want| + atol max|want| (o_err_over_tol <= 1), (rtol, atol) "
                      f"{FLASH_TOL[torch.float32]} fp32, {FLASH_TOL[torch.bfloat16]} bf16 (one rounding); "
                      f"LSE rtol=atol {LSE_TOL}; an unaligned q is refused",
@@ -781,8 +858,9 @@ def main() -> None:
     states["cuda"]["dense"].load_state_dict(states["cpu"]["dense"].state_dict())
     losses, per_step = [], {"fused_transform.fused_bucketize": 1, "sequence_tile.sequence_tile": mse.N_SEQ,
                             "sequence_tile.sequence_untile": mse.N_SEQ,
-                            "segment_reduce.segment_sum": mse.N_HASH + mse.N_BUCKET + 1,
-                            "segment_reduce.segment_expand_csr": mse.N_HASH + mse.N_BUCKET + 1,
+                            "segment_reduce.segment_sum": 0, "segment_reduce.segment_expand_csr": 0,
+                            "segment_reduce.segment_sum_csr_group": 1,  # the dim-8 group's 61 sum features
+                            "segment_reduce.segment_expand_csr_group": 1,
                             "fused_gather.gather_rows": 4, "fused_scatter.scatter_add_rows": 3}
     for s in seeds:
         arrays = mse.batch_arrays(mcells["cpu"].specs, mse.BATCH, seed=50_000 + s)
@@ -877,8 +955,10 @@ def main() -> None:
         return fn
 
     real = {"gather_rows": recorder(fg_ops, "gather_rows"),
-            "segment_sum_csr": recorder(sr_ops, "segment_sum_csr"),
-            "segment_expand_csr": recorder(sr_ops, "segment_expand_csr"),
+            "segment_sum_csr_group": recorder(sr_ops, "segment_sum_csr_group"),
+            "segment_expand_csr_group": recorder(sr_ops, "segment_expand_csr_group"),
+            "segment_sum_csr": sr_ops.segment_sum_csr,  # on no path: fed feature 0's slice of the group's
+            "segment_expand_csr": sr_ops.segment_expand_csr,  # inputs in phase 5, and driven at its op entry
             "scatter_add_rows": recorder(fs_ops, "scatter_add_rows", whole=True),
             "scatter_set_rows": recorder(fs_ops, "scatter_set_rows", whole=True),
             "flash_attention": recorder(fa_ops, "flash_attention")}
@@ -898,22 +978,26 @@ def main() -> None:
         if s >= N_WARMUP:
             lat_ms.append(start.elapsed_time(end))
             outs.append(out)
-    phase["name"] = "serve_bulk"
     torch.cuda.reset_peak_memory_stats()
     bulk_ms = []  # the first request at this size pays one-time costs; the second is warm
-    for _ in range(2):
+    for i in range(2):
+        # the kernels' inputs are recorded on the second request: the grouped
+        # segment sum's (the group's 3.5 GB of rows, kept as they are) would
+        # otherwise stay allocated through the second and raise its peak
+        phase["name"] = "serve_bulk" if i == 1 else None
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         bulk_out = bulk.step_fn(state, bulk_batch)
         end.record()
         end.synchronize()
         bulk_ms.append(start.elapsed_time(end))
-        phase["name"] = None
+    phase["name"] = None
     peak_bytes = torch.cuda.max_memory_allocated()
     launches = counts()
     n_req = N_WARMUP + N_P99_REQUESTS + 2
     check(launches["fused_gather.gather_rows"] == n_req, f"gather launches {launches}")
-    check(launches["segment_reduce.segment_sum"] == n_req * mcfg.n_sparse, f"segment_sum launches {launches}")
+    check(launches["segment_reduce.segment_sum_csr_group"] == n_req  # one dim group: its 26 features at once
+          and launches["segment_reduce.segment_sum"] == 0, f"segment_sum launches {launches}")
 
     for out, batch_size in [(o, p99.shape["batch"]) for o in outs] + [(bulk_out, bulk.shape["batch"])]:
         logits = out["logits"]
@@ -1011,13 +1095,13 @@ def main() -> None:
             del sample
     train_launches = counts()
     check(inserted[0] > 0, "step 1 inserted nothing")
-    check(all(v > 0 for k, v in train_launches.items()  # the slab gather is on no train path
-              if k.split(".")[0] in DLRM_TRAIN_KERNELS and k != "fused_gather.gather_rows_slab"),
+    check(all(train_launches[k] > 0 for k in DLRM_TRAIN_KERNELS),
           f"a kernel of the train path never ran: {train_launches}")
     check(train_launches["fused_gather.gather_rows"] == 4 * n_steps
           and train_launches["fused_scatter.scatter_add_rows"] == 3 * n_steps
-          and train_launches["segment_reduce.segment_sum"] == mcfg.n_sparse * n_steps
-          and train_launches["segment_reduce.segment_expand_csr"] == mcfg.n_sparse * n_steps,
+          and train_launches["segment_reduce.segment_sum_csr_group"] == n_steps  # one dim group
+          and train_launches["segment_reduce.segment_expand_csr_group"] == n_steps
+          and train_launches["segment_reduce.segment_sum"] == train_launches["segment_reduce.segment_expand_csr"] == 0,
           f"train launches {train_launches}")
     tstate_bytes = sum(t.numel() * t.element_size() for t in _tensors(tstate["sparse"]))
 
@@ -1159,10 +1243,34 @@ def main() -> None:
 
     # ------------- 5 kernels on the serve, train and prefill inputs, measured
     # here so that what those paths held is released before the LM train
+    # The per-feature segment-sum pair is on no path now (every path pools a
+    # dim group at once): it is measured on feature 0's slice of the group's
+    # recorded inputs, the shapes it had on the paths, and driven once
+    # through its op entry at the train shape, counted (path "csr_op").
+    for path in ("serve_p99", "serve_bulk", "train"):
+        vals, sps, offs, sizes = recorded[("segment_sum_csr_group", path)][0]
+        recorded[("segment_sum_csr", path)] = ([vals[offs[0]:offs[0] + sizes[0]], sps[0]], {})
+    grads, sps, offs, sizes, _, _ = recorded[("segment_expand_csr_group", "train")][0]
+    recorded[("segment_expand_csr", "train")] = ([grads[0], sps[0], sizes[0]], {})
+    leaf = recorded[("segment_sum_csr", "train")][0][0].clone().requires_grad_()
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.autograd.grad(sr_ops.segment_sum_csr(leaf, sps[0]), leaf, grads[0])
+    torch.cuda.synchronize()
+    csr_launches = counts()
+    check(csr_launches["segment_reduce.segment_sum"] == csr_launches["segment_reduce.segment_expand_csr"] == 1
+          and sum(csr_launches.values()) == 2, f"segment_sum_csr op launches {csr_launches}")
+    del leaf, vals, sps, offs, sizes, grads
     kernels_on_path = [  # (entry, wrapper, source, TPU kernel replaced, plain, paths, library call)
         ("fused_gather.gather_rows", "gather_rows", "fused_gather.cu",
          "src/repro/kernels/fused_gather/fused_gather.py:34", fg_ref.gather_rows,
          ("serve_p99", "serve_bulk", "train", "prefill"), "torch.index_select"),
+        ("segment_reduce.segment_sum_csr_group", "segment_sum_csr_group", "segment_reduce.cu",
+         "src/repro/kernels/segment_reduce/segment_reduce.py:87", sr_ref.segment_sum_csr_group,
+         ("train", "serve_p99", "serve_bulk"), "zeros.index_add_ over the group's rows (segment ids prebuilt)"),
+        ("segment_reduce.segment_expand_csr_group", "segment_expand_csr_group", "segment_reduce.cu",
+         "src/repro/kernels/segment_reduce/ops.py:77", sr_ref.segment_expand_csr_group,
+         ("train",), "torch.index_select of the gradients (concatenated, a zero row appended, prebuilt)"),
         ("segment_reduce.segment_sum", "segment_sum_csr", "segment_reduce.cu",
          "src/repro/kernels/segment_reduce/segment_reduce.py:87", sr_ref.segment_sum_csr,
          ("serve_p99", "serve_bulk", "train"), "zeros.index_add_"),
@@ -1185,16 +1293,21 @@ def main() -> None:
             del args
             torch.cuda.empty_cache()
         main_path = at[paths[0]]
-        by_path = {"serve": launches[full], "train": train_launches[full], "prefill": prefill_launches[full]}
+        by_path = {"serve": launches[full], "train": train_launches[full], "prefill": prefill_launches[full],
+                   "csr_op": csr_launches[full]}
         entries.append({
             "name": full, "route": "cuda", "source": f"src/repro_torch/csrc/{src_file}",
             "replaces": replaces, "ok": True, "launches": sum(by_path.values()),
-            "launches_by_path": by_path, "main_path": paths[0],
-            "max_abs_err": max(a["max_abs_err"] for a in at.values()),
+            "launches_by_path": by_path, "main_path": "csr_op" if kname in ("segment_sum_csr", "segment_expand_csr")
+            else paths[0], "max_abs_err": max(a["max_abs_err"] for a in at.values()),
             "max_err": max(a["max_abs_err"] for a in at.values()),
             "ms": main_path["ms"], "kernel_ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
             "bound_ms": main_path["bound_ms"], "bound_by": main_path["bound_by"],
+            "kernel_device_ms": main_path["kernel_device_ms"],
             "library_ms": main_path["library_ms"], "library_call": lib_call, "at": at})
+        if kname in ("segment_sum_csr", "segment_expand_csr"):
+            entries[-1]["main_path_note"] = ("on no path since the dim group pools at once: driven at its op entry; "
+                                             "timed on feature 0's slice of the group's recorded inputs")
     flash_at = {"prefill": _measure_flash(real["flash_attention"], fa_ops.flash_fwd, fa_ref,
                                           *recorded.pop(("flash_attention", "prefill"))[0])}
     check(not recorded, f"recorded inputs left unmeasured: {list(recorded)}")
@@ -1228,8 +1341,12 @@ def main() -> None:
     mstate_bytes = sum(t.numel() * t.element_size() for t in _tensors(mstate["sparse"]))
     torch.cuda.synchronize()
     mbase = torch.cuda.memory_allocated()
-    for fn_name, mod in (("fused_bucketize", ft_ops), ("sequence_tile", st_ops), ("sequence_untile", st_ops)):
-        real[fn_name] = recorder(mod, fn_name)
+    mse_recorded = (("fused_bucketize", ft_ops, False), ("sequence_tile", st_ops, False),
+                    ("sequence_untile", st_ops, False), ("segment_sum_csr_group", sr_ops, False),
+                    ("segment_expand_csr_group", sr_ops, False), ("scatter_add_rows", fs_ops, True),
+                    ("scatter_set_rows", fs_ops, True))
+    for fn_name, mod, whole in mse_recorded:
+        real[fn_name] = recorder(mod, fn_name, whole)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     mstep_ms, mlosses, mlive, movf = [], [], [], {}
@@ -1254,12 +1371,12 @@ def main() -> None:
         if s == N_TRAIN_WARMUP - 2:  # steps 1-2: before the probe step's recorded copies
             mse_peak = torch.cuda.max_memory_allocated()
     mse_launches = counts()
-    for fn_name, mod in (("fused_bucketize", ft_ops), ("sequence_tile", st_ops), ("sequence_untile", st_ops)):
+    for fn_name, mod, _ in mse_recorded:
         setattr(mod, fn_name, real[fn_name])  # the wrappers record no more
-    n_cols = mse.N_HASH + mse.N_BUCKET + 1
     want_m = {"fused_gather.gather_rows": 4 * n_m, "fused_gather.gather_rows_slab": 0,
-              "segment_reduce.segment_sum": n_cols * n_m,
-              "segment_reduce.segment_expand_csr": n_cols * n_m, "fused_scatter.scatter_add_rows": 3 * n_m,
+              "segment_reduce.segment_sum": 0, "segment_reduce.segment_expand_csr": 0,
+              "segment_reduce.segment_sum_csr_group": n_m,  # the dim-8 group's 61 sum features at once
+              "segment_reduce.segment_expand_csr_group": n_m, "fused_scatter.scatter_add_rows": 3 * n_m,
               "fused_scatter.scatter_set_rows": 3 * n_m, "flash_attention.flash_fwd": 0,
               "flash_attention.flash_bwd": 0, "fused_transform.fused_bucketize": n_m,
               "sequence_tile.sequence_tile": mse.N_SEQ * n_m, "sequence_tile.sequence_untile": mse.N_SEQ * n_m}
@@ -1341,13 +1458,25 @@ def main() -> None:
          "torch.index_select of g (a zero row appended) at each value position's slot",
          {"mse_train": recorded.pop(("sequence_untile", "mse_train"))[0]}),
     ]
+    by_name = {e["name"]: e for e in entries}
+    # the grouped pair at the MSE group (61 sum features, D 8) and the
+    # scatter at D 8 (SparseAdam's adds over K = R = MSE_BUDGET slots)
+    for full, kname, plain in (
+            ("segment_reduce.segment_sum_csr_group", "segment_sum_csr_group", sr_ref.segment_sum_csr_group),
+            ("segment_reduce.segment_expand_csr_group", "segment_expand_csr_group", sr_ref.segment_expand_csr_group),
+            ("fused_scatter.scatter_add_rows", "scatter_add_rows", fs_ref.scatter_add_rows),
+            ("fused_scatter.scatter_set_rows", "scatter_set_rows", fs_ref.scatter_set_rows)):
+        args, kw = recorded.pop((kname, "mse_train"))
+        _add_path(by_name[full], "mse_train", _measure(kname, real[kname], plain, args, kw, 20, dev))
+        del args
+        torch.cuda.empty_cache()
     for e in entries:  # the earlier kernels' launches on the MSE path
         e["launches_by_path"]["mse_train"] = mse_launches[e["name"]]
     for full, kname, plain, lib_call, inputs in mse_kernels:
         at = {path: _measure_mse_kernel(kname, real[kname], plain, args) for path, args in inputs.items()}
         main_at = at["mse_train"]
         by_path = {"serve": launches[full], "train": train_launches[full], "prefill": prefill_launches[full],
-                   "mse_train": mse_launches[full]}
+                   "csr_op": csr_launches[full], "mse_train": mse_launches[full]}
         entries.append({
             "name": full, "route": "cuda", "source": f"src/repro_torch/csrc/{full.split('.')[0]}.cu",
             "replaces": ("src/repro/kernels/fused_transform/fused_transform.py:47" if kname == "fused_bucketize"
@@ -1355,7 +1484,7 @@ def main() -> None:
             "launches": sum(by_path.values()), "launches_by_path": by_path, "main_path": "mse_train",
             "max_abs_err": max(a["max_abs_err"] for a in at.values()),
             "max_err": max(a["max_abs_err"] for a in at.values()), "kernel_ms": main_at["ms"],
-            **{k: main_at[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **{k: main_at[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_device_ms")},
             "library_call": lib_call, "at": at})
         if kname == "sequence_untile":
             entries[-1]["replaces_note"] = ("the gradient of the sequence tile: the reference differentiates "
@@ -1417,9 +1546,9 @@ def main() -> None:
     resumed_err = max(abs(lb2[st] - la[st]) / abs(la[st]) for st in range(LOOP_RESUME_AT + 1, LOOP_STEPS + 1))
     first10 = float(np.mean([la[st] for st in range(1, 11)]))
     last10 = float(np.mean([la[st] for st in range(LOOP_STEPS - 9, LOOP_STEPS + 1)]))
-    n_cols = mse.N_HASH + mse.N_BUCKET + 1
-    every_step = {"fused_gather.gather_rows": 4, "segment_reduce.segment_sum": n_cols,
-                  "segment_reduce.segment_expand_csr": n_cols, "fused_scatter.scatter_add_rows": 3,
+    every_step = {"fused_gather.gather_rows": 4, "segment_reduce.segment_sum": 0,
+                  "segment_reduce.segment_expand_csr": 0, "segment_reduce.segment_sum_csr_group": 1,
+                  "segment_reduce.segment_expand_csr_group": 1, "fused_scatter.scatter_add_rows": 3,
                   "fused_transform.fused_bucketize": 1, "sequence_tile.sequence_tile": mse.N_SEQ,
                   "sequence_tile.sequence_untile": mse.N_SEQ}
     emit({"phase": "mse_loop", "model": "examples/train_mse.py main() (its settings: batch 128, --rows "
@@ -1466,7 +1595,8 @@ def main() -> None:
     del slab_ids
     for e in entries:  # the earlier kernels' launches on this slice's paths
         e["launches_by_path"].update(mse_loop=loop_launches[e["name"]], slab_op=slab_launches[e["name"]])
-    slab_by_path = {"serve": launches["fused_gather.gather_rows_slab"],
+    slab_by_path = {"csr_op": csr_launches["fused_gather.gather_rows_slab"],
+                    "serve": launches["fused_gather.gather_rows_slab"],
                     "train": train_launches["fused_gather.gather_rows_slab"],
                     "prefill": prefill_launches["fused_gather.gather_rows_slab"],
                     "mse_train": mse_launches["fused_gather.gather_rows_slab"],
@@ -1506,6 +1636,8 @@ def main() -> None:
         seen = torch.unique(torch.cat([seen, b.reshape(-1)]))
         lexpect_live.append(seen.numel())
     recorder(fa_ops, "flash_attention")  # layer 0's forward: the step's first call
+    for fn_name in ("scatter_add_rows", "scatter_set_rows"):  # D 2,048; the table (2.5 GB) kept as it is
+        real[fn_name] = recorder(fs_ops, fn_name)
 
     def record_last_bwd(*args, **kw):  # layer 0's backward: the step's last call
         if phase["name"]:
@@ -1540,10 +1672,12 @@ def main() -> None:
     lm_launches = counts()
     lm_tc = [a - b for a, b in zip(fa_ops.tensor_core_launches(), tc0)]
     fa_ops.flash_attention, fa_ops.flash_bwd = real["flash_attention"], real["flash_bwd"]
+    fs_ops.scatter_add_rows, fs_ops.scatter_set_rows = real["scatter_add_rows"], real["scatter_set_rows"]
     n_new = sum(1 for x in linserted if x > 0)
     want_launches = {"fused_gather.gather_rows": 4 * n_lm, "fused_gather.gather_rows_slab": 0,
-                     "segment_reduce.segment_sum": 0,
-                     "segment_reduce.segment_expand_csr": 0, "fused_scatter.scatter_add_rows": 3 * n_lm,
+                     "segment_reduce.segment_sum": 0, "segment_reduce.segment_expand_csr": 0,
+                     "segment_reduce.segment_sum_csr_group": 0, "segment_reduce.segment_expand_csr_group": 0,
+                     "fused_scatter.scatter_add_rows": 3 * n_lm,
                      "fused_scatter.scatter_set_rows": 3 * n_new,
                      "flash_attention.flash_fwd": 2 * L_lm * n_lm, "flash_attention.flash_bwd": L_lm * n_lm,
                      "fused_transform.fused_bucketize": 0, "sequence_tile.sequence_tile": 0,
@@ -1601,10 +1735,33 @@ def main() -> None:
                                           *recorded.pop(("flash_attention", "lm_train"))[0], path="lm_train")
     bwd = _measure_flash_bwd(real["flash_bwd"], fa_ref, *bargs)
     del bargs
+    by_name = {e["name"]: e for e in entries}
+    for full, kname, plain in (("fused_scatter.scatter_add_rows", "scatter_add_rows", fs_ref.scatter_add_rows),
+                               ("fused_scatter.scatter_set_rows", "scatter_set_rows", fs_ref.scatter_set_rows)):
+        if (kname, "lm_train") in recorded:  # the set runs on a step that inserts rows
+            args, kw = recorded.pop((kname, "lm_train"))
+            _add_path(by_name[full], "lm_train", _measure(kname, real[kname], plain, args, kw, 20, dev))
+            del args
+            torch.cuda.empty_cache()
+    # row 7b: the fp32 flash kernels (FMA) at one of phase 2's shapes,
+    # against the plain formulas, timed beside fp32 SDPA
+    g32 = torch.Generator(device=dev).manual_seed(SEED)
+    q32, k32, v32, do32 = (torch.randn((1, 1_024, n, 128), generator=g32, device=dev) for n in (16, 2, 2, 16))
+    flash_at["fp32"] = _measure_flash(real["flash_attention"], fa_ops.flash_fwd, fa_ref, q32, k32, v32, path="fp32")
+    o32, lse32 = fa_ops.flash_fwd(q32, k32, v32)
+    fp32_bargs = (q32, k32, v32, o32, lse32, do32)
+    fp32_bwd = flash_bwd_readings(real["flash_bwd"](*fp32_bargs), fa_ref.flash_bwd(*fp32_bargs), torch.float32)
+    check(max(fp32_bwd[f"{n}_err_over_tol"] for n in GRAD_NAMES) <= 1.0, f"fp32 flash_bwd {fp32_bwd}")
+    bwd_fp32 = _measure_flash_bwd(real["flash_bwd"], fa_ref, *fp32_bargs, path="fp32")
+    bwd_fp32["at"]["fp32"].update(readings=fp32_bwd, **{k: bwd_fp32[k] for k in (
+        "ms", "kernel_device_ms", "kernel_device_ms_by_kernel", "plain_ms", "bound_ms", "bound_by", "bound_share",
+        "library_ms", "two_launches_bit_equal")})
+    del q32, k32, v32, do32, o32, lse32, fp32_bargs
     for e in entries:
         e["launches_by_path"]["lm_train"] = lm_launches[e["name"]]
         e["launches"] = sum(e["launches_by_path"].values())
-    fwd_by_path = {"mse_loop": loop_launches["flash_attention.flash_fwd"],
+    fwd_by_path = {"csr_op": csr_launches["flash_attention.flash_fwd"],
+                   "mse_loop": loop_launches["flash_attention.flash_fwd"],
                    "slab_op": slab_launches["flash_attention.flash_fwd"],
                    "serve": launches["flash_attention.flash_fwd"],
                    "train": train_launches["flash_attention.flash_fwd"],
@@ -1621,7 +1778,8 @@ def main() -> None:
                                               "bound_share", "library_ms")},
         "library_call": "F.scaled_dot_product_attention(is_causal=True), kv expanded", "at": flash_at,
         "bf16_route": "tensor cores (wgmma, TMA)", **flash_build["flash_attention.flash_fwd"]})
-    bwd_by_path = {"mse_loop": loop_launches["flash_attention.flash_bwd"],
+    bwd_by_path = {"csr_op": csr_launches["flash_attention.flash_bwd"],
+                   "mse_loop": loop_launches["flash_attention.flash_bwd"],
                    "slab_op": slab_launches["flash_attention.flash_bwd"],
                    "serve": launches["flash_attention.flash_bwd"],
                    "train": train_launches["flash_attention.flash_bwd"],
@@ -1636,15 +1794,27 @@ def main() -> None:
         "max_err": max(lm_layer0[f"{n}_max_abs_err"] for n in GRAD_NAMES), "kernel_ms": bwd["ms"],
         "library_call": "torch.autograd.grad of F.scaled_dot_product_attention(is_causal=True), kv expanded",
         **bwd, "bf16_route": "tensor cores (wgmma, TMA)", **flash_build["flash_attention.flash_bwd"]})
+    entries[-1]["at"]["fp32"] = bwd_fp32["at"]["fp32"]
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
 
 
+# the CUDA kernel each wrapper launches, by the name the profiler gives it
+KERNEL_NAMES = {"gather_rows": "gather_rows_kernel", "segment_sum_csr": "segment_sum_sorted_kernel",
+                "segment_expand_csr": "segment_expand_csr_kernel", "scatter_add_rows": "scatter_rows_kernel",
+                "scatter_set_rows": "scatter_rows_kernel", "segment_sum_csr_group": "segment_sum_group_kernel",
+                "segment_expand_csr_group": "segment_expand_group_kernel"}
+
+
 def _measure(kname: str, real, plain, args: list, kw: dict, iters: int, dev) -> dict:
     """One kernel on one recorded input: checked against its plain version
-    (bit-equal, or rtol = atol = 1e-5 for the sum), then timed beside the
-    plain version and one PyTorch library call, with the card's bound."""
+    (bit-equal, or rtol = atol = 1e-5 for the sums, the grouped sum also
+    bit-equal to the per-feature kernel), then timed beside the plain
+    version and one PyTorch library call, with the card's bound and the
+    kernel's device time with a cold L2."""
     n_ops = 0.0
+    if kname.endswith("_group"):
+        return _measure_group(kname, real, plain, args, iters, dev)
     if kname.startswith("scatter"):  # in place: kernel and plain version on copies
         table, ids, rows = args[:3]
         valid = args[3] if len(args) > 3 else None
@@ -1661,7 +1831,9 @@ def _measure(kname: str, real, plain, args: list, kw: dict, iters: int, dev) -> 
         add = kname == "scatter_add_rows"
         n_bytes = n_live * D * 4 * (3 if add else 2) + K * (ids.element_size() + (valid is not None))
         n_ops = float(n_live * D) if add else 0.0
-        shape = {"R": table.shape[0], "D": D, "K": K, "live_slots": n_live}
+        where = torch.nonzero(live).squeeze(1)  # where the live slots lie (scripts/scatter_ab.py lays them out so)
+        shape = {"R": table.shape[0], "D": D, "K": K, "live_slots": n_live, "ids": str(ids.dtype),
+                 "first_live": int(where[0]) if n_live else 0, "last_live": int(where[-1]) if n_live else -1}
         lib = (lambda: mine.index_add_(0, idx, live_rows)) if add else (lambda: mine.index_copy_(0, idx, live_rows))
         run_kernel = lambda: real(mine, ids, rows, valid)
         run_plain = lambda: plain(mine, ids, rows, valid)
@@ -1709,7 +1881,80 @@ def _measure(kname: str, real, plain, args: list, kw: dict, iters: int, dev) -> 
     p_ms = time_ms(run_plain, iters)
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     return {"shape": shape, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes}
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+            "kernel_device_ms": kernel_device_ms(run_kernel, KERNEL_NAMES[kname])}
+
+
+def _measure_group(kname: str, real, plain, args: list, iters: int, dev) -> dict:
+    """The grouped segment sum or its gradient on one recorded input (a dim
+    group's rows and its features' splits, slices and gradients): held to
+    its plain version (the forward within rtol = atol = 1e-5 and bit-equal
+    to the per-feature kernel on each slice, the gradient bit-equal), then
+    timed beside the plain version and one library call on segment ids
+    prebuilt for the group's rows (feature f's segment s is row base_f + s
+    of one output; rows no segment covers go to a spare row), with the
+    card's bound and the kernel's device time with a cold L2."""
+    from repro_torch.kernels.segment_reduce import ops as sr_ops
+
+    fwd = kname == "segment_sum_csr_group"
+    if fwd:
+        vals, sps, offs, sizes = args
+        (N, D), grads = vals.shape, None
+    else:
+        grads, sps, offs, sizes, N, D = args
+    got, want = real(*args), plain(*args)
+    torch.cuda.synchronize()
+    if fwd:
+        ok = all(torch.allclose(a, b, rtol=1e-5, atol=1e-5) for a, b in zip(got, want))
+        err = max((float((a - b).abs().max()) for a, b in zip(got, want) if a.numel()), default=0.0)
+        ok = ok and all(torch.equal(a, sr_ops.segment_sum_csr(vals[o:o + n], sp))
+                        for a, sp, o, n in zip(got, sps, offs, sizes))
+    else:
+        ok = torch.equal(got, want)
+        err = 0.0 if ok else float("inf")
+    del got, want
+    n_seg = [sp.numel() - 1 for sp in sps]
+    base = [0, *np.cumsum(n_seg).tolist()]
+    spare = base[-1]
+    idx = torch.full((N,), spare, dtype=torch.int64, device=dev)
+    live = 0
+    for f, (sp, o, n) in enumerate(zip(sps, offs, sizes)):
+        if grads is not None and grads[f] is None:
+            continue
+        pos = torch.arange(n, dtype=sp.dtype, device=dev)
+        inside = (pos >= sp[0]) & (pos < sp[-1])
+        seg = torch.searchsorted(sp, pos, right=True).long() - 1 + base[f]
+        idx[o:o + n] = torch.where(inside, seg, spare)
+        live += int(inside.sum())
+    splits_bytes = sum(sp.numel() * sp.element_size() for sp in sps)
+    shape = {"features": len(sps), "N": N, "D": D, "segments": spare}
+    if fwd:
+        n_bytes, n_ops = (live + spare) * D * 4 + splits_bytes, float(live * D)
+        shape["live_rows"] = live
+        lib = lambda: torch.zeros((spare + 1, D), device=dev).index_add_(0, idx, vals)  # noqa: E731
+    else:
+        n_given = sum(s for s, g in zip(n_seg, grads) if g is not None)
+        n_bytes, n_ops = (n_given + N) * D * 4 + splits_bytes, 0.0
+        shape.update(covered_rows=live, missing_gradients=sum(g is None for g in grads),
+                     g_row_strides=sorted({g.stride(0) for g in grads if g is not None}))
+        g_all = torch.cat([g if g is not None else torch.zeros((s, D), device=dev)
+                           for g, s in zip(grads, n_seg)] + [torch.zeros((1, D), device=dev)])
+        lib = lambda: torch.index_select(g_all, 0, idx)  # noqa: E731
+    check(ok, f"{kname} disagrees with its plain version on the recorded inputs {shape}")
+    run = lambda: real(*args)  # noqa: E731
+    lib_ms = time_ms(lib, iters)
+    k_ms = time_ms(run, iters)
+    p_ms = time_ms(lambda: plain(*args), max(3, iters // 10))
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    return {"shape": shape, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+            "kernel_device_ms": kernel_device_ms(run, KERNEL_NAMES[kname])}
+
+
+def _add_path(entry: dict, path: str, at: dict) -> None:
+    """A kernel entry's measurement on one more path's recorded inputs."""
+    entry["at"][path] = at
+    entry["max_abs_err"] = entry["max_err"] = max(entry["max_abs_err"], at["max_abs_err"])
 
 
 def _measure_mse_kernel(kname: str, real, plain, args: list, iters: int = 100) -> dict:
@@ -1858,7 +2103,7 @@ def _measure_flash(real, fwd, ref, q, k, v, path: str = "prefill") -> dict:
     n_ops = 4.0 * hd * H * B * T * (T + 1) / 2  # two products over the causal triangle
     # q, k, v read once; O (q's shape and type) and the fp32 LSE written once
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + B * H * T * 4
-    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S)
     return {"ms": k_ms, "kernel_device_ms": dev_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "bound_share": b_ms / (dev_ms or k_ms), "library_ms": lib_ms,
             "max_abs_err": err, "o_err_over_tol": excess, "two_launches_bit_equal": bit_equal,
@@ -1867,7 +2112,7 @@ def _measure_flash(real, fwd, ref, q, k, v, path: str = "prefill") -> dict:
             "flops": n_ops, "bytes": n_bytes, "tflops_per_s": n_ops / (dev_ms or k_ms) / 1e9}
 
 
-def _measure_flash_bwd(real, ref, q, k, v, o, lse, do, causal: bool = True) -> dict:
+def _measure_flash_bwd(real, ref, q, k, v, o, lse, do, causal: bool = True, path: str = "lm_train") -> dict:
     """The backward kernel on layer 0's recorded train inputs (checked by the
     caller): two launches bit-equal, timed beside its plain version and the
     backward of scaled_dot_product_attention on the same q, expanded k, v and
@@ -1878,7 +2123,7 @@ def _measure_flash_bwd(real, ref, q, k, v, o, lse, do, causal: bool = True) -> d
     B, T, H, hd = q.shape
     g1, g2 = real(q, k, v, o, lse, do, causal), real(q, k, v, o, lse, do, causal)
     bit_equal = all(bool(torch.equal(a, b)) for a, b in zip(g1, g2))
-    check(bit_equal, "flash_bwd on the LM train inputs: two launches differ")
+    check(bit_equal, f"flash_bwd on the {path} inputs: two launches differ")
     del g1, g2
     qt, ke, ve = (x.transpose(1, 2).detach().requires_grad_() for x in
                   (q, ref.expand_kv(k, H // k.shape[2]), ref.expand_kv(v, H // k.shape[2])))
@@ -1894,11 +2139,11 @@ def _measure_flash_bwd(real, ref, q, k, v, o, lse, do, causal: bool = True) -> d
     n_ops = 5.0 * hd * H * B * T * (T + 1)  # five products over the causal triangle
     # q, k, v, O, dO and the fp32 LSE read once; dQ, dK, dV written once
     n_bytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + B * H * T * 4
-    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S)
     return {"ms": k_ms, "kernel_device_ms": dev_ms, "kernel_device_ms_by_kernel": parts, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / (dev_ms or k_ms), "library_ms": lib_ms,
             "two_launches_bit_equal": bit_equal,
-            "at": {"lm_train": {"shape": {"B": B, "T": T, "H": H, "Hk": k.shape[2], "hd": hd,
+            "at": {path: {"shape": {"B": B, "T": T, "H": H, "Hk": k.shape[2], "hd": hd,
                                           "dtype": str(q.dtype), "causal": causal},
                                 "flops": n_ops, "bytes": n_bytes,
                                 "tflops_per_s": n_ops / (dev_ms or k_ms) / 1e9}}}
@@ -1968,10 +2213,15 @@ def profile_requests(cell_name: str, run, batches) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     n = len(batches)
     measured = bool(kern)
+    # the fp32 adds and fills (autograd's accumulation of slice gradients among them)
+    totals = {k: sum(e.time_range.end - e.time_range.start for e in kern if part in e.name) / 1e3 / n
+              for k, part in (("fp32_add", "CUDAFunctor_add<float>"), ("fp32_fill", "FillFunctor<float>"))}
     return {"phase": f"{cell_name}_profile", "requests": n, "wall_ms_per_request": wall_ms / n,
             "device_busy_ms_per_request": busy_us / 1e3 / n if measured else None,
             "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms if measured else None,
             "device_events_per_request": len(kern) / n if measured else None,
+            "fp32_add_ms_per_request": totals["fp32_add"] if measured else None,
+            "fp32_fill_ms_per_request": totals["fp32_fill"] if measured else None,
             "top_device_ms_per_request": {k: v / 1e3 / n for k, v in top} if measured else None}
 
 

@@ -7,8 +7,9 @@
   * Request merging: one exchange per dim-group for all its features.
   * Two-tier storage per device: IDMap + Blocks, with a leading device axis
     ``[D, ...]`` on every state tensor, as the reference lays it out.
-  * Pooling per feature through the segment-sum kernel (sum, mean) and the
-    sequence-tile kernel (none, tile).
+  * Pooling: every sum and mean feature of a dim group in one grouped
+    segment-sum launch (its gradient one launch too); none and tile per
+    feature through the sequence-tile kernel.
   * Backward update: SparseAdam on the rows the forward fetched, in place.
 """
 from __future__ import annotations
@@ -143,16 +144,29 @@ class EmbeddingEngine:
     def activations(self, rows_r: Mapping[str, torch.Tensor],
                     plans: Mapping[str, exchange.Plan],
                     ids_by_feature: Mapping[str, Ragged]) -> dict[str, torch.Tensor]:
-        """rows_r → per-feature pooled activations."""
+        """rows_r → per-feature pooled activations. The group's sum and mean
+        features pool in one grouped segment sum over the routed rows (one
+        launch each way, one use of ``vals`` for autograd); the other
+        poolings take their feature's slice through ``_pool``."""
         out = {}
         for key, g in self.groups.items():
             vals = exchange.route_rows(rows_r[key], plans[key], g.exchange)
-            ofs = 0
+            spans, ofs = [], 0
             for s in g.features:
+                n = ids_by_feature[s.name].nnz_budget
+                spans.append((ofs, n))
+                ofs += n
+            summed = [i for i, s in enumerate(g.features) if s.pooling in ("sum", "mean")]
+            pooled = dict(zip(summed, sr_ops.segment_sum_csr_group(
+                vals, [ids_by_feature[g.features[i].name].row_splits for i in summed],
+                [spans[i][0] for i in summed], [spans[i][1] for i in summed])))
+            for i, s in enumerate(g.features):
                 r = ids_by_feature[s.name]
-                rows = vals[ofs: ofs + r.nnz_budget]
-                ofs += r.nnz_budget
-                out[s.name] = _pool(rows, r, s)
+                if i in pooled:
+                    out[s.name] = _mean(pooled[i], r) if s.pooling == "mean" else pooled[i]
+                else:
+                    o, n = spans[i]
+                    out[s.name] = _pool(vals[o:o + n], r, s)
         return out
 
     # ----------------------------------------------------------------- update
@@ -240,6 +254,11 @@ def _stack_blocks(blks: list[blocks_lib.Blocks]) -> blocks_lib.Blocks:
                              slots={k: _stack([b.slots[k] for b in blks]) for k in blks[0].slots})
 
 
+def _mean(pooled: torch.Tensor, r: Ragged) -> torch.Tensor:
+    """Sums over the row lengths clamped to at least 1."""
+    return pooled / r.row_lengths().to(pooled.dtype).clamp(min=1.0)[:, None]
+
+
 def _pool(rows: torch.Tensor, r: Ragged, s: FeatureSpec) -> torch.Tensor:
     """Per-feature pooling of per-value rows: sum / mean → (n_rows, dim);
     none → (n_rows, max_len, dim); tile → (n_rows, tile_k * dim); values →
@@ -250,10 +269,7 @@ def _pool(rows: torch.Tensor, r: Ragged, s: FeatureSpec) -> torch.Tensor:
         return rows
     if s.pooling in ("sum", "mean"):
         pooled = sr_ops.segment_sum_csr(rows, r.row_splits)
-        if s.pooling == "mean":
-            cnt = r.row_lengths().to(rows.dtype).clamp(min=1.0)
-            pooled = pooled / cnt[:, None]
-        return pooled
+        return _mean(pooled, r) if s.pooling == "mean" else pooled
     if s.pooling == "none":
         if s.max_len is None:
             raise ValueError(f"{s.name}: sequence pooling needs max_len")

@@ -35,6 +35,8 @@ _SIGNATURES = {
     "repro_gather_rows_slab": [_P, _P, _INT, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "repro_segment_sum_sorted": [_P, _P, _INT, _P, _I64, _I64, _I64, _P],
     "repro_segment_expand_csr": [_P, _I64, _P, _INT, _P, _I64, _I64, _I64, _P],
+    "repro_segment_sum_csr_group": [_P, _I64, _I64, _P, _INT, _P],
+    "repro_segment_expand_csr_group": [_P, _I64, _I64, _I64, _I64, _P, _INT, _P],
     "repro_scatter_rows": [_P, _P, _INT, _P, _P, _I64, _I64, _I64, _INT, _P],
     "repro_flash_fwd": [_P, _P, _P, _P, _P, _INT, *[_I64] * 5, *[_I64] * 9, _F32, _INT, _P, _P],
     "repro_flash_bwd": [*[_P] * 12, _INT, *[_I64] * 5, *[_I64] * 15, _F32, _INT, _P, _P],

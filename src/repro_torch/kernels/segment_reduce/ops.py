@@ -7,8 +7,15 @@ Their gradient is the reference's VJP (``repro/kernels/segment_reduce/
 ops.py::_bwd``), a row broadcast ``dv[j] = g[seg(j)]`` that is zero where
 ``seg(j)`` is out of range: on the card the CSR form runs the
 ``segment_expand_csr`` kernel, the id form the row-gather kernel.
+
+``segment_sum_csr_group`` pools every sum-pooled feature of one embedding
+dim group from the group's rows in one launch, and its gradient is the
+gradient of the whole of ``values``, written in one launch: autograd sees
+one use of ``values`` per group, not one slice per feature.
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -17,6 +24,8 @@ from repro_torch.kernels.segment_reduce import ref, segment_reduce
 
 LAUNCHES = 0      # forward kernel launches since the last reset (read by chip_smoke.py)
 LAUNCHES_BWD = 0  # segment_expand_csr launches since the last reset
+GROUP_LAUNCHES = 0      # grouped forward launches: one per dim group (per chunk of 64 features)
+GROUP_LAUNCHES_BWD = 0  # grouped backward launches, likewise
 
 
 def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
@@ -39,6 +48,98 @@ def segment_sum_csr(values: torch.Tensor, row_splits: torch.Tensor) -> torch.Ten
     they are: no segment ids are built.
     """
     return _SegmentSumCSR.apply(values, row_splits)
+
+
+def segment_sum_csr_group(values: torch.Tensor, row_splits: Sequence[torch.Tensor],
+                          offsets: Sequence[int], sizes: Sequence[int]) -> tuple[torch.Tensor, ...]:
+    """``segment_sum_csr`` of several features' slices of one (N, D) fp32
+    ``values`` at once: output f is the sum pooling of values[offsets[f] :
+    offsets[f] + sizes[f]] by row_splits[f], (n_rows_f, D), bit-equal to
+    ``segment_sum_csr`` of that slice. The slices lie in order and do not
+    overlap (other rows, such as other poolings' features, may lie between
+    them). The outputs are row blocks of one buffer. Differentiable in
+    ``values`` as a whole: one launch writes the gradient of every row.
+    """
+    n = values.shape[0]
+    offsets = tuple(int(o) for o in offsets)
+    sizes = tuple(int(x) for x in sizes)
+    ends = [o + x for o, x in zip(offsets, sizes)]
+    if not (len(row_splits) == len(offsets) == len(sizes)) or any(x < 0 for x in sizes) \
+            or any(o < e for o, e in zip(offsets, [0] + ends[:-1])) or (ends and ends[-1] > n):
+        raise ValueError(f"segment_sum_csr_group: slices {list(zip(offsets, sizes))} of {n} rows must "
+                         f"be in order, inside the values and not overlap, one per row_splits")
+    if not row_splits:
+        return ()
+    return _SegmentSumCSRGroup.apply(values, offsets, sizes, *row_splits)
+
+
+def segment_expand_csr_group(grads: Sequence[torch.Tensor | None], row_splits: Sequence[torch.Tensor],
+                             offsets: Sequence[int], sizes: Sequence[int], n: int, d: int) -> torch.Tensor:
+    """Gradient of ``segment_sum_csr_group``: (n, d) fp32 whose slice of
+    feature f is ``segment_expand_csr(grads[f], row_splits[f], sizes[f])``
+    and whose other rows are zero; a ``None`` gradient is zero. Each
+    gradient's rows must be dense; their row stride may be larger than d."""
+    global GROUP_LAUNCHES_BWD
+    if not row_splits or all(t.device.type == "cpu" for t in (*row_splits, *(g for g in grads if g is not None))):
+        return ref.segment_expand_csr_group(grads, row_splits, offsets, sizes, n, d)
+    dev = row_splits[0].device
+    for g, sp in zip(grads, row_splits):
+        _check_splits(sp, "segment_expand_csr_group")
+        s = sp.shape[0] - 1
+        if sp.device != dev or (g is not None and (
+                g.device != dev or g.dtype != torch.float32 or g.shape != (s, d) or g.stride(1) != 1)):
+            got = None if g is None else (tuple(g.shape), g.dtype, g.stride(), g.device)
+            raise ValueError(f"segment_expand_csr_group: each gradient must be ({s}, {d}) float32 "
+                             f"with dense rows on {dev}, got {got}")
+    if dev.type != "cuda":
+        raise ValueError(f"segment_expand_csr_group: row_splits on {dev}")
+    out = torch.empty((n, d), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    m = segment_reduce.MAX_GROUP_FEATURES
+    for i in range(0, len(grads), m):  # each launch owns the rows up to the next chunk's first slice
+        j = i + m
+        segment_reduce.segment_expand_csr_group(grads[i:j], row_splits[i:j], offsets[i:j], sizes[i:j], out,
+                                                offsets[i] if i else 0, offsets[j] if j < len(grads) else n)
+        GROUP_LAUNCHES_BWD += 1
+    return out
+
+
+class _SegmentSumCSRGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, offsets, sizes, *row_splits):
+        ctx.set_materialize_grads(False)  # an unused output's gradient is None: its rows read zero
+        ctx.save_for_backward(*row_splits)
+        ctx.layout = (offsets, sizes, values.shape[0], values.shape[1])
+        return _segment_sum_csr_group(values, row_splits, offsets, sizes)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        offsets, sizes, n, d = ctx.layout
+        grads = [g if g is None or g.stride(-1) == 1 else g.contiguous() for g in grads]
+        dv = segment_expand_csr_group(grads, ctx.saved_tensors, offsets, sizes, n, d)
+        return (dv, None, None, *[None] * len(grads))
+
+
+def _segment_sum_csr_group(values, row_splits, offsets, sizes) -> tuple[torch.Tensor, ...]:
+    global GROUP_LAUNCHES
+    if all(t.device.type == "cpu" for t in (values, *row_splits)):
+        return ref.segment_sum_csr_group(values, row_splits, offsets, sizes)
+    _check_values(values, row_splits[0], "row_splits")
+    for sp in row_splits:
+        if sp.device != values.device:
+            raise ValueError(f"segment_sum_csr_group: values on {values.device}, row_splits on {sp.device}")
+        _check_splits(sp, "segment_sum_csr_group")
+    n_rows = [sp.shape[0] - 1 for sp in row_splits]  # the outputs: row blocks of one buffer
+    outs = torch.empty((sum(n_rows), values.shape[1]), dtype=torch.float32, device=values.device).split(n_rows)
+    if values.shape[1] == 0 or not any(n_rows):
+        return outs
+    m = segment_reduce.MAX_GROUP_FEATURES
+    for i in range(0, len(outs), m):
+        segment_reduce.segment_sum_csr_group(values, row_splits[i:i + m], offsets[i:i + m], sizes[i:i + m],
+                                             outs[i:i + m])
+        GROUP_LAUNCHES += 1
+    return outs
 
 
 class _SegmentSum(torch.autograd.Function):

@@ -42,6 +42,23 @@ def segment_expand_csr(g: torch.Tensor, row_splits: torch.Tensor, n: int) -> tor
     return segment_sum_bwd(g, seg, n_rows)
 
 
+def segment_sum_csr_group(values: torch.Tensor, row_splits, offsets, sizes) -> tuple[torch.Tensor, ...]:
+    """Per feature f, ``segment_sum_csr`` of its slice values[offsets[f] :
+    offsets[f] + sizes[f]] by row_splits[f]."""
+    return tuple(segment_sum_csr(values[o:o + n], sp) for sp, o, n in zip(row_splits, offsets, sizes))
+
+
+def segment_expand_csr_group(grads, row_splits, offsets, sizes, n: int, d: int) -> torch.Tensor:
+    """VJP of ``segment_sum_csr_group`` for n value rows of width d: each
+    feature's slice holds ``segment_expand_csr`` of its gradient, every
+    other row is zero (as is a feature's slice whose gradient is None)."""
+    out = torch.zeros((n, d), dtype=torch.float32, device=row_splits[0].device if row_splits else "cpu")
+    for g, sp, o, size in zip(grads, row_splits, offsets, sizes):
+        if g is not None:
+            out[o:o + size] = segment_expand_csr(g, sp, size)
+    return out
+
+
 def segment_mean(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     s = segment_sum(values, segment_ids, num_segments)
     cnt = segment_sum(values.new_ones((values.shape[0], 1)), segment_ids, num_segments)

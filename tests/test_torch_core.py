@@ -226,3 +226,42 @@ def test_pool_sequence_and_tile_equal(pooling, k, split_dtype):
     assert got.shape == want.shape
     assert torch.equal(got.detach(), _t(want)) and torch.equal(got_g, _t(want_g))
     assert got_g[int(splits[-1]):].abs().sum() == 0
+
+
+def test_activations_grouped_sum_equals_per_feature_pool(monkeypatch):
+    """``activations`` pools a dim group's sum and mean features with one
+    grouped segment sum over the routed rows; the pooled outputs and the
+    gradient of those rows equal the per-feature ``_pool`` path on the same
+    rows bit for bit, with none- and tile-pooled features among them (their
+    rows lie between the summed features' rows)."""
+    from repro_torch.io.ragged import Ragged
+
+    r = np.random.default_rng(21)
+    dim, n_rows = 8, 10
+    specs = [TSpec("a", emb_dim=dim), TSpec("s", emb_dim=dim, pooling="none", max_len=4),
+             TSpec("m", emb_dim=dim, pooling="mean"), TSpec("t", emb_dim=dim, pooling="tile", tile_k=2),
+             TSpec("b", emb_dim=dim), TSpec("e", emb_dim=dim, pooling="mean")]
+    engine = t_engine.EmbeddingEngine(specs, t_engine.EngineConfig(n_devices=1, recv_budget=256), "cpu")
+    ids, budget = {}, {"a": 30, "s": 25, "m": 18, "t": 22, "b": 30, "e": 12}
+    for s in specs:
+        lens = r.integers(0, 5, size=n_rows)
+        lens[::3] = 0
+        if s.name == "e":
+            lens[:] = 0  # every row empty: the mean divides by the clamped count
+        splits = np.minimum(np.concatenate([[0], np.cumsum(lens)]), budget[s.name] - 2).astype(np.int32)
+        ids[s.name] = Ragged(torch.zeros(budget[s.name], dtype=torch.int64), torch.from_numpy(splits))
+    vals = torch.from_numpy(r.normal(size=(sum(budget.values()), dim)).astype(np.float32)).requires_grad_()
+    monkeypatch.setattr(t_engine.exchange, "route_rows", lambda rows_r, plan, spec: vals)
+    got = engine.activations({"dim8": None}, {"dim8": None}, ids)
+    want, ofs = {}, 0
+    for s in specs:
+        n = budget[s.name]
+        want[s.name] = t_engine._pool(vals[ofs:ofs + n], ids[s.name], s)
+        ofs += n
+    assert list(got) == [s.name for s in specs]
+    gs = {k: torch.from_numpy(r.normal(size=tuple(w.shape)).astype(np.float32)) for k, w in want.items()}
+    (got_g,) = torch.autograd.grad([got[k] for k in gs], vals, list(gs.values()))
+    (want_g,) = torch.autograd.grad([want[k] for k in gs], vals, list(gs.values()))
+    for k in want:
+        assert torch.equal(got[k].detach(), want[k].detach()), k
+    assert torch.equal(got_g, want_g)

@@ -198,6 +198,103 @@ def test_scatter_kernel_without_valid_and_with_no_slots(cuda):
     assert torch.equal(table, want)
 
 
+# The scatter's cases: (R, D, K, share of valid slots, with a valid mask,
+# id dtype, table view 4 bytes off a 16-byte boundary). D 8 (the MSE step),
+# 13 (the scalar path), 128 (dlrm), 2,048 (qwen2.5-3b); 90% and all slots
+# invalid; no mask; K not a multiple of 32.
+SCATTER_CASES = [
+    (5000, 8, 4096, 0.35, True, torch.int32, False), (700, 13, 333, 0.7, True, torch.int64, False),
+    (40_000, 128, 30_017, 0.1, True, torch.int64, False), (3000, 2048, 1000, 0.5, True, torch.int32, False),
+    (2000, 128, 1000, 0.0, True, torch.int32, False), (900, 16, 777, 1.0, False, torch.int64, False),
+    (4000, 64, 3001, 0.7, True, torch.int32, True), (100, 8, 31, 0.9, True, torch.int64, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r_rows,d,k,share,with_valid,id_dtype,unaligned", SCATTER_CASES)
+@pytest.mark.parametrize("op", ["add", "set"])
+def test_scatter_kernel_cases_match_plain(cuda, r_rows, d, k, share, with_valid, id_dtype, unaligned, op):
+    """Unique ids, some out of range, through a view of a stacked table
+    (``unaligned``: a table 4 bytes off a 16-byte boundary, the scalar
+    path): bit-equal to the plain version, one launch, the other table
+    untouched."""
+    g = torch.Generator().manual_seed(r_rows + d + k)
+    buf = torch.randn((2 * r_rows * d + 1,), generator=g)
+    stacked = (buf[1:] if unaligned else buf[:-1]).view(2, r_rows, d)
+    ids = (torch.randperm(r_rows + 4, generator=g)[:k] - 2).to(id_dtype)
+    rows = torch.randn((k, d), generator=g)
+    valid = torch.rand(k, generator=g) < share if with_valid else None
+    want = stacked[1].clone()
+    (t_fs_ref.scatter_add_rows if op == "add" else t_fs_ref.scatter_set_rows)(want, ids, rows, valid)
+    dev_buf = buf.to(cuda)
+    dev = (dev_buf[1:] if unaligned else dev_buf[:-1]).view(2, r_rows, d)
+    assert (dev[1].data_ptr() % 16 != 0) == unaligned
+    fn = t_fs.scatter_add_rows if op == "add" else t_fs.scatter_set_rows
+    before = _launches()
+    fn(dev[1], ids.to(cuda), rows.to(cuda), None if valid is None else valid.to(cuda))
+    torch.cuda.synchronize()
+    assert _launches()[op] == before[op] + 1
+    assert torch.equal(dev[1].cpu(), want) and torch.equal(dev[0].cpu(), stacked[0])
+
+
+def _group_case(n_feat, d, split_dtype, seed):
+    """A dim group's rows: n_feat sum features (the third every row empty),
+    a non-sum feature's rows before the second and the last, padding tails."""
+    r = np.random.default_rng(seed)
+    offsets, splits, sizes, ofs = [], [], [], 0
+    for f in range(n_feat):
+        if f in (1, n_feat - 1) and n_feat > 1:
+            ofs += 17
+        n_rows, budget = int(r.integers(1, 300)), int(r.integers(300, 900))
+        lengths = r.integers(0, 4, size=n_rows)
+        lengths[::5] = 0
+        if f == 2:
+            lengths[:] = 0
+        sp = np.minimum(np.concatenate([[0], np.cumsum(lengths)]), budget - 1)
+        splits.append(torch.from_numpy(sp).to(split_dtype))
+        offsets.append(ofs)
+        sizes.append(budget)
+        ofs += budget
+    vals = torch.from_numpy(r.normal(size=(ofs + 5, d)).astype(np.float32))
+    return vals, splits, offsets, sizes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_feat", [1, 26, 61, 70])
+@pytest.mark.parametrize("d", [8, 13, 128])
+@pytest.mark.parametrize("split_dtype", [torch.int32, torch.int64])
+def test_segment_sum_csr_group_kernels_match_plain(cuda, n_feat, d, split_dtype):
+    """The grouped forward within 1e-5 of its plain version and bit-equal to
+    the per-feature kernel on each slice; its backward (a strided gradient,
+    a missing one) bit-equal to the plain version. One launch each way per
+    group of up to 64 features (two for 70)."""
+    vals, splits, offsets, sizes = _group_case(n_feat, d, split_dtype, seed=n_feat + d)
+    want = t_sr_ref.segment_sum_csr_group(vals, splits, offsets, sizes)
+    v = vals.to(cuda).requires_grad_()
+    sp = [x.to(cuda) for x in splits]
+    launches = -(-n_feat // 64)
+    before = (t_sr.GROUP_LAUNCHES, t_sr.GROUP_LAUNCHES_BWD)
+    outs = t_sr.segment_sum_csr_group(v, sp, offsets, sizes)
+    torch.cuda.synchronize()
+    assert t_sr.GROUP_LAUNCHES == before[0] + launches
+    for o, w, x, ofs, n in zip(outs, want, sp, offsets, sizes):
+        np.testing.assert_allclose(o.detach().cpu().numpy(), w.numpy(), rtol=1e-5, atol=1e-5)
+        assert torch.equal(o.detach(), t_sr.segment_sum_csr(v.detach()[ofs:ofs + n], x))
+    r = np.random.default_rng(d)
+    grads = [torch.from_numpy(r.normal(size=(x.shape[0] - 1, 3, d)).astype(np.float32)).to(cuda)[:, 1]
+             if f == 0 else None if f == n_feat - 1 and n_feat > 1
+             else torch.from_numpy(r.normal(size=(x.shape[0] - 1, d)).astype(np.float32)).to(cuda)
+             for f, x in enumerate(splits)]
+    assert grads[0].stride(0) == 3 * d  # read in place, as dlrm's stacked gradient columns
+    want_g = t_sr_ref.segment_expand_csr_group([None if x is None else x.cpu() for x in grads], splits,
+                                               offsets, sizes, vals.shape[0], d)
+    used = [f for f, x in enumerate(grads) if x is not None]
+    (got_g,) = torch.autograd.grad([outs[f] for f in used], v, [grads[f] for f in used])
+    torch.cuda.synchronize()
+    assert t_sr.GROUP_LAUNCHES_BWD == before[1] + launches
+    assert torch.equal(got_g.cpu(), want_g)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_rows,d,budget", [(1, 8, 4), (512, 128, 1024), (100, 13, 150), (300, 64, 300)])
 @pytest.mark.parametrize("split_dtype", [torch.int32, torch.int64])
@@ -324,7 +421,8 @@ def test_smoke_mse_train_card_matches_cpu(cuda):
     and the IDMap equal, the loss within 2e-2 (bf16 logits), rows within
     2 * 1e-2 * 3 and dense params within 2 * 1e-3 * 3 (Adam's sign flips,
     as in tests/test_torch_mse.py); one bucketize, four tile and four untile
-    launches and 61 segment sums a step."""
+    launches and one grouped segment sum each way a step (the dim-8 group's
+    61 sum features in one launch)."""
     from repro_torch.examples import train_mse as mse
 
     cells = {d: mse.MSECell(d) for d in ("cpu", cuda)}
@@ -332,13 +430,15 @@ def test_smoke_mse_train_card_matches_cpu(cuda):
     states[cuda]["dense"].load_state_dict(states["cpu"]["dense"].state_dict())
     for s in range(3):
         arrays = mse.batch_arrays(cells["cpu"].specs, mse.BATCH, seed=s)
-        before = (t_ft.LAUNCHES, t_st.LAUNCHES, t_st.BWD_LAUNCHES, t_sr.LAUNCHES)
+        before = (t_ft.LAUNCHES, t_st.LAUNCHES, t_st.BWD_LAUNCHES, t_sr.GROUP_LAUNCHES,
+                  t_sr.GROUP_LAUNCHES_BWD, t_sr.LAUNCHES, t_sr.LAUNCHES_BWD)
         outs = {}
         for d, c in cells.items():
             states[d], outs[d] = c.step_fn(states[d], mse.to_batch(arrays, d))
         torch.cuda.synchronize()
-        now = (t_ft.LAUNCHES, t_st.LAUNCHES, t_st.BWD_LAUNCHES, t_sr.LAUNCHES)
-        assert tuple(b - a for a, b in zip(before, now)) == (1, 4, 4, 61)
+        now = (t_ft.LAUNCHES, t_st.LAUNCHES, t_st.BWD_LAUNCHES, t_sr.GROUP_LAUNCHES,
+               t_sr.GROUP_LAUNCHES_BWD, t_sr.LAUNCHES, t_sr.LAUNCHES_BWD)
+        assert tuple(b - a for a, b in zip(before, now)) == (1, 4, 4, 1, 1, 0, 0)
         met = {d: {k: int(v) for k, v in o.items() if k != "loss"} for d, o in outs.items()}
         assert met[cuda] == met["cpu"]
         np.testing.assert_allclose(float(outs[cuda]["loss"]), float(outs["cpu"]["loss"]), atol=2e-2)
@@ -362,7 +462,7 @@ def test_smoke_train_cell_card_matches_cpu(cuda):
              for d in ("cpu", "cuda")}
     states = {d: c.init_state() for d, c in cells.items()}
     states["cuda"]["dense"].load_state_dict(states["cpu"]["dense"].state_dict())
-    counts = (t_fg.LAUNCHES, t_sr.LAUNCHES, t_sr.LAUNCHES_BWD, t_fs.LAUNCHES_ADD, t_fs.LAUNCHES_SET)
+    counts = (t_fg.LAUNCHES, t_sr.GROUP_LAUNCHES, t_sr.GROUP_LAUNCHES_BWD, t_fs.LAUNCHES_ADD, t_fs.LAUNCHES_SET)
     for s in range(3):
         outs = {}
         for d, c in cells.items():
@@ -370,7 +470,7 @@ def test_smoke_train_cell_card_matches_cpu(cuda):
         met = {d: {k: int(v) for k, v in o.items() if k != "loss"} for d, o in outs.items()}
         assert met["cuda"] == met["cpu"]
         np.testing.assert_allclose(float(outs["cuda"]["loss"]), float(outs["cpu"]["loss"]), atol=2e-2)
-    now = (t_fg.LAUNCHES, t_sr.LAUNCHES, t_sr.LAUNCHES_BWD, t_fs.LAUNCHES_ADD, t_fs.LAUNCHES_SET)
+    now = (t_fg.LAUNCHES, t_sr.GROUP_LAUNCHES, t_sr.GROUP_LAUNCHES_BWD, t_fs.LAUNCHES_ADD, t_fs.LAUNCHES_SET)
     assert all(b > a for a, b in zip(counts, now))
     rows = {d: c.engine.export_rows(states[d]["sparse"])["dim16"] for d, c in cells.items()}
     np.testing.assert_array_equal(rows["cuda"]["ids"], rows["cpu"]["ids"])

@@ -218,6 +218,81 @@ def test_segment_sum_csr_vjp_matches_pallas(n_rows, d, budget, split_dtype):
         t_sr.segment_expand_csr(wide[:, 1], torch.from_numpy(splits), budget).numpy(), np.asarray(want))
 
 
+def _group_inputs(n_feat, d, split_dtype, seed):
+    """One group's routed rows: n_feat sum features of 24 rows each (nnz
+    budget 60, empty rows, a padding tail), the second of them with every
+    row empty, and a non-sum feature's 20 rows after the first and before
+    the last sum feature; 7 rows past the last slice."""
+    r = np.random.default_rng(seed)
+    n_rows, budget = 24, 60
+    offsets, splits, ofs = [], [], 0
+    for f in range(n_feat):
+        if f in (1, n_feat - 1) and n_feat > 1:
+            ofs += 20  # the rows of a feature pooled otherwise
+        lengths = r.integers(0, 5, size=n_rows)
+        lengths[::4] = 0
+        if f == 1:
+            lengths[:] = 0
+        sp = np.minimum(np.concatenate([[0], np.cumsum(lengths)]), budget - 3).astype(split_dtype)
+        offsets.append(ofs)
+        splits.append(sp)
+        ofs += budget
+    vals = r.normal(size=(ofs + 7, d)).astype(np.float32)
+    return vals, splits, offsets, [budget] * n_feat
+
+
+@pytest.mark.parametrize("n_feat", [1, 3, 26])
+@pytest.mark.parametrize("d", [8, 13, 128])
+@pytest.mark.parametrize("split_dtype", [np.int32, np.int64])
+def test_segment_sum_csr_group_plain_matches_pallas(n_feat, d, split_dtype):
+    """The grouped sum (its plain version) against the Pallas segment_sum
+    run per feature on slices of one ``vals``, within 1e-5; its gradient of
+    the whole ``vals`` bit-equal to jax.vjp of the concatenated per-feature
+    sums: zero on the other feature's rows, the padding tails and the rows
+    of a feature whose gradient is missing (None), the first feature's
+    gradient a strided column of a wider one."""
+    vals, splits, offsets, sizes = _group_inputs(n_feat, d, split_dtype, seed=n_feat + d)
+    segs = [JRagged(jnp.zeros(n, jnp.int64), jnp.asarray(sp)).segment_ids() for sp, n in zip(splits, sizes)]
+    n_rows = [sp.shape[0] - 1 for sp in splits]
+
+    def j_group(v):
+        return jnp.concatenate([j_sr.segment_sum(v[o:o + n], seg, s)
+                                for o, n, seg, s in zip(offsets, sizes, segs, n_rows)])
+
+    want, vjp = jax.vjp(j_group, jnp.asarray(vals))
+    v = torch.from_numpy(vals).requires_grad_()
+    outs = t_sr.segment_sum_csr_group(v, [torch.from_numpy(sp) for sp in splits], offsets, sizes)
+    assert len(outs) == n_feat and all(o.shape == (s, d) for o, s in zip(outs, n_rows))
+    np.testing.assert_allclose(torch.cat(outs).detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    if n_feat > 1:
+        assert not outs[1].detach().any()  # every row of the second feature is empty
+    r = np.random.default_rng(d)
+    g = [r.normal(size=(s, d)).astype(np.float32) for s in n_rows]
+    missing = n_feat - 1 if n_feat > 1 else None  # the last feature's gradient is None
+    if missing is not None:
+        g[missing][:] = 0.0
+    (want_g,) = vjp(jnp.asarray(np.concatenate(g)))
+    wide = torch.from_numpy(np.stack([np.zeros_like(g[0]), g[0], np.zeros_like(g[0])], axis=1))
+    pairs = [(outs[0], wide[:, 1])] + [(o, torch.from_numpy(x)) for f, (o, x) in enumerate(zip(outs, g))
+                                       if 0 < f != missing]
+    (got_g,) = torch.autograd.grad([o for o, _ in pairs], v, [x for _, x in pairs])
+    np.testing.assert_array_equal(got_g.numpy(), np.asarray(want_g))
+    assert not got_g[offsets[-1] + sizes[-1]:].any()
+
+
+def test_segment_sum_csr_group_takes_empty_features_and_refuses_overlaps():
+    """A feature of no rows pools to (0, D); slices out of order, overlapping
+    or past the values are refused."""
+    vals = torch.randn(30, 4)
+    sp = torch.tensor([0, 2, 5], dtype=torch.int32)
+    empty, full = t_sr.segment_sum_csr_group(vals, [torch.zeros(1, dtype=torch.int32), sp], [0, 10], [10, 20])
+    assert empty.shape == (0, 4)
+    assert torch.equal(full, t_sr.segment_sum_csr(vals[10:], sp))
+    for offsets, sizes in [([10, 0], [5, 5]), ([0, 4], [5, 5]), ([0, 26], [5, 5])]:
+        with pytest.raises(ValueError):
+            t_sr.segment_sum_csr_group(vals, [sp, sp], offsets, sizes)
+
+
 # flash attention: the port's plain version (the CPU path of ops.flash_fwd)
 # against the JAX Pallas kernel in interpret mode, on the shapes of
 # tests/test_kernels.py and with grouped kv heads. Tolerances as there:
