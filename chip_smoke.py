@@ -4,7 +4,7 @@ ranking model of examples/train_mse.py (its step at full size, its main()
 with checkpoints and a resume), and serving the qwen2.5-3b prefill and
 training qwen2.5-3b, on one NVIDIA card, through its own CUDA kernels.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--save-inputs DIR]
 
 Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
 
@@ -14,7 +14,8 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 (wgmma) count of each kernel's SASS: the bf16 flash kernels
                 must have some, and no spills at hd 128;
   2. kernels  — each CUDA kernel against its plain PyTorch version on random
-                inputs (PAD and out-of-range ids, the slab gather's
+                inputs (PAD and out-of-range ids, the row gather at D 1-2,048
+                with K not a multiple of its 32-row chunks, the slab gather's
                 partial-tail and one-PAD traps, unsorted and empty
                 segments, invalid scatter slots (90% and all of them, no
                 mask, K not a multiple of 32, D 8 to 2,048), D not a
@@ -32,7 +33,9 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 every boundary and a float step either side, ±inf, NaN,
                 ±0.0, subnormals, widths 1 to 3,000 and fp64 input; sequence
                 tile and untile over empty rows, rows longer than k and a
-                padding tail, D 8-128, k 1-50, int32 and int64 splits);
+                padding tail, D 8-128, k 1-50, int32 and int64 splits; the
+                untile also over rows of length k - 1, k and 10k, a first
+                split past 0, an unaligned g and no rows at all);
   3. smoke    — the smoke-size serve cell, then three steps of the smoke
                 train cell, then two qwen2.5 smoke prefill requests, then
                 three qwen2.5 smoke train steps, then three steps of the MSE
@@ -89,15 +92,19 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
      since each dim group pools at once, on feature 0's slice of the
      group's inputs, and driven once at its op entry, counted as path
      ``csr_op``), against its plain version, timed beside the plain
-     version, one PyTorch library call and the card's bound, and by
-     profiler events with a cold L2; the flash kernels also launched twice
-     on their path's inputs (bit-equal).
+     version, one PyTorch library call and the card's bound, by profiler
+     events with a cold L2, and by the host clock around 200 calls with no
+     synchronise (``host_us``: the wrapper's cost to its caller); the row
+     gather on every path that calls it, the MSE (D 8) and LM train (D
+     2,048) steps included; the flash kernels also launched twice on their
+     path's inputs (bit-equal).
 
 Every check raises on failure, so the script exits non-zero. It prints one
 JSON object per line; the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import io
@@ -174,6 +181,20 @@ SLAB_CASES = [
     ("d128", 4_096, 128, 640, 0, 600, 128, 512, torch.int32, False),
     ("unaligned", 4_096, 64, 1_000, 0, 4_096, 128, 512, torch.int64, True),
 ]
+# The row gather against its plain version: (R, D, K, id dtype, table 4
+# bytes off a 16-byte boundary), ids in [-2, R + 2) (PAD and out-of-range).
+# serve_p99's K and D; D 8 (the MSE step) at K not a multiple of the
+# kernel's 32-row chunks; D 5 and 13 (the scalar path); D 2,048 (qwen2.5-3b)
+GATHER_CASES = [(100_000, 128, 26_624, torch.int32, False), (5_000, 13, 1_000, torch.int64, False),
+                (4_000, 128, 3_000, torch.int64, True), (7, 4, 1, torch.int32, False),
+                (20_000, 2048, 32_768, torch.int64, False), (50_000, 8, 65_537, torch.int32, False),
+                (3_000, 8, 1_001, torch.int64, False), (4_000, 2048, 1_000, torch.int32, True),
+                (5_000, 5, 3_001, torch.int64, True), (8_000, 5, 700, torch.int32, False)]
+# The untile's edge cases: (D, k, first split, splits dtype, g 4 bytes off a
+# 16-byte boundary); 70 rows with lengths k - 1, k and 10k among them, every
+# fifth empty, and a padding tail of 9; k 0 stands for no rows at all (k 4)
+UNTILE_CASES = [(D, k, head, sdt, False) for D in (8, 13, 128) for k in (1, 8, 50) for head in (0, 5)
+                for sdt in (torch.int32, torch.int64)] + [(128, 8, 5, torch.int64, True), (8, 0, 3, torch.int32, False)]
 # The scatter against its plain version: (R, D, K, id dtype, rows and table
 # 4 bytes off a 16-byte boundary, with a valid mask, share of valid slots).
 # Unique ids, some out of range; D 8 (the MSE step), 13 (the scalar path),
@@ -242,6 +263,20 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Mean host time of one call in us: the host clock around ``iters``
+    calls with no synchronise between them (what a wrapper costs its
+    caller when the card keeps up)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return t
 
 
 def flash_excess(got: torch.Tensor, want: torch.Tensor, dtype) -> float:
@@ -351,7 +386,28 @@ def bound_ms(n_bytes: float, n_ops: float = 0.0, ops_per_s: float = FP32_OPS_PER
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def save_inputs(where: Path | None, kname: str, path: str, args: list) -> None:
+    """The row gather's or the untile's recorded inputs on one path, as
+    ``scripts/gather_untile_ab.py`` reads them (the ids or splits; the
+    table's or g's values are random there)."""
+    if where is None or kname not in ("gather_rows", "sequence_untile"):
+        return
+    where.mkdir(parents=True, exist_ok=True)
+    if kname == "gather_rows":
+        table, ids = args
+        obj = {"R": table.shape[0], "D": table.shape[1], "ids": ids.cpu()}
+    else:
+        g, splits, n = args
+        obj = {"S": g.shape[0], "k": g.shape[1], "D": g.shape[2], "N": n, "splits": splits.cpu()}
+    torch.save(obj, where / f"{kname}.{path}.pt")
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--save-inputs", type=Path, default=None, metavar="DIR",
+                    help="also save the row gather's and the untile's path inputs here "
+                         "(for scripts/gather_untile_ab.py)")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA card")
     sys.path.insert(0, str(ROOT / "src"))
@@ -443,17 +499,16 @@ def main() -> None:
         out.copy_(x)
         return out
 
-    for R, D, K, idt, misalign in [(100_000, 128, 26_624, torch.int32, False),
-                                   (5_000, 13, 1_000, torch.int64, False),
-                                   (4_000, 128, 3_000, torch.int64, True), (7, 4, 1, torch.int32, False),
-                                   (20_000, 2048, 32_768, torch.int64, False)]:  # prefill's D
+    for R, D, K, idt, misalign in GATHER_CASES:
         table = torch.from_numpy(rng.normal(size=(R, D)).astype(np.float32)).to(dev)
         table = unaligned(table) if misalign else table
         ids = torch.from_numpy(rng.integers(-2, R + 2, size=K)).to(idt).to(dev)
+        before = fg_ops.LAUNCHES
         got, want = fg_ops.gather_rows(table, ids), fg_ref.gather_rows(table, ids)
         torch.cuda.synchronize()
         cases.append({"kernel": "gather_rows", "R": R, "D": D, "K": K, "ids": str(idt),
                       "unaligned": misalign, "bit_equal": bool(torch.equal(got, want))})
+        check(fg_ops.LAUNCHES == before + 1, f"gather_rows did not launch at {cases[-1]}")
         check(torch.equal(got, want), f"gather_rows disagrees at {cases[-1]}")
     for cname, R, D, K, lo, hi, rows_blk, slab, idt, misalign in SLAB_CASES:
         table = torch.from_numpy(rng.normal(size=(R, D)).astype(np.float32)).to(dev)
@@ -687,6 +742,25 @@ def main() -> None:
                 cases.append({"kernel": "sequence_tile+untile", "n_rows": 97, "N": budget, "D": D, "k": k,
                               "splits": str(sdt), "launched": launched, "tile_equal": eq, "untile_equal": eq_g})
                 check(launched and eq and eq_g, f"sequence tile or untile disagrees at {cases[-1]}")
+    for D, k, head, sdt, misalign in UNTILE_CASES:
+        n_rows = 70 if k else 0
+        k = k or 4
+        lengths = rng.integers(0, 2 * k + 2, size=n_rows)
+        if n_rows:
+            lengths[::5] = 0  # empty rows
+            lengths[1:4] = k - 1, k, 10 * k
+        sp = torch.from_numpy(head + np.concatenate([[0], np.cumsum(lengths)])).to(sdt).to(dev)
+        budget = int(sp[-1]) + 9  # a padding tail
+        g = torch.from_numpy(rng.normal(size=(n_rows, k, D)).astype(np.float32)).to(dev)
+        g = unaligned(g) if misalign else g
+        before = st_ops.BWD_LAUNCHES
+        got_g = st_ops.sequence_untile(g, sp, budget)
+        torch.cuda.synchronize()
+        eq_g = torch.equal(got_g, st_ref.sequence_untile(g, sp, budget))
+        cases.append({"kernel": "sequence_untile", "n_rows": n_rows, "N": budget, "D": D, "k": k,
+                      "first_split": head, "splits": str(sdt), "unaligned": misalign,
+                      "launched": st_ops.BWD_LAUNCHES == before + 1, "untile_equal": eq_g})
+        check(cases[-1]["launched"] and eq_g, f"sequence_untile disagrees at {cases[-1]}")
     emit({"phase": "kernels_vs_plain", "cases": cases, "flash_tensor_core_path": tc_cases, "tolerance": {
         "gather_rows": "bit-equal", "gather_rows_slab": "bit-equal", "segment_sum": "rtol=atol=1e-5 (summation order)",
         "segment_sum_csr": "rtol=atol=1e-5 (summation order)",
@@ -1289,6 +1363,7 @@ def main() -> None:
         at = {}
         for path in paths:
             args, kw = recorded.pop((kname, path))
+            save_inputs(opts.save_inputs, kname, path, args)
             at[path] = _measure(kname, real[kname], plain, args, kw, 200 if path == "serve_p99" else 5, dev)
             del args
             torch.cuda.empty_cache()
@@ -1303,7 +1378,7 @@ def main() -> None:
             "max_err": max(a["max_abs_err"] for a in at.values()),
             "ms": main_path["ms"], "kernel_ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
             "bound_ms": main_path["bound_ms"], "bound_by": main_path["bound_by"],
-            "kernel_device_ms": main_path["kernel_device_ms"],
+            "kernel_device_ms": main_path["kernel_device_ms"], "host_us": main_path["host_us"],
             "library_ms": main_path["library_ms"], "library_call": lib_call, "at": at})
         if kname in ("segment_sum_csr", "segment_expand_csr"):
             entries[-1]["main_path_note"] = ("on no path since the dim group pools at once: driven at its op entry; "
@@ -1341,7 +1416,8 @@ def main() -> None:
     mstate_bytes = sum(t.numel() * t.element_size() for t in _tensors(mstate["sparse"]))
     torch.cuda.synchronize()
     mbase = torch.cuda.memory_allocated()
-    mse_recorded = (("fused_bucketize", ft_ops, False), ("sequence_tile", st_ops, False),
+    mse_recorded = (("gather_rows", fg_ops, False),  # the step's first: the forward fetch (D 8)
+                    ("fused_bucketize", ft_ops, False), ("sequence_tile", st_ops, False),
                     ("sequence_untile", st_ops, False), ("segment_sum_csr_group", sr_ops, False),
                     ("segment_expand_csr_group", sr_ops, False), ("scatter_add_rows", fs_ops, True),
                     ("scatter_set_rows", fs_ops, True))
@@ -1459,20 +1535,24 @@ def main() -> None:
          {"mse_train": recorded.pop(("sequence_untile", "mse_train"))[0]}),
     ]
     by_name = {e["name"]: e for e in entries}
-    # the grouped pair at the MSE group (61 sum features, D 8) and the
-    # scatter at D 8 (SparseAdam's adds over K = R = MSE_BUDGET slots)
+    # the gather, the grouped pair at the MSE group (61 sum features, D 8)
+    # and the scatter at D 8 (SparseAdam's adds over K = R = MSE_BUDGET slots)
     for full, kname, plain in (
+            ("fused_gather.gather_rows", "gather_rows", fg_ref.gather_rows),
             ("segment_reduce.segment_sum_csr_group", "segment_sum_csr_group", sr_ref.segment_sum_csr_group),
             ("segment_reduce.segment_expand_csr_group", "segment_expand_csr_group", sr_ref.segment_expand_csr_group),
             ("fused_scatter.scatter_add_rows", "scatter_add_rows", fs_ref.scatter_add_rows),
             ("fused_scatter.scatter_set_rows", "scatter_set_rows", fs_ref.scatter_set_rows)):
         args, kw = recorded.pop((kname, "mse_train"))
+        save_inputs(opts.save_inputs, kname, "mse_train", args)
         _add_path(by_name[full], "mse_train", _measure(kname, real[kname], plain, args, kw, 20, dev))
         del args
         torch.cuda.empty_cache()
     for e in entries:  # the earlier kernels' launches on the MSE path
         e["launches_by_path"]["mse_train"] = mse_launches[e["name"]]
     for full, kname, plain, lib_call, inputs in mse_kernels:
+        for path, args in inputs.items():
+            save_inputs(opts.save_inputs, kname, path, args)
         at = {path: _measure_mse_kernel(kname, real[kname], plain, args) for path, args in inputs.items()}
         main_at = at["mse_train"]
         by_path = {"serve": launches[full], "train": train_launches[full], "prefill": prefill_launches[full],
@@ -1484,7 +1564,8 @@ def main() -> None:
             "launches": sum(by_path.values()), "launches_by_path": by_path, "main_path": "mse_train",
             "max_abs_err": max(a["max_abs_err"] for a in at.values()),
             "max_err": max(a["max_abs_err"] for a in at.values()), "kernel_ms": main_at["ms"],
-            **{k: main_at[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_device_ms")},
+            **{k: main_at[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_device_ms",
+                                       "host_us")},
             "library_call": lib_call, "at": at})
         if kname == "sequence_untile":
             entries[-1]["replaces_note"] = ("the gradient of the sequence tile: the reference differentiates "
@@ -1611,7 +1692,7 @@ def main() -> None:
         "max_abs_err": max(a["max_abs_err"] for a in slab_at.values()),
         "max_err": max(a["max_abs_err"] for a in slab_at.values()), "kernel_ms": main_slab["ms"],
         **{k: main_slab[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                     "kernel_device_ms")},
+                                     "kernel_device_ms", "host_us")},
         "library_call": "torch.index_select at the clamped ids", "at": slab_at})
     torch.cuda.empty_cache()
 
@@ -1638,6 +1719,7 @@ def main() -> None:
     recorder(fa_ops, "flash_attention")  # layer 0's forward: the step's first call
     for fn_name in ("scatter_add_rows", "scatter_set_rows"):  # D 2,048; the table (2.5 GB) kept as it is
         real[fn_name] = recorder(fs_ops, fn_name)
+    real["gather_rows"] = recorder(fg_ops, "gather_rows")  # the step's first: the token rows' fetch
 
     def record_last_bwd(*args, **kw):  # layer 0's backward: the step's last call
         if phase["name"]:
@@ -1673,6 +1755,7 @@ def main() -> None:
     lm_tc = [a - b for a, b in zip(fa_ops.tensor_core_launches(), tc0)]
     fa_ops.flash_attention, fa_ops.flash_bwd = real["flash_attention"], real["flash_bwd"]
     fs_ops.scatter_add_rows, fs_ops.scatter_set_rows = real["scatter_add_rows"], real["scatter_set_rows"]
+    fg_ops.gather_rows = real["gather_rows"]
     n_new = sum(1 for x in linserted if x > 0)
     want_launches = {"fused_gather.gather_rows": 4 * n_lm, "fused_gather.gather_rows_slab": 0,
                      "segment_reduce.segment_sum": 0, "segment_reduce.segment_expand_csr": 0,
@@ -1736,10 +1819,12 @@ def main() -> None:
     bwd = _measure_flash_bwd(real["flash_bwd"], fa_ref, *bargs)
     del bargs
     by_name = {e["name"]: e for e in entries}
-    for full, kname, plain in (("fused_scatter.scatter_add_rows", "scatter_add_rows", fs_ref.scatter_add_rows),
+    for full, kname, plain in (("fused_gather.gather_rows", "gather_rows", fg_ref.gather_rows),
+                               ("fused_scatter.scatter_add_rows", "scatter_add_rows", fs_ref.scatter_add_rows),
                                ("fused_scatter.scatter_set_rows", "scatter_set_rows", fs_ref.scatter_set_rows)):
         if (kname, "lm_train") in recorded:  # the set runs on a step that inserts rows
             args, kw = recorded.pop((kname, "lm_train"))
+            save_inputs(opts.save_inputs, kname, "lm_train", args)
             _add_path(by_name[full], "lm_train", _measure(kname, real[kname], plain, args, kw, 20, dev))
             del args
             torch.cuda.empty_cache()
@@ -1755,6 +1840,7 @@ def main() -> None:
     bwd_fp32 = _measure_flash_bwd(real["flash_bwd"], fa_ref, *fp32_bargs, path="fp32")
     bwd_fp32["at"]["fp32"].update(readings=fp32_bwd, **{k: bwd_fp32[k] for k in (
         "ms", "kernel_device_ms", "kernel_device_ms_by_kernel", "plain_ms", "bound_ms", "bound_by", "bound_share",
+        "host_us",
         "library_ms", "two_launches_bit_equal")})
     del q32, k32, v32, do32, o32, lse32, fp32_bargs
     for e in entries:
@@ -1775,7 +1861,7 @@ def main() -> None:
         "max_abs_err": max(layer0["o_max_abs_err"], *(a["max_abs_err"] for a in flash_at.values())),
         "max_err": layer0["o_max_abs_err"], "kernel_ms": flash_at["prefill"]["ms"],
         **{k: flash_at["prefill"][k] for k in ("ms", "kernel_device_ms", "plain_ms", "bound_ms", "bound_by",
-                                              "bound_share", "library_ms")},
+                                              "bound_share", "library_ms", "host_us")},
         "library_call": "F.scaled_dot_product_attention(is_causal=True), kv expanded", "at": flash_at,
         "bf16_route": "tensor cores (wgmma, TMA)", **flash_build["flash_attention.flash_fwd"]})
     bwd_by_path = {"csr_op": csr_launches["flash_attention.flash_bwd"],
@@ -1852,8 +1938,9 @@ def _measure(kname: str, real, plain, args: list, kw: dict, iters: int, dev) -> 
             tab, ids = args
             K, D = ids.numel(), tab.shape[1]
             idx = torch.where((ids >= 0) & (ids < tab.shape[0]), ids, 0).long()
-            n_bytes = (torch.unique(idx).numel() + K) * D * 4 + K * ids.element_size()
-            shape = {"R": tab.shape[0], "D": D, "K": K}
+            n_distinct = torch.unique(idx).numel()
+            n_bytes = (n_distinct + K) * D * 4 + K * ids.element_size()
+            shape = {"R": tab.shape[0], "D": D, "K": K, "ids": str(ids.dtype), "distinct_rows": n_distinct}
             lib = lambda: torch.index_select(tab, 0, idx)
         elif kname == "segment_sum_csr":
             vals, splits = args
@@ -1881,7 +1968,7 @@ def _measure(kname: str, real, plain, args: list, kw: dict, iters: int, dev) -> 
     p_ms = time_ms(run_plain, iters)
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     return {"shape": shape, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "host_us": host_us(run_kernel),
             "kernel_device_ms": kernel_device_ms(run_kernel, KERNEL_NAMES[kname])}
 
 
@@ -1947,7 +2034,7 @@ def _measure_group(kname: str, real, plain, args: list, iters: int, dev) -> dict
     p_ms = time_ms(lambda: plain(*args), max(3, iters // 10))
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     return {"shape": shape, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "host_us": host_us(run),
             "kernel_device_ms": kernel_device_ms(run, KERNEL_NAMES[kname])}
 
 
@@ -2017,7 +2104,7 @@ def _measure_mse_kernel(kname: str, real, plain, args: list, iters: int = 100) -
     p_ms = time_ms(lambda: plain(*args), max(3, iters // 10))
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     out = {"shape": shape, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "host_us": host_us(lambda: real(*args)),
            "kernel_device_ms": kernel_device_ms(lambda: real(*args), f"{kname}_kernel")}
     if loop_ms is not None:
         out["library_loop_ms"] = loop_ms
@@ -2044,7 +2131,7 @@ def _measure_slab(op, plain, table: torch.Tensor, ids: torch.Tensor, iters: int 
                       "rows_read": int(read.sum()), "distinct_rows_read": n_read, "zero_rows": K - int(read.sum())},
             "max_abs_err": 0.0, "ms": time_ms(run, iters), "plain_ms": time_ms(lambda: plain(table, ids), 10),
             "library_ms": time_ms(lambda: torch.index_select(table, 0, idx), iters),
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "host_us": host_us(run),
             "kernel_device_ms": kernel_device_ms(run, "gather_rows_slab_kernel")}
 
 
@@ -2105,7 +2192,7 @@ def _measure_flash(real, fwd, ref, q, k, v, path: str = "prefill") -> dict:
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + B * H * T * 4
     b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S)
     return {"ms": k_ms, "kernel_device_ms": dev_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "bound_share": b_ms / (dev_ms or k_ms), "library_ms": lib_ms,
+            "bound_share": b_ms / (dev_ms or k_ms), "library_ms": lib_ms, "host_us": host_us(lambda: real(q, k, v)),
             "max_abs_err": err, "o_err_over_tol": excess, "two_launches_bit_equal": bit_equal,
             "plain_rows_per_piece": PLAIN_ROWS,
             "shape": {"B": B, "T": T, "H": H, "Hk": k.shape[2], "hd": hd, "dtype": str(q.dtype), "causal": True},
@@ -2142,6 +2229,7 @@ def _measure_flash_bwd(real, ref, q, k, v, o, lse, do, causal: bool = True, path
     b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S)
     return {"ms": k_ms, "kernel_device_ms": dev_ms, "kernel_device_ms_by_kernel": parts, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / (dev_ms or k_ms), "library_ms": lib_ms,
+            "host_us": host_us(run),
             "two_launches_bit_equal": bit_equal,
             "at": {path: {"shape": {"B": B, "T": T, "H": H, "Hk": k.shape[2], "hd": hd,
                                           "dtype": str(q.dtype), "causal": causal},

@@ -12,6 +12,10 @@ keyed by a hash of the sources. Each source compiles in its own ``nvcc``
 process, all started together, then one link; ptxas's report of each
 kernel's registers, spills and static shared memory is kept beside the
 library (``ptxas.log``). Nothing here runs at import.
+
+Every launcher takes its stream from ``current_stream`` and, where its C
+entry sizes a grid by the card, the SM count from ``sm_count``: the launch
+path reads no ``torch.cuda.Stream`` object and no device properties.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -46,6 +52,7 @@ _SIGNATURES = {
 }
 
 _lib: ctypes.CDLL | None = None
+_sms: dict[int, int] = {}  # device index -> SM count
 
 
 def _sources() -> list[Path]:
@@ -114,9 +121,9 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            # a prototype's call converts its arguments faster than a
+            # function with argtypes set, which the host-bound paths feel
+            setattr(lib, name, ctypes.CFUNCTYPE(ctypes.c_int, *argtypes)((name, lib)))
         lib.repro_flash_tc_launches.argtypes = [ctypes.c_int]
         lib.repro_flash_tc_launches.restype = ctypes.c_int64
         lib.repro_error_string.argtypes = [ctypes.c_int]
@@ -130,3 +137,19 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.repro_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def current_stream(x: torch.Tensor) -> int:
+    """The raw handle of PyTorch's current stream on ``x``'s card, the one
+    ``torch.cuda.current_stream(x.device).cuda_stream`` gives (so a launch
+    follows ``torch.cuda.stream(s)``), without building a Stream object."""
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
+
+
+def sm_count(x: torch.Tensor) -> int:
+    """The SM count of ``x``'s card, read once per card."""
+    dev = x.get_device()
+    n = _sms.get(dev)
+    if n is None:
+        n = _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n

@@ -57,7 +57,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor
     of q (B, T, H, hd) over k, v (B, T, Hk, hd), read through their strides.
     Arguments are checked by ``ops``."""
     lib = kernels.load_library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = kernels.current_stream(q)
     B, T, H, hd = q.shape
     err = lib.repro_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
@@ -75,7 +75,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor
     ``dk_part`` and ``dv_part`` are fp32 scratch. Arguments are checked by
     ``ops``."""
     lib = kernels.load_library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = kernels.current_stream(q)
     B, T, H, hd = q.shape
     err = lib.repro_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),

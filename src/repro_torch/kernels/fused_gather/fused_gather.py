@@ -12,10 +12,9 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor, out: torch.Tensor) -> No
     """Launch on the current stream: out[i] = table[ids[i]] (PAD and
     out-of-range ids read row 0). Arguments are checked by ``ops``."""
     lib = kernels.load_library()
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    err = lib.repro_gather_rows(
-        table.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64), out.data_ptr(),
-        table.shape[0], table.shape[1], ids.shape[0], stream)
+    (r, d), k = table.shape, ids.shape[0]
+    err = lib.repro_gather_rows(table.data_ptr(), ids.data_ptr(), ids.dtype is torch.int64, out.data_ptr(),
+                                r, d, k, kernels.current_stream(table))
     kernels.check(lib, err, "fused_gather.gather_rows")
 
 
@@ -25,7 +24,7 @@ def gather_rows_slab(table: torch.Tensor, ids: torch.Tensor, out: torch.Tensor,
     gather_rows_slab`` with ``slab`` already cut to round_up(R, 8).
     Arguments are checked by ``ops``."""
     lib = kernels.load_library()
-    stream = torch.cuda.current_stream(table.device).cuda_stream
+    stream = kernels.current_stream(table)
     err = lib.repro_gather_rows_slab(
         table.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64), out.data_ptr(),
         table.shape[0], table.shape[1], ids.shape[0], rows_blk, slab, stream)

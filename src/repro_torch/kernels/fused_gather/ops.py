@@ -27,25 +27,29 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor, mode: str = "row",
         raise ValueError(f"gather_rows: mode must be 'row' or 'slab', got {mode!r}")
     if mode == "slab" and (rows_blk < 1 or slab < 1):
         raise ValueError(f"gather_rows: rows_blk {rows_blk} and slab {slab} must be positive")
-    if table.device.type == "cpu" and ids.device.type == "cpu":
+    # each tensor attribute is read once, and the cheapest way: on the serve
+    # path this wrapper's host time, not its kernel, is the gather's time
+    if table.is_cpu and ids.is_cpu:
         if mode == "slab":
             return ref.gather_rows_slab(table, ids, rows_blk, slab)
         return ref.gather_rows(table, ids)
-    if table.device.type != "cuda" or ids.device != table.device:
-        raise ValueError(f"gather_rows: table on {table.device}, ids on {ids.device}")
+    dev = table.device
+    if not table.is_cuda or ids.device != dev:
+        raise ValueError(f"gather_rows: table on {dev}, ids on {ids.device}")
     if table.dtype != torch.float32 or table.dim() != 2 or not table.is_contiguous():
         raise ValueError(f"gather_rows: table must be contiguous (R, D) float32, got "
                          f"{tuple(table.shape)} {table.dtype}")
     if ids.dtype not in (torch.int32, torch.int64) or ids.dim() != 1 or not ids.is_contiguous():
         raise ValueError(f"gather_rows: ids must be contiguous (K,) int32/int64, got "
                          f"{tuple(ids.shape)} {ids.dtype}")
-    out = torch.empty((ids.shape[0], table.shape[1]), dtype=torch.float32, device=table.device)
-    if out.numel() == 0:
+    (r, d), k = table.shape, ids.shape[0]
+    out = torch.empty((k, d), dtype=torch.float32, device=dev)
+    if k == 0 or d == 0:
         return out
-    if table.shape[0] == 0:
+    if r == 0:
         raise ValueError("gather_rows: empty table")
     if mode == "slab":
-        fused_gather.gather_rows_slab(table, ids, out, rows_blk, min(slab, ref._round_up(table.shape[0], 8)))
+        fused_gather.gather_rows_slab(table, ids, out, rows_blk, min(slab, ref._round_up(r, 8)))
         SLAB_LAUNCHES += 1
     else:
         fused_gather.gather_rows(table, ids, out)

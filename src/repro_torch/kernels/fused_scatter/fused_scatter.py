@@ -13,7 +13,7 @@ def scatter_rows(table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor,
     = rows[i], in place, for slots with an id in range and ``valid`` set.
     Arguments are checked by ``ops``."""
     lib = kernels.load_library()
-    stream = torch.cuda.current_stream(table.device).cuda_stream
+    stream = kernels.current_stream(table)
     err = lib.repro_scatter_rows(
         table.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64),
         None if valid is None else valid.data_ptr(), rows.data_ptr(),

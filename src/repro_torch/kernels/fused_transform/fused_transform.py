@@ -13,9 +13,7 @@ def fused_bucketize(values: torch.Tensor, column_ids: torch.Tensor, boundaries: 
     """Launch on the current stream: out[i] = bucket of values[i] within
     column column_ids[i]. Arguments are checked by ``ops``."""
     lib = kernels.load_library()
-    dev = values.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stream, sms = kernels.current_stream(values), kernels.sm_count(values)
     err = lib.repro_fused_bucketize(
         values.data_ptr(), column_ids.data_ptr(), boundaries.data_ptr(), boundary_offsets.data_ptr(),
         out.data_ptr(), values.shape[0], boundaries.shape[0], boundary_offsets.shape[0] - 1, sms, stream)

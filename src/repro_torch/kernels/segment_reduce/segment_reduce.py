@@ -17,7 +17,7 @@ def segment_sum_sorted(values: torch.Tensor, bounds: torch.Tensor, out: torch.Te
     bounds int32 or int64, clamped to [0, N] on the card. Arguments are
     checked by ``ops``."""
     lib = kernels.load_library()
-    stream = torch.cuda.current_stream(values.device).cuda_stream
+    stream = kernels.current_stream(values)
     err = lib.repro_segment_sum_sorted(
         values.data_ptr(), bounds.data_ptr(), int(bounds.dtype == torch.int64), out.data_ptr(),
         values.shape[0], out.shape[0], out.shape[1], stream)
@@ -30,7 +30,7 @@ def segment_expand_csr(g: torch.Tensor, g_stride: int, bounds: torch.Tensor,
     bounds[s+1]), zero outside [bounds[0], bounds[S]). Arguments are
     checked by ``ops``."""
     lib = kernels.load_library()
-    stream = torch.cuda.current_stream(out.device).cuda_stream
+    stream = kernels.current_stream(out)
     err = lib.repro_segment_expand_csr(
         g.data_ptr(), g_stride, bounds.data_ptr(), int(bounds.dtype == torch.int64),
         out.data_ptr(), out.shape[0], bounds.shape[0] - 1, out.shape[1], stream)
@@ -58,7 +58,7 @@ def segment_sum_csr_group(values: torch.Tensor, row_splits: Sequence[torch.Tenso
     with b = row_splits[f] clamped to [0, sizes[f]]. Arguments are checked
     by ``ops``."""
     lib = kernels.load_library()
-    stream = torch.cuda.current_stream(values.device).cuda_stream
+    stream = kernels.current_stream(values)
     d = values.shape[1]
     table = _table(row_splits, [o.data_ptr() for o in outs], offsets, sizes, [d] * len(outs))
     err = lib.repro_segment_sum_csr_group(values.data_ptr(), values.shape[0], d, table.buffer_info()[0],
@@ -74,7 +74,7 @@ def segment_expand_csr_group(grads: Sequence[torch.Tensor | None], row_splits: S
     row_hi) zero (a ``None`` gradient covers nothing). Each gradient's rows
     are dense. Arguments are checked by ``ops``."""
     lib = kernels.load_library()
-    stream = torch.cuda.current_stream(out.device).cuda_stream
+    stream = kernels.current_stream(out)
     d = out.shape[1]
     table = _table(row_splits, [0 if g is None else g.data_ptr() for g in grads], offsets, sizes,
                    [0 if g is None else g.stride(0) if g.shape[0] > 1 else d for g in grads])

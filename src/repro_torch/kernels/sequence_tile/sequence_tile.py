@@ -11,9 +11,7 @@ from repro_torch import kernels
 def _launch(fn_name: str, src: torch.Tensor, splits: torch.Tensor, out: torch.Tensor,
             n: int, k: int, d: int) -> None:
     lib = kernels.load_library()
-    dev = out.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stream, sms = kernels.current_stream(out), kernels.sm_count(out)
     err = getattr(lib, fn_name)(src.data_ptr(), splits.data_ptr(), int(splits.dtype == torch.int64),
                                 out.data_ptr(), n, splits.shape[0] - 1, k, d, sms, stream)
     kernels.check(lib, err, f"sequence_tile.{fn_name}")

@@ -39,13 +39,28 @@ def cuda():
     return torch.device("cuda")
 
 
+def _unaligned(x: torch.Tensor) -> torch.Tensor:
+    """The same values at an address 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+# (R, D, K, id dtype, table 4 bytes off a 16-byte boundary); ids in
+# [-2, R + 2): PAD and out-of-range ids both sides
 @pytest.mark.cuda
-@pytest.mark.parametrize("r_rows,d,k,id_dtype", [
-    (1000, 128, 4096, torch.int32), (513, 5, 700, torch.int64), (64, 3, 1, torch.int32),
+@pytest.mark.parametrize("r_rows,d,k,id_dtype,unaligned", [
+    (1000, 128, 4096, torch.int32, False), (513, 5, 700, torch.int64, False), (64, 3, 1, torch.int32, False),
+    (5000, 8, 1001, torch.int32, False), (300, 8, 33, torch.int64, False),  # the MSE D, K not a multiple of 32
+    (2000, 2048, 77, torch.int64, False), (400, 2048, 1000, torch.int32, False),  # the LM D
+    (513, 5, 700, torch.int32, True), (1000, 128, 999, torch.int64, True), (100, 2048, 40, torch.int32, True),
+    (20, 64, 300, torch.int64, False), (50, 16, 65, torch.int32, False), (9, 1, 100, torch.int64, False),
 ])
-def test_gather_kernel_matches_plain(cuda, r_rows, d, k, id_dtype):
+def test_gather_kernel_matches_plain(cuda, r_rows, d, k, id_dtype, unaligned):
     g = torch.Generator().manual_seed(k)
     table = torch.randn((r_rows, d), generator=g).to(cuda)
+    table = _unaligned(table) if unaligned else table
     ids = torch.randint(-2, r_rows + 2, (k,), generator=g).to(id_dtype).to(cuda)
     before = t_fg.LAUNCHES
     got = t_fg.gather_rows(table, ids)
@@ -398,6 +413,72 @@ def test_sequence_tile_and_untile_kernels_match_plain(cuda, d, k, split_dtype):
     assert (t_st.LAUNCHES, t_st.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
     assert torch.equal(got.cpu(), t_st_ref.sequence_tile(vals, splits, k))
     assert torch.equal(got_g.cpu(), t_st_ref.sequence_untile(g, splits, vals.shape[0]))
+
+
+# The untile's edge cases: rows of length k - 1, k and 10k, empty rows
+# (every fifth), the first split past 0 (a head of zeros), a padding tail
+def _untile_case(r, k, d, split_dtype, head, tail=9, n_rows=70):
+    lens = r.integers(0, 2 * k + 2, n_rows)
+    lens[::5] = 0
+    lens[1:4] = k - 1, k, 10 * k
+    splits = (head + np.concatenate([[0], np.cumsum(lens)])).astype(split_dtype)
+    n = int(splits[-1]) + tail
+    g = torch.from_numpy(r.normal(size=(n_rows, k, d)).astype(np.float32))
+    return g, torch.from_numpy(splits), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 13, 128])
+@pytest.mark.parametrize("k", [1, 8, 50])
+@pytest.mark.parametrize("head", [0, 5])
+@pytest.mark.parametrize("split_dtype", [np.int32, np.int64])
+def test_sequence_untile_kernel_edge_cases_match_plain(cuda, d, k, head, split_dtype):
+    g, splits, n = _untile_case(np.random.default_rng(d + k + head), k, d, split_dtype, head)
+    gc = _unaligned(g.to(cuda)) if head and d == 128 else g.to(cuda)  # and an unaligned view: the scalar path
+    before = t_st.BWD_LAUNCHES
+    got = t_st.sequence_untile(gc, splits.to(cuda), n)
+    torch.cuda.synchronize()
+    assert t_st.BWD_LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), t_st_ref.sequence_untile(g, splits, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows,head,tail", [(0, 3, 10), (40, 2, 5)])
+def test_sequence_untile_kernel_without_rows_or_values(cuda, n_rows, head, tail):
+    """No rows at all, and rows that are all empty: every position zero."""
+    g = torch.randn((n_rows, 4, 8), generator=torch.Generator().manual_seed(n_rows))
+    splits = torch.full((n_rows + 1,), head, dtype=torch.int32)
+    before = t_st.BWD_LAUNCHES
+    got = t_st.sequence_untile(g.to(cuda), splits.to(cuda), head + tail)
+    torch.cuda.synchronize()
+    assert t_st.BWD_LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), torch.zeros((head + tail, 8)))
+
+
+@pytest.mark.cuda
+def test_gather_and_untile_launch_on_the_current_stream(cuda):
+    """Inside ``torch.cuda.stream(side)`` both kernels run on ``side``: their
+    inputs are written there behind a long sleep, so a kernel on any other
+    stream would read them before they are written."""
+    r = np.random.default_rng(3)
+    src_table = torch.from_numpy(r.normal(size=(4000, 128)).astype(np.float32)).to(cuda)
+    ids = torch.from_numpy(r.integers(-1, 4000, 20_000)).to(cuda)
+    g_src, splits, n = _untile_case(r, 8, 8, np.int32, head=4, n_rows=5000)
+    g_src, splits = g_src.to(cuda), splits.to(cuda)
+    table, g = torch.zeros_like(src_table), torch.zeros_like(g_src)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    before = (t_fg.LAUNCHES, t_st.BWD_LAUNCHES)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)  # about 0.1 s at the H100's clock
+        table.copy_(src_table)
+        g.copy_(g_src)
+        got = t_fg.gather_rows(table, ids)
+        got_g = t_st.sequence_untile(g, splits, n)
+    side.synchronize()
+    assert (t_fg.LAUNCHES, t_st.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, t_fg_ref.gather_rows(src_table, ids))
+    assert torch.equal(got_g, t_st_ref.sequence_untile(g_src, splits, n))
 
 
 @pytest.mark.cuda

@@ -71,6 +71,8 @@ def test_segment_mean_plain_matches_pallas(n, d, s):
 
 @pytest.mark.parametrize("r_rows,d,k,id_dtype", [
     (1, 8, 5, np.int32), (100, 16, 300, np.int32), (1000, 128, 64, np.int64), (37, 5, 50, np.int64),
+    (500, 8, 77, np.int64), (200, 8, 1000, np.int32),     # the MSE step's D, K not a multiple of 32
+    (60, 2048, 45, np.int32), (33, 2048, 8, np.int64),   # the LM's D
 ])
 def test_gather_plain_matches_pallas(r_rows, d, k, id_dtype):
     r = np.random.default_rng(r_rows + k)
@@ -513,3 +515,31 @@ def test_sequence_untile_matches_jax_vjp(rows, maxlen, d, k, tail, split_dtype):
     assert not got.numpy()[splits[-1]:].any()
     direct = t_st.sequence_untile(torch.from_numpy(g).view(rows, k, d), torch.from_numpy(splits), vals.shape[0])
     assert torch.equal(direct, got)
+
+
+# The untile's edge cases, each against jax.vjp of the reference's plain
+# formula: (row lengths, splits[0], padding tail, D, k). Rows of length
+# k - 1, k and 10k, empty rows, a first split past 0, no rows at all.
+UNTILE_EDGES = [
+    ([3, 0, 2, 3, 40, 0, 1], 0, 5, 8, 4),       # 10k, k - 1, k, empty
+    ([5, 4, 0, 50, 2], 7, 0, 13, 5),            # splits[0] > 0, 10k
+    ([0, 0, 8, 7, 80, 0], 11, 6, 16, 8),        # the MSE k, both ends
+    ([], 3, 10, 8, 4),                          # S = 0: head and tail only
+    ([0, 0, 0], 2, 4, 8, 2),                    # only empty rows
+    ([1, 30, 2], 0, 0, 128, 3),
+]
+
+
+@pytest.mark.parametrize("lengths,head,tail,d,k", UNTILE_EDGES)
+@pytest.mark.parametrize("split_dtype", [np.int32, np.int64])
+def test_sequence_untile_edge_cases_match_jax_vjp(lengths, head, tail, d, k, split_dtype):
+    r = np.random.default_rng(len(lengths) + head + d + k)
+    splits = (head + np.concatenate([[0], np.cumsum(lengths, dtype=np.int64)])).astype(split_dtype)
+    n = int(splits[-1]) + tail
+    vals = r.normal(size=(n, d)).astype(np.float32)
+    g = r.normal(size=(len(lengths), k * d)).astype(np.float32)
+    _, vjp = jax.vjp(lambda v: j_st_ref.sequence_tile(v, jnp.asarray(splits), k), jnp.asarray(vals))
+    (want,) = vjp(jnp.asarray(g))
+    got = t_st.sequence_untile(torch.from_numpy(g).view(len(lengths), k, d), torch.from_numpy(splits), n)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not got.numpy()[:head].any() and not got.numpy()[splits[-1]:].any()
