@@ -31,7 +31,12 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 unaligned q refused, every bf16 launch on the tensor-core
                 kernels (counted on the C side); fused bucketize on
                 every boundary and a float step either side, ±inf, NaN,
-                ±0.0, subnormals, widths 1 to 3,000 and fp64 input; sequence
+                ±0.0, subnormals, widths 0 to 3,000, fp64 input, the
+                engine's contiguous columns at the MSE and operator
+                shapes, ids in any order, out-of-range ids, tables over the
+                staging room and 48 KB, N < 4 and N % 4 != 0, values at an
+                unaligned address, each case launched twice (bit-equal) on
+                the paths its plan gives (counted on the C side); sequence
                 tile and untile over empty rows, rows longer than k and a
                 padding tail, D 8-128, k 1-50, int32 and int64 splits; the
                 untile also over rows of length k - 1, k and 10k, a first
@@ -86,7 +91,9 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 kernels at T 1,024, H 16, Hk 2, hd 128 are measured;
   5. a ``{"kernels": [...]}`` line: each kernel on the exact inputs the
      serve, train, prefill, MSE train and LM train paths fed it (and the
-     bucketize kernel at the operator benchmark's shape too; the slab
+     bucketize kernel at the operator benchmark's shape too, with
+     contiguous and with random column ids, each also on its cached path
+     and after a 256 MB read flush, with its path counts; the slab
      gather, which no path calls, at the operator benchmark's gather shape
      and at D 128; the per-feature segment-sum pair, which no path calls
      since each dim group pools at once, on feature 0's slice of the
@@ -237,9 +244,23 @@ OP_COLS, OP_VALS = 100, 2_000
 DLRM_TRAIN_KERNELS = ("fused_gather.gather_rows", "segment_reduce.segment_sum_csr_group",
                       "segment_reduce.segment_expand_csr_group", "fused_scatter.scatter_add_rows",
                       "fused_scatter.scatter_set_rows")
-BUCKET_CASES = [  # column widths, N, value type
-    ([17] * 20, 2_560, np.float32), ([1], 1_000, np.float32), ([1_000, 17, 1], 4_097, np.float32),
-    ([3_000] * 5, 70_001, np.float32), ([17] * 20, 5_003, np.float64),
+OP_WIDTHS = [int(w) for w in np.random.default_rng(SEED + 1).integers(8, 64, OP_COLS)]  # widths 8-63
+BUCKET_CASES = [  # column widths, N, value type, column-id layout (bucket_case), values 4 bytes off 16
+    ([17] * 20, 2_560, np.float32, "random", False), ([1], 1_000, np.float32, "random", False),
+    ([1_000, 17, 1], 4_097, np.float32, "random", False), ([3_000] * 5, 70_001, np.float32, "random", False),
+    ([17] * 20, 5_003, np.float64, "random", False), (OP_WIDTHS, OP_COLS * OP_VALS, np.float32, "random", False),
+    ([17] * 20, 1_310_720, np.float32, "contiguous", False),   # the MSE step's layout at batch 65,536
+    (OP_WIDTHS, OP_COLS * OP_VALS, np.float32, "contiguous", False),  # the operator benchmark's
+    ([150] * 100, 100_003, np.float32, "random", False),       # ids in any order over a table past the budget
+    ([3_000] * 5, 65_536, np.float32, "contiguous", False),    # a 60 KB table
+    ([600, 900, 5, 3_000], 20_000, np.float32, "contiguous", False),  # blocks on both paths
+    ([17] * 20, 3, np.float32, "random", False),               # N < 4
+    ([17] * 20, 270_341, np.float32, "contiguous", False),     # N % 4 = 1
+    ([17] * 20, 5_003, np.float32, "contiguous", True),        # values at an unaligned address
+    (OP_WIDTHS, 300_007, np.float32, "random", True),
+    ([17] * 20, 20_000, np.float32, "out_of_range", False),    # column ids in [-(C+3), C+3)
+    ([3_000] * 5, 20_000, np.float32, "out_of_range", False),
+    ([0, 5, 0, 17, 0], 10_000, np.float32, "out_of_range", False),  # width-0 columns
 ]
 
 
@@ -364,10 +385,13 @@ def ptxas_report(log_path: Path) -> list[dict]:
     return entries
 
 
-def bucket_case(rng, widths, n: int, vdt=np.float32):
+def bucket_case(rng, widths, n: int, vdt=np.float32, layout: str = "random"):
     """Sorted boundaries per column, column ids, and values: random, on
     every boundary, one float step either side of it, ±inf, NaN, ±0.0 and
-    subnormals (the bucketize kernel compares those as zero, as XLA does)."""
+    subnormals (the bucketize kernel compares those as zero, as XLA does).
+    Column ids random in [0, C) ("random"), each column's values one
+    contiguous run as the engine lays them out ("contiguous"), or random in
+    [-(C+3), C+3) ("out_of_range")."""
     bnds = np.concatenate([np.sort(rng.normal(size=w)).astype(np.float32) for w in widths])
     offs = np.concatenate([[0], np.cumsum(widths)]).astype(np.int32)
     vals = rng.normal(size=n).astype(np.float32)
@@ -376,8 +400,15 @@ def bucket_case(rng, widths, n: int, vdt=np.float32):
     vals[:m] = on
     vals[m:2 * m] = np.nextafter(on, np.float32(np.inf))
     vals[2 * m:3 * m] = np.nextafter(on, np.float32(-np.inf))
-    vals[3 * m:3 * m + 9] = [np.inf, -np.inf, np.nan, -0.0, 0.0, 1e-45, -1e-45, 1e-39, -3e-39]
-    cids = rng.integers(0, len(widths), n).astype(np.int32)
+    special = [np.inf, -np.inf, np.nan, -0.0, 0.0, 1e-45, -1e-45, 1e-39, -3e-39]
+    vals[n - min(n, 9):] = special[:min(n, 9)]
+    c = len(widths)
+    if layout == "contiguous":
+        cids = np.repeat(np.arange(c, dtype=np.int32), -(-n // c))[:n]
+    elif layout == "out_of_range":
+        cids = rng.integers(-(c + 3), c + 3, n).astype(np.int32)
+    else:
+        cids = rng.integers(0, c, n).astype(np.int32)
     return vals.astype(vdt), cids, bnds, offs
 
 
@@ -387,13 +418,16 @@ def bound_ms(n_bytes: float, n_ops: float = 0.0, ops_per_s: float = FP32_OPS_PER
 
 
 def save_inputs(where: Path | None, kname: str, path: str, args: list) -> None:
-    """The row gather's or the untile's recorded inputs on one path, as
-    ``scripts/gather_untile_ab.py`` reads them (the ids or splits; the
-    table's or g's values are random there)."""
-    if where is None or kname not in ("gather_rows", "sequence_untile"):
+    """The row gather's, the untile's or the bucketize's recorded inputs on
+    one path, as ``scripts/gather_untile_ab.py`` and
+    ``scripts/bucketize_ab.py`` read them (the ids or splits, the table's or
+    g's values being random there; the bucketize's four tensors)."""
+    if where is None or kname not in ("gather_rows", "sequence_untile", "fused_bucketize"):
         return
     where.mkdir(parents=True, exist_ok=True)
-    if kname == "gather_rows":
+    if kname == "fused_bucketize":
+        obj = [t.cpu() for t in args]
+    elif kname == "gather_rows":
         table, ids = args
         obj = {"R": table.shape[0], "D": table.shape[1], "ids": ids.cpu()}
     else:
@@ -405,8 +439,8 @@ def save_inputs(where: Path | None, kname: str, path: str, args: list) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--save-inputs", type=Path, default=None, metavar="DIR",
-                    help="also save the row gather's and the untile's path inputs here "
-                         "(for scripts/gather_untile_ab.py)")
+                    help="also save the row gather's, the untile's and the bucketize's path inputs here "
+                         "(for scripts/gather_untile_ab.py and scripts/bucketize_ab.py)")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA card")
@@ -422,7 +456,7 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
     from repro_torch.kernels.fused_gather import ops as fg_ops, ref as fg_ref
     from repro_torch.kernels.fused_scatter import ops as fs_ops, ref as fs_ref
-    from repro_torch.kernels.fused_transform import ops as ft_ops, ref as ft_ref
+    from repro_torch.kernels.fused_transform import fused_transform as ft_launch, ops as ft_ops, ref as ft_ref
     from repro_torch.kernels.segment_reduce import ops as sr_ops, ref as sr_ref
     from repro_torch.kernels.sequence_tile import ops as st_ops, ref as st_ref
     from repro_torch.launch import recsys_cell
@@ -710,19 +744,31 @@ def main() -> None:
     check(tc_cases["tensor_core_fwd_launches"] == n_bf16["fwd"] + n_bf16["bwd"]
           and tc_cases["tensor_core_bwd_launches"] == n_bf16["bwd"],
           f"bf16 flash cases and tensor-core launches differ: {tc_cases}")
-    op_widths = rng.integers(8, 64, OP_COLS)  # the operator benchmark's widths
-    for widths, n, vdt in BUCKET_CASES + [(list(op_widths), OP_COLS * OP_VALS, np.float32)]:
-        args = [torch.from_numpy(x).to(dev) for x in bucket_case(rng, widths, n, vdt)]
-        before = ft_ops.LAUNCHES
-        got = ft_ops.fused_bucketize(*args)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bucket_path_launches = {p: 0 for p in ft_launch.PATHS}  # this phase's, counted on the C side
+    for widths, n, vdt, layout, misalign in BUCKET_CASES:
+        vals, cids, bnds, offs = bucket_case(rng, widths, n, vdt, layout)
+        paths = ft_launch.launch_paths(cids, offs, sms)
+        args = [torch.from_numpy(x).to(dev) for x in (vals, cids, bnds, offs)]
+        args[0] = unaligned(args[0]) if misalign else args[0]
+        before, ran = ft_ops.LAUNCHES, ft_launch.path_launches()
+        got, again = ft_ops.fused_bucketize(*args), ft_ops.fused_bucketize(*args)
         torch.cuda.synchronize()
-        launched = ft_ops.LAUNCHES == before + 1
+        after = ft_launch.path_launches()
+        ran = {p: after[i] - ran[i] for i, p in enumerate(ft_launch.PATHS)}
+        for p, k in ran.items():
+            bucket_path_launches[p] += k
+        launched = ft_ops.LAUNCHES == before + 2
         want = ft_ref.fused_bucketize(*args)
         cases.append({"kernel": "fused_bucketize", "columns": len(widths), "width_min": int(min(widths)),
                       "width_max": int(max(widths)), "boundaries": int(sum(widths)), "N": n, "values": str(vdt.__name__),
-                      "launched": launched, "equal": bool(torch.equal(got, want))})
-        check(launched and got.dtype == torch.int64 and torch.equal(got, want),
-              f"fused_bucketize disagrees at {cases[-1]}")
+                      "column_ids": layout, "unaligned": misalign, "launched": launched, "path_launches": ran,
+                      "expected_paths": sorted(paths), "equal": bool(torch.equal(got, want)),
+                      "two_launches_bit_equal": bool(torch.equal(got, again))})
+        check(launched and got.dtype == torch.int64 and torch.equal(got, want) and torch.equal(got, again)
+              and ran == {p: 2 * (p in paths) for p in ft_launch.PATHS}, f"fused_bucketize disagrees at {cases[-1]}")
+        del args, got, again, want
+    check(all(bucket_path_launches.values()), f"a bucketize path never ran in phase 2: {bucket_path_launches}")
     for D in (8, 13, 50, 128):
         for k in (1, 8, 50):
             for sdt in (torch.int32, torch.int64):
@@ -761,7 +807,8 @@ def main() -> None:
                       "first_split": head, "splits": str(sdt), "unaligned": misalign,
                       "launched": st_ops.BWD_LAUNCHES == before + 1, "untile_equal": eq_g})
         check(cases[-1]["launched"] and eq_g, f"sequence_untile disagrees at {cases[-1]}")
-    emit({"phase": "kernels_vs_plain", "cases": cases, "flash_tensor_core_path": tc_cases, "tolerance": {
+    emit({"phase": "kernels_vs_plain", "cases": cases, "flash_tensor_core_path": tc_cases,
+          "bucketize_path_launches": bucket_path_launches, "tolerance": {
         "gather_rows": "bit-equal", "gather_rows_slab": "bit-equal", "segment_sum": "rtol=atol=1e-5 (summation order)",
         "segment_sum_csr": "rtol=atol=1e-5 (summation order)",
         "scatter_add_rows": "bit-equal", "scatter_set_rows": "bit-equal",
@@ -773,7 +820,8 @@ def main() -> None:
                      f"LSE rtol=atol {LSE_TOL}; an unaligned q is refused",
         "flash_bwd": "dQ, dK, dV each as O of flash_fwd (err_over_tol <= 1); a zero gradient and the dK "
                      "of the other kv head (Hk > 1) read above 1; every bf16 launch on the tensor-core kernels",
-        "fused_bucketize": "equal", "sequence_tile": "equal (torch.equal)",
+        "fused_bucketize": "equal (torch.equal), two launches bit-equal, each on the paths its plan gives",
+        "sequence_tile": "equal (torch.equal)",
         "sequence_untile": "equal (torch.equal)"}})
 
     # ----------------------------------------------- 3 smoke serve, card vs CPU
@@ -1424,6 +1472,7 @@ def main() -> None:
     for fn_name, mod, whole in mse_recorded:
         real[fn_name] = recorder(mod, fn_name, whole)
     torch.cuda.reset_peak_memory_stats()
+    mse_paths = ft_launch.path_launches()  # synchronises; the C side counts the bucketize's paths
     reset_counts()
     mstep_ms, mlosses, mlive, movf = [], [], [], {}
     for s in range(n_m):
@@ -1447,6 +1496,9 @@ def main() -> None:
         if s == N_TRAIN_WARMUP - 2:  # steps 1-2: before the probe step's recorded copies
             mse_peak = torch.cuda.max_memory_allocated()
     mse_launches = counts()
+    mse_paths = {p: n - b for p, n, b in zip(ft_launch.PATHS, ft_launch.path_launches(), mse_paths)}
+    # the MSE model's 20 columns of 17 boundaries fit a block: every launch stages the whole table
+    check(mse_paths == {"staged": n_m, "cached": 0}, f"MSE bucketize paths {mse_paths}")
     for fn_name, mod, _ in mse_recorded:
         setattr(mod, fn_name, real[fn_name])  # the wrappers record no more
     want_m = {"fused_gather.gather_rows": 4 * n_m, "fused_gather.gather_rows_slab": 0,
@@ -1522,11 +1574,14 @@ def main() -> None:
         op_r.normal(size=OP_COLS * OP_VALS).astype(np.float32),
         np.repeat(np.arange(OP_COLS, dtype=np.int32), OP_VALS), op_b,
         np.concatenate([[0], np.cumsum(op_w)]).astype(np.int32))]
+    op_random = [op_args[0], op_args[1][torch.from_numpy(np.random.default_rng(SEED + 2).permutation(
+        OP_COLS * OP_VALS)).to(dev)], *op_args[2:]]  # the same values, column ids in any order
     mse_kernels = [  # (entry, wrapper, plain, library call, at)
         ("fused_transform.fused_bucketize", "fused_bucketize", ft_ref.fused_bucketize,
          "torch.searchsorted(bounds padded with +inf to (C, max width)[cids], values[:, None], right=True), "
-         "with the gather; library_loop_ms: torch.bucketize per column",
-         {"mse_train": recorded.pop(("fused_bucketize", "mse_train"))[0], "operator_table1": op_args}),
+         "with the gather; library_loop_ms: torch.bucketize per column (contiguous columns)",
+         {"mse_train": recorded.pop(("fused_bucketize", "mse_train"))[0], "operator_table1": op_args,
+          "operator_random_ids": op_random}),
         ("sequence_tile.sequence_tile", "sequence_tile", st_ref.sequence_tile,
          "torch.index_select at the clamped indices, times the mask",
          {"mse_train": recorded.pop(("sequence_tile", "mse_train"))[0]}),
@@ -1570,8 +1625,13 @@ def main() -> None:
         if kname == "sequence_untile":
             entries[-1]["replaces_note"] = ("the gradient of the sequence tile: the reference differentiates "
                                             "_pool's none branch, src/repro/core/embedding_engine.py:418-423")
+        if kname == "fused_bucketize":
+            entries[-1]["path_launches"] = {"mse_train": mse_paths, "kernels_vs_plain": bucket_path_launches}
+            entries[-1]["kernel_device_ms_clean_l2"] = main_at["kernel_device_ms_clean_l2"]
+            check(all(a["kernel_device_ms"] is not None and a["kernel_device_ms_clean_l2"] is not None
+                      for a in at.values()), f"fused_bucketize: no device time in the traces: {at}")
         del inputs
-    del mse_kernels, op_args
+    del mse_kernels, op_args, op_random
     check(not recorded, f"recorded inputs left unmeasured: {list(recorded)}")
     torch.cuda.empty_cache()
 
@@ -2053,8 +2113,10 @@ def _measure_mse_kernel(kname: str, real, plain, args: list, iters: int = 100) -
     check(torch.equal(got, want), f"{kname} disagrees with its plain version")
     err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
     del got, want
-    n_ops, loop_ms = 0.0, None
+    n_ops, extra = 0.0, {}
     if kname == "fused_bucketize":
+        from repro_torch.kernels.fused_transform import fused_transform as ft_launch
+
         vals, cids, bnds, offs = args
         N, B, C = vals.numel(), bnds.numel(), offs.numel() - 1
         widths = (offs[1:] - offs[:-1]).long()
@@ -2067,14 +2129,26 @@ def _measure_mse_kernel(kname: str, real, plain, args: list, iters: int = 100) -
         table[col, pos - offs[col].long()] = bnds
         vf, cl = vals.float(), cids.long()
         lib = lambda: torch.searchsorted(table[cl], vf[:, None], right=True)
-        # per-column calls, the unfused shape: each column's values are one
-        # contiguous block of the concatenated buffer, as the engine lays them out
-        starts = torch.searchsorted(cids, torch.arange(C + 1, dtype=cids.dtype, device=cids.device)).tolist()
-        o = offs.tolist()
-        cols = [(vf[starts[c]:starts[c + 1]], bnds[o[c]:o[c + 1]]) for c in range(C)]
-        loop_ms = time_ms(lambda: [torch.bucketize(v, b, right=True) for v, b in cols], 20)
-        shape = {"N": N, "columns": C, "boundaries": B, "width_max": max_w,
-                 "contiguous_columns": bool((cids[1:] >= cids[:-1]).all())}
+        contiguous = bool((cids[1:] >= cids[:-1]).all())
+        if contiguous:  # per-column calls, the unfused shape: each column's values one contiguous block
+            starts = torch.searchsorted(cids, torch.arange(C + 1, dtype=cids.dtype, device=cids.device)).tolist()
+            o = offs.tolist()
+            cols = [(vf[starts[c]:starts[c + 1]], bnds[o[c]:o[c + 1]]) for c in range(C)]
+            extra["library_loop_ms"] = time_ms(lambda: [torch.bucketize(v, b, right=True) for v, b in cols], 20)
+        # the path its blocks took, and the other path's time: every tile read through the read-only cache
+        ran = ft_launch.path_launches()
+        real(*args)
+        extra["paths"] = [p for p, a, b in zip(ft_launch.PATHS, ft_launch.path_launches(), ran) if a > b]
+        out = torch.empty((N,), dtype=torch.int64, device=vals.device)
+        cached = lambda: ft_launch.fused_bucketize(vals, cids, bnds, offs, out, stage=False)
+        cached()
+        torch.cuda.synchronize()
+        check(torch.equal(out, plain(*args)), "fused_bucketize's cached path disagrees")
+        extra["cached_path_kernel_device_ms"] = kernel_device_ms(cached, f"{kname}_kernel")
+        extra["kernel_device_ms_clean_l2"] = kernel_device_ms(lambda: real(*args), f"{kname}_kernel", dirty=False)
+        shape = {"N": N, "columns": C, "boundaries": B, "width_max": max_w, "contiguous_columns": contiguous,
+                 "plan": ft_launch.launch_plan(N, B, C, torch.cuda.get_device_properties(vals.device)
+                                               .multi_processor_count)._asdict()}
     elif kname == "sequence_tile":
         vals, splits, k = args
         (N, D), S = vals.shape, splits.numel() - 1
@@ -2103,12 +2177,9 @@ def _measure_mse_kernel(kname: str, real, plain, args: list, iters: int = 100) -
     k_ms = time_ms(lambda: real(*args), iters)
     p_ms = time_ms(lambda: plain(*args), max(3, iters // 10))
     b_ms, b_by = bound_ms(n_bytes, n_ops)
-    out = {"shape": shape, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "host_us": host_us(lambda: real(*args)),
-           "kernel_device_ms": kernel_device_ms(lambda: real(*args), f"{kname}_kernel")}
-    if loop_ms is not None:
-        out["library_loop_ms"] = loop_ms
-    return out
+    return {"shape": shape, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "host_us": host_us(lambda: real(*args)),
+            "kernel_device_ms": kernel_device_ms(lambda: real(*args), f"{kname}_kernel"), **extra}
 
 
 def _measure_slab(op, plain, table: torch.Tensor, ids: torch.Tensor, iters: int = 100) -> dict:
@@ -2135,31 +2206,37 @@ def _measure_slab(op, plain, table: torch.Tensor, ids: torch.Tensor, iters: int 
             "kernel_device_ms": kernel_device_ms(run, "gather_rows_slab_kernel")}
 
 
-def kernel_device_ms(fn, name_part: str, iters: int = 20) -> float | None:
+def kernel_device_ms(fn, name_part: str, iters: int = 20, dirty: bool = True, tries: int = 3) -> float | None:
     """The device time of one call's launches of the kernels whose name
     holds ``name_part`` (for each such kernel its mean over the events the
     trace holds, summed), from a torch.profiler trace of ``iters`` calls of
     ``fn``:
     the kernel alone, without the host cost of its wrapper, which CUDA
     events around a small kernel's calls measure instead. A 256 MB write
-    before each call leaves the 50 MB L2 cold, as the HBM bound assumes.
-    None when the trace holds no such event."""
+    before each call leaves the 50 MB L2 cold, as the HBM bound assumes
+    (``dirty``: full of written lines the kernel's misses write back);
+    ``dirty=False`` reads the 256 MB instead (cold and clean). A trace that
+    holds no such event is taken again, up to ``tries`` times in all; None
+    when none does."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    flush = torch.empty(1 << 26, dtype=torch.float32, device=torch.device("cuda"))
+    flush = torch.zeros(1 << 26, dtype=torch.float32, device=torch.device("cuda"))
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    del flush
     by_name: dict = {}  # a call may launch several kernels; a trace may miss some of a long run's events
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and name_part in e.name:
-            by_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_() if dirty else flush.amax()
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and name_part in e.name:
+                by_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+        if by_name:
+            break
+    del flush
     return sum(sum(d) / len(d) for d in by_name.values()) / 1e3 if by_name else None
 
 

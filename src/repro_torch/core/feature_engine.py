@@ -186,6 +186,8 @@ class FeatureEngine:
             offs.append(len(bnds))
         self._boundaries = torch.tensor(bnds or [0.0], dtype=torch.float32, device=self.device)
         self._boundary_offsets = torch.tensor(offs, dtype=torch.int32, device=self.device)
+        # per fused group, its last column-id tensor and the (budgets, device) it was built for
+        self._column_ids: dict[str, tuple[tuple, torch.Tensor]] = {}
 
     def apply(self, batch: Mapping[str, Ragged]) -> tuple[dict[str, Ragged], dict[str, torch.Tensor]]:
         id_out: dict[str, Ragged] = {}
@@ -202,9 +204,7 @@ class FeatureEngine:
                 continue
             cols = [self._maybe_truncate(batch[s.name], s) for s in specs]
             vals = torch.cat([c.values for c in cols])
-            cids = torch.cat([torch.full((c.nnz_budget,), i, dtype=torch.int32, device=vals.device)
-                              for i, c in enumerate(cols)])
-            flat = fused(vals, cids)
+            flat = fused(vals, self._group_column_ids(kind, cols, vals.device))
             ofs = 0
             for s, c in zip(specs, cols):
                 id_out[s.name] = Ragged(flat[ofs: ofs + c.nnz_budget], c.row_splits)
@@ -216,6 +216,17 @@ class FeatureEngine:
         if self.groups.get("cross"):
             raise NotImplementedError("cross features are not ported yet")
         return id_out, dense_out
+
+    def _group_column_ids(self, kind: str, cols: list[Ragged], device: torch.device) -> torch.Tensor:
+        """The group's (N,) int32 column ids, column i's ``nnz_budget``
+        entries holding i: built once for a group's budgets and device and
+        kept, since a batch's budgets are fixed (no rebuild a call)."""
+        key = (tuple(c.nnz_budget for c in cols), device)
+        cached = self._column_ids.get(kind)
+        if cached is None or cached[0] != key:
+            ids = torch.cat([torch.full((n,), i, dtype=torch.int32, device=device) for i, n in enumerate(key[0])])
+            cached = self._column_ids[kind] = (key, ids)
+        return cached[1]
 
     def _maybe_truncate(self, r: Ragged, s: FeatureSpec) -> Ragged:
         if s.max_len is not None and s.transform != "raw" and s.pooling == "none":

@@ -46,7 +46,7 @@ _SIGNATURES = {
     "repro_scatter_rows": [_P, _P, _INT, _P, _P, _I64, _I64, _I64, _INT, _P],
     "repro_flash_fwd": [_P, _P, _P, _P, _P, _INT, *[_I64] * 5, *[_I64] * 9, _F32, _INT, _P, _P],
     "repro_flash_bwd": [*[_P] * 12, _INT, *[_I64] * 5, *[_I64] * 15, _F32, _INT, _P, _P],
-    "repro_fused_bucketize": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _P],
+    "repro_fused_bucketize": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _INT, _P],
     "repro_sequence_tile": [_P, _P, _INT, _P, _I64, _I64, _I64, _I64, _INT, _P],
     "repro_sequence_untile": [_P, _P, _INT, _P, _I64, _I64, _I64, _I64, _INT, _P],
 }
@@ -124,8 +124,9 @@ def load_library() -> ctypes.CDLL:
             # a prototype's call converts its arguments faster than a
             # function with argtypes set, which the host-bound paths feel
             setattr(lib, name, ctypes.CFUNCTYPE(ctypes.c_int, *argtypes)((name, lib)))
-        lib.repro_flash_tc_launches.argtypes = [ctypes.c_int]
-        lib.repro_flash_tc_launches.restype = ctypes.c_int64
+        for counter in ("repro_flash_tc_launches", "repro_bucketize_path_launches"):
+            getattr(lib, counter).argtypes = [ctypes.c_int]
+            getattr(lib, counter).restype = ctypes.c_int64
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         _lib = lib

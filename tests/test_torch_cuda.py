@@ -353,9 +353,12 @@ def test_bucketize_on_the_card_runs_its_kernel(cuda):
         assert torch.equal(got[k].values.cpu(), want[k].values)
 
 
-def _bucket_case(r, widths, n, dtype=np.float32):
+def _bucket_case(r, widths, n, dtype=np.float32, layout="random"):
     """Sorted boundaries per column; values random, on every boundary, one
-    float step either side of it, ±inf, NaN, ±0.0 and subnormals."""
+    float step either side of it, ±inf, NaN, ±0.0 and subnormals. Column
+    ids random in [0, C) ("random"), each column's values one contiguous
+    run as the engine lays them out ("contiguous"), or random in
+    [-(C+3), C+3) ("out_of_range")."""
     bnds = np.concatenate([np.sort(r.normal(size=w)).astype(np.float32) for w in widths])
     offs = np.concatenate([[0], np.cumsum(widths)]).astype(np.int32)
     vals = r.normal(size=n).astype(np.float32)
@@ -364,29 +367,70 @@ def _bucket_case(r, widths, n, dtype=np.float32):
     vals[:m] = on
     vals[m:2 * m] = np.nextafter(on, np.float32(np.inf))
     vals[2 * m:3 * m] = np.nextafter(on, np.float32(-np.inf))
-    vals[3 * m:3 * m + 9] = [np.inf, -np.inf, np.nan, -0.0, 0.0, 1e-45, -1e-45, 1e-39, -3e-39]
-    cids = r.integers(0, len(widths), n).astype(np.int32)
+    special = [np.inf, -np.inf, np.nan, -0.0, 0.0, 1e-45, -1e-45, 1e-39, -3e-39]
+    vals[n - min(n, 9):] = special[:min(n, 9)]
+    c = len(widths)
+    if layout == "contiguous":
+        cids = np.repeat(np.arange(c, dtype=np.int32), -(-n // c))[:n]
+    elif layout == "out_of_range":
+        cids = r.integers(-(c + 3), c + 3, n).astype(np.int32)
+    else:
+        cids = r.integers(0, c, n).astype(np.int32)
     return vals.astype(dtype), cids, bnds, offs
 
 
+_OP_WIDTHS = [int(w) for w in np.random.default_rng(1).integers(8, 64, 100)]  # the operator benchmark's
+
+
+# (column widths, N, value type, column-id layout, values 4 bytes off a
+# 16-byte boundary, the paths its blocks take: staged where the table or a
+# tile's columns fit a block's 1,024 words of shared memory, as the
+# engine's contiguous columns do, else cached)
 @pytest.mark.cuda
-@pytest.mark.parametrize("widths,n,dtype", [
-    ([17] * 20, 2_560, np.float32), ([1], 1_000, np.float32), ([1_000, 17, 1], 4_097, np.float32),
-    ([3_000] * 5, 70_001, np.float32), ([8, 63, 40] * 33 + [9], 200_000, np.float32),
-    ([17] * 20, 5_003, np.float64),
+@pytest.mark.parametrize("widths,n,dtype,layout,unaligned,paths", [
+    ([17] * 20, 2_560, np.float32, "random", False, {"staged"}),       # 361 words: the whole table
+    ([1], 1_000, np.float32, "random", False, {"staged"}),
+    ([1_000, 17, 1], 4_097, np.float32, "random", False, {"staged"}),   # 1,022 words
+    ([3_000] * 5, 70_001, np.float32, "random", False, {"cached"}),     # a table over 48 KB
+    ([8, 63, 40] * 33 + [9], 200_000, np.float32, "random", False, {"cached"}),
+    ([17] * 20, 5_003, np.float64, "random", False, {"staged"}),
+    ([17] * 20, 1_310_720, np.float32, "contiguous", False, {"staged"}),  # the MSE step
+    (_OP_WIDTHS, 200_000, np.float32, "contiguous", False, {"staged"}),   # the operator shape
+    ([150] * 100, 100_003, np.float32, "random", False, {"cached"}),      # random ids over 60 KB
+    ([3_000] * 5, 65_536, np.float32, "contiguous", False, {"cached"}),   # contiguous columns over 48 KB
+    ([600, 900, 5, 3_000], 20_000, np.float32, "contiguous", False, {"staged", "cached"}),
+    ([17] * 20, 3, np.float32, "random", False, {"staged"}),              # N < 4
+    ([17] * 20, 270_341, np.float32, "contiguous", False, {"staged"}),    # N % 4 = 1, two chunks a thread
+    ([17] * 20, 5_003, np.float32, "contiguous", True, {"staged"}),
+    (_OP_WIDTHS, 300_007, np.float32, "random", True, {"cached"}),
+    ([17] * 20, 20_000, np.float32, "out_of_range", False, {"staged"}),
+    ([3_000] * 5, 20_000, np.float32, "out_of_range", False, {"cached"}),
+    ([0, 5, 0, 17, 0], 10_000, np.float32, "out_of_range", False, {"staged"}),  # width-0 columns
 ])
-def test_bucketize_kernel_matches_plain(cuda, widths, n, dtype):
-    """Exact, at column widths 1, 17 and 1,000, N not a multiple of the
-    block, a table too large for shared memory (15,000 boundaries), the
-    operator benchmark's widths and fp64 input."""
+def test_bucketize_kernel_matches_plain(cuda, widths, n, dtype, layout, unaligned, paths):
+    """Exact, at column widths 0 to 3,000, N from 3 up, N not a multiple of
+    4 or of the block, a table too large for shared memory, the MSE step's
+    and the operator benchmark's shapes, out-of-range column ids, values at
+    an unaligned address and fp64 input; each launch counted, on the paths
+    the launcher's plan gives its blocks, and two launches bit-equal."""
+    from repro_torch.kernels.fused_transform import fused_transform as t_ft_launch
+
     r = np.random.default_rng(n)
-    vals, cids, bnds, offs = _bucket_case(r, widths, n, dtype)
-    args = [torch.from_numpy(x) for x in (vals, cids, bnds, offs)]
-    before = t_ft.LAUNCHES
-    got = t_ft.fused_bucketize(*(a.to(cuda) for a in args))
+    vals, cids, bnds, offs = _bucket_case(r, widths, n, dtype, layout)
+    assert t_ft_launch.launch_paths(cids, offs, torch.cuda.get_device_properties(cuda).multi_processor_count) == paths
+    args = [torch.from_numpy(x).to(cuda) for x in (vals, cids, bnds, offs)]
+    if unaligned:
+        args[0] = _unaligned(args[0])
+    before, ran = t_ft.LAUNCHES, t_ft_launch.path_launches()
+    got = t_ft.fused_bucketize(*args)
+    again = t_ft.fused_bucketize(*args)
     torch.cuda.synchronize()
-    assert t_ft.LAUNCHES == before + 1
-    assert got.dtype == torch.int64 and torch.equal(got.cpu(), t_ft_ref.fused_bucketize(*args))
+    after = t_ft_launch.path_launches()
+    assert t_ft.LAUNCHES == before + 2
+    for which, name in enumerate(t_ft_launch.PATHS):
+        assert after[which] == ran[which] + (2 if name in paths else 0)
+    want = t_ft_ref.fused_bucketize(*args)
+    assert got.dtype == torch.int64 and torch.equal(got, want) and torch.equal(again, got)
 
 
 def _tile_case(r, n_rows, d, split_dtype, tail=9):

@@ -267,3 +267,41 @@ def test_ragged_helpers_equal(lens, budget):
     td, jd = t_ragged.Ragged.dense(torch.from_numpy(x)), j_ragged.Ragged.dense(jnp.asarray(x))
     np.testing.assert_array_equal(td.values.numpy(), np.asarray(jd.values))
     np.testing.assert_array_equal(td.row_splits.numpy(), np.asarray(jd.row_splits))
+
+
+def test_apply_reuses_each_groups_column_ids(monkeypatch):
+    """Each fused group's column-id tensor is built once for its budgets
+    and device and reused by the next ``apply`` with the same budgets (the
+    outputs equal); other budgets build it anew."""
+    from repro_torch.kernels.fused_transform import ops as ft_ops
+
+    seen = []
+    real = ft_ops.fused_bucketize
+
+    def spy(values, column_ids, *args):
+        seen.append(column_ids)
+        return real(values, column_ids, *args)
+
+    monkeypatch.setattr(ft_ops, "fused_bucketize", spy)
+    specs = [s for s in _specs(t_fe) if s.transform in ("hash", "bucketize")]
+    eng = t_fe.FeatureEngine(specs, "cpu")
+
+    def batch(seed, budget):
+        r = np.random.default_rng(seed)
+        return {s.name: t_ragged.Ragged(
+            torch.from_numpy(r.normal(size=budget).astype(np.float32) if s.transform == "bucketize"
+                             else r.integers(0, 100, size=budget)),
+            torch.tensor([0, 1, budget - 1], dtype=torch.int32)) for s in specs}
+
+    first, _ = eng.apply(batch(0, 5))
+    hash_ids = eng._column_ids["hash"][1]
+    again, _ = eng.apply(batch(0, 5))
+    other, _ = eng.apply(batch(1, 5))
+    assert seen[0] is seen[1] is seen[2] and eng._column_ids["hash"][1] is hash_ids
+    assert torch.equal(seen[0], torch.tensor([0] * 5 + [1] * 5, dtype=torch.int32))
+    for k in first:
+        assert torch.equal(first[k].values, again[k].values)
+    assert any(not torch.equal(first[k].values, other[k].values) for k in first)
+    eng.apply(batch(0, 7))
+    assert seen[3] is not seen[0] and torch.equal(seen[3], torch.tensor([0] * 7 + [1] * 7, dtype=torch.int32))
+    assert eng._column_ids["hash"][1] is not hash_ids

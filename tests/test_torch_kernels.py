@@ -11,7 +11,7 @@ from repro.io.ragged import Ragged as JRagged
 from repro.kernels.flash_attention import ops as j_fa
 from repro.kernels.fused_gather import ops as j_fg
 from repro.kernels.fused_scatter import ops as j_fs, ref as j_fs_ref
-from repro.kernels.fused_transform import ops as j_ft
+from repro.kernels.fused_transform import ops as j_ft, ref as j_ft_ref
 from repro.kernels.segment_reduce import ops as j_sr
 from repro.kernels.sequence_tile import ops as j_st, ref as j_st_ref
 from repro_torch.kernels.flash_attention import ops as t_fa, ref as t_fa_ref
@@ -471,6 +471,48 @@ def test_bucketize_plain_matches_pallas_on_boundaries(seed):
     assert (got >= 0).all() and (got <= w).all()
     got64, _ = _bucketize_both(vals.astype(np.float64), cids, bnds, offs)
     np.testing.assert_array_equal(got64, want)
+
+
+@pytest.mark.parametrize("c", [1, 2, 5, 20])
+def test_bucketize_plain_matches_pallas_on_out_of_range_ids(c):
+    """Every column id from -(C+3) to C+2 (and the int32 extremes): the
+    offsets read as jnp reads them, so -2 reads column C - 1 and -1 or >= C
+    an empty range. Bit-equal to the Pallas kernel and to the JAX reference."""
+    r = np.random.default_rng(c)
+    bnds, offs = _bucket_table(r, c, width_hi=12)
+    ids = np.concatenate([np.arange(-(c + 3), c + 3), [np.iinfo(np.int32).max, np.iinfo(np.int32).min]])
+    cids = np.repeat(ids, 7).astype(np.int32)
+    vals = r.normal(scale=2.0, size=cids.shape).astype(np.float32)
+    vals[::7] = np.inf
+    got, want = _bucketize_both(vals, cids, bnds, offs)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.asarray(j_ft_ref.fused_bucketize(
+        jnp.asarray(vals), jnp.asarray(cids), jnp.asarray(bnds), jnp.asarray(offs))))
+
+
+def test_bucketize_plain_on_the_out_of_range_example():
+    """Boundaries [0, 1, 2 | -1, 5], every value 1.5: ids -3, -2, -1, 0, 2,
+    5 give 2 1 0 2 0 0, as the JAX reference and the Pallas kernel do."""
+    bnds, offs = np.array([0, 1, 2, -1, 5], np.float32), np.array([0, 3, 5], np.int32)
+    cids, vals = np.array([-3, -2, -1, 0, 2, 5], np.int32), np.full(6, 1.5, np.float32)
+    got, want = _bucketize_both(vals, cids, bnds, offs)
+    np.testing.assert_array_equal(got, [2, 1, 0, 2, 0, 0])
+    np.testing.assert_array_equal(want, [2, 1, 0, 2, 0, 0])
+
+
+def test_bucketize_plain_matches_pallas_with_empty_columns():
+    """Width-0 columns (first, between and last) give 0 for every value,
+    ±inf and NaN included, as the Pallas kernel does."""
+    r = np.random.default_rng(11)
+    widths = [0, 4, 0, 0, 9, 0]
+    bnds = np.concatenate([np.sort(r.normal(size=w)) for w in widths]).astype(np.float32)
+    offs = np.concatenate([[0], np.cumsum(widths)]).astype(np.int32)
+    cids = np.repeat(np.arange(len(widths), dtype=np.int32), 40)
+    vals = r.normal(scale=2.0, size=cids.shape).astype(np.float32)
+    vals[::10], vals[1::10], vals[2::10] = np.inf, -np.inf, np.nan
+    got, want = _bucketize_both(vals, cids, bnds, offs)
+    np.testing.assert_array_equal(got, want)
+    assert not got[np.isin(cids, [0, 2, 3, 5])].any()
 
 
 # sequence tile: the port's plain version against the Pallas kernel in
