@@ -81,6 +81,20 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 overflow, the launch counts, steps/s and the tracer's phase
                 shares; then the slab gather is called once through its op
                 entry (its launch counted) and measured (phase 5);
+     train_driver — the twin of launch/train.py: its run() at published
+                widths (vocab cut to 50,000 a feature, 1.95 M rows) and batch
+                8,192, 40 steps over a 65,536-row ColumnIO table from one
+                reader under the autoscaler, with telemetry snapshots, the
+                aggregator and the Prometheus endpoint (zero overflow, a
+                finite loss, valid exposition text, the launches a step: 4
+                gathers, one grouped sum each way, 3 scatter adds); a
+                SIGTERM at step 15 of 30 (a final checkpoint) and a resume,
+                within 1e-5 of an uninterrupted run; its CLI, saving every
+                step, crashed at step 6 in a fresh process (exit 42) and
+                resumed from step 4 or 5, each run's steps within 1e-5 of an
+                uninterrupted CLI run; then the benchmark twins
+                (the autoscaler on a calibrated SimPipeline, the telemetry
+                overhead at the MSE cell's batch of 128);
      lm train — full-width qwen2.5-3b train_4k (T 4,096, batch cut to 1)
                 from a fresh state on an emptied card: 2 warm-up and 5
                 timed steps with the kernels' launch counts, state and
@@ -241,6 +255,18 @@ MSE_LATER_MOMENT_FRAC = 0.25    # the rows' moments after 3 steps, of their larg
 # the operator benchmark's bucketize (benchmarks/table1_operators.py:34-45):
 # 100 columns of 2,000 values, column widths 8-63
 OP_COLS, OP_VALS = 100, 2_000
+# The train driver (repro_torch.launch.train) at published widths, its vocab
+# cut so that the engine (1.95 M rows: emb, m and v, about 3 GB) checkpoints
+# in seconds; the ColumnIO table holds 8 batches (loop mode)
+DRIVER_VOCAB, DRIVER_BATCH, DRIVER_ROWS = 50_000, 8_192, 65_536
+DRIVER_STEPS, DRIVER_PREEMPT_STEPS, DRIVER_SIGTERM_AT = 40, 30, 15
+DRIVER_CRASH_STEPS, DRIVER_CRASH_AT = 12, 6
+DRIVER_PER_STEP = {  # launches a step on the dlrm-mlperf train path
+    "fused_gather.gather_rows": 4, "segment_reduce.segment_sum_csr_group": 1,
+    "segment_reduce.segment_expand_csr_group": 1, "fused_scatter.scatter_add_rows": 3,
+    "segment_reduce.segment_sum": 0, "segment_reduce.segment_expand_csr": 0,
+    "fused_gather.gather_rows_slab": 0, "flash_attention.flash_fwd": 0, "flash_attention.flash_bwd": 0,
+    "fused_transform.fused_bucketize": 0, "sequence_tile.sequence_tile": 0, "sequence_tile.sequence_untile": 0}
 DLRM_TRAIN_KERNELS = ("fused_gather.gather_rows", "segment_reduce.segment_sum_csr_group",
                       "segment_reduce.segment_expand_csr_group", "fused_scatter.scatter_add_rows",
                       "fused_scatter.scatter_set_rows")
@@ -1756,6 +1782,12 @@ def main() -> None:
         "library_call": "torch.index_select at the clamped ids", "at": slab_at})
     torch.cuda.empty_cache()
 
+    # --------------------------- 4 the train driver (repro_torch.launch.train)
+    driver_launches = train_driver_phase(counts, reset_counts)
+    for e in entries:
+        e["launches_by_path"]["train_driver"] = driver_launches[e["name"]]
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------ 4 full-width LM train
     torch.cuda.synchronize()
     start_bytes = torch.cuda.memory_allocated()  # what earlier phases still hold: near zero
@@ -1908,6 +1940,7 @@ def main() -> None:
         e["launches"] = sum(e["launches_by_path"].values())
     fwd_by_path = {"csr_op": csr_launches["flash_attention.flash_fwd"],
                    "mse_loop": loop_launches["flash_attention.flash_fwd"],
+                   "train_driver": driver_launches["flash_attention.flash_fwd"],
                    "slab_op": slab_launches["flash_attention.flash_fwd"],
                    "serve": launches["flash_attention.flash_fwd"],
                    "train": train_launches["flash_attention.flash_fwd"],
@@ -1926,6 +1959,7 @@ def main() -> None:
         "bf16_route": "tensor cores (wgmma, TMA)", **flash_build["flash_attention.flash_fwd"]})
     bwd_by_path = {"csr_op": csr_launches["flash_attention.flash_bwd"],
                    "mse_loop": loop_launches["flash_attention.flash_bwd"],
+                   "train_driver": driver_launches["flash_attention.flash_bwd"],
                    "slab_op": slab_launches["flash_attention.flash_bwd"],
                    "serve": launches["flash_attention.flash_bwd"],
                    "train": train_launches["flash_attention.flash_bwd"],
@@ -1943,6 +1977,228 @@ def main() -> None:
     entries[-1]["at"]["fp32"] = bwd_fp32["at"]["fp32"]
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
+
+
+def _step_records(path: Path) -> dict:
+    from repro_torch.obs import read_jsonl
+
+    return {r["step"]: r for r in read_jsonl(path) if r.get("type") == "step" and "metrics" in r}
+
+
+def _shares(recs: list) -> dict:
+    total = sum(r["dur_s"] for r in recs)
+    return {ph: sum(r["spans"].get(ph, 0.0) for r in recs) / total for ph in ("data_wait", "device_step")}
+
+
+def train_driver_phase(counts, reset_counts) -> dict:
+    """The twin of launch/train.py on the card: (a) its run() at published
+    widths over a ColumnIO table under the autoscaler, with telemetry, the
+    aggregator and the Prometheus endpoint; (b) a SIGTERM preemption and a
+    resume against an uninterrupted run; (c) an injected crash of its CLI in
+    a fresh process, exit 42, and a resume; (d) the two benchmark twins.
+    Returns the launch counts of (a)."""
+    import os
+    import signal
+
+    from repro_torch import obs as t_obs
+    from repro_torch.benchmarks import table2_autoscale, table4_obs
+    from repro_torch.checkpoint import saver as saver_lib
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.io.ragged import Ragged
+    from repro_torch.launch import recsys_cell, train as drv
+
+    phase_t0 = time.perf_counter()
+    base = ROOT / "build" / "train_driver"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    arch = dataclasses.replace(dlrm_mlperf.ARCH, model=dataclasses.replace(
+        dlrm_mlperf.ARCH.model, vocab_per_feature=DRIVER_VOCAB))
+    mcfg = arch.model
+    flags = ["--arch", "dlrm-mlperf", "--device", "cuda", "--batch", str(DRIVER_BATCH), "--log-every", "1"]
+
+    def run(extra: list):
+        args = drv.build_parser().parse_args(flags + extra)
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            res, ctl = drv.run(args, arch)
+        return res, ctl, printed.getvalue()
+
+    # (a) the ColumnIO table under the autoscaler, with the observability
+    tel = base / "a.jsonl"
+    tel.touch()  # the aggregator tails the files that exist when it starts
+    t_obs.reset_default_registry()  # the run's own registry (the Trainer's and the loader's)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res, ctl, printed = run(["--steps", str(DRIVER_STEPS), "--data-dir", str(base / "table"),
+                             "--data-rows", str(DRIVER_ROWS), "--io-threads", "1", "--autoscale",
+                             "--autoscale-max", "8", "--telemetry", str(tel), "--snapshot-every", "5",
+                             "--worker-id", "w0", "--aggregate", str(tel), "--prometheus-port", "0"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = counts()
+    recs = _step_records(tel)
+    steps = [recs[k] for k in sorted(recs)]
+    losses = [r["metrics"]["loss"] for r in steps]
+    overflow = {k: sum(r["metrics"][k] for r in steps) for k in steps[0]["metrics"] if "overflow" in k}
+    text = t_obs.render(res.registry)
+    problems = t_obs.validate_exposition(text)
+    agg = ctl.aggregator.refresh()
+    per_step = {k: v / DRIVER_STEPS for k, v in launches.items()}
+    train_s = sum(r["dur_s"] for r in steps)
+    emit({"phase": "train_driver_run", "entry": "repro_torch.launch.train.run", "arch": arch.arch_id,
+          "widths": {"n_dense": mcfg.n_dense, "n_sparse": mcfg.n_sparse, "embed_dim": mcfg.embed_dim,
+                     "bot_mlp": mcfg.bot_mlp, "top_mlp": mcfg.top_mlp},
+          "reduced": {"vocab_per_feature": [4_000_000, DRIVER_VOCAB], "batch": [65_536, DRIVER_BATCH],
+                      "devices": [256, 1]},
+          "batch": DRIVER_BATCH, "table_rows": DRIVER_ROWS, "steps": len(steps), "io_threads_start": 1,
+          "autoscale_actions": [[st, str(a)] for st, a in ctl.actions_log],
+          "readers_final": ctl.loader.n_readers, "loader_overflow": ctl.loader.overflow,
+          "engine_overflow": overflow, "loss_first": losses[0], "loss_last": losses[-1],
+          "shares_first10": _shares(steps[:10]), "shares_last10": _shares(steps[-10:]),
+          "steps_per_s": len(steps) / train_s, "run_s": run_s,
+          "step_ms_p50": float(np.percentile([r["dur_s"] * 1e3 for r in steps], 50)),
+          "launches": launches, "launches_per_step": per_step, "launches_per_step_want": DRIVER_PER_STEP,
+          "exposition_lines": len(text.splitlines()), "exposition_problems": problems,
+          "autoscale_readers_gauge": res.registry.get("autoscale/readers").value,
+          "agg_workers": agg.gauge("agg/workers").value,
+          "agg_skew": {k: v for k, v in agg.snapshot().items() if k.startswith("agg/skew/")},
+          "printed_tail": printed.strip().splitlines()[-4:], "part_s": time.perf_counter() - phase_t0})
+    check(len(steps) == DRIVER_STEPS and res.steps_run == DRIVER_STEPS, f"driver ran {len(steps)} steps")
+    check(all(np.isfinite(losses)), f"driver losses {losses}")
+    check(all(v == 0 for v in overflow.values()) and ctl.loader.overflow == 0,
+          f"driver overflow {overflow} {ctl.loader.overflow}")
+    check(not problems and "recis_autoscale_readers " in text, f"exposition problems {problems[:5]}")
+    check(agg.gauge("agg/workers").value == 1, "the aggregator saw no worker snapshot")
+    check(all(launches[k] == v * DRIVER_STEPS for k, v in DRIVER_PER_STEP.items())
+          and launches["fused_scatter.scatter_set_rows"] > 0, f"driver launches {launches}")
+    del res, ctl
+    torch.cuda.empty_cache()
+    # where the train step's time goes: the cell's step on host batches
+    # (the loader's), the copy to the card inside the step, in a trace
+    cell = recsys_cell.build(arch, ShapeCell("train_batch", "train", {"batch": DRIVER_BATCH}), device="cuda")
+    held = {"state": cell.init_state()}
+
+    def step(b):
+        held["state"], _ = cell.step_fn(held["state"], b)
+
+    host_batches = [{k: Ragged(v.values.cpu(), v.row_splits.cpu()) for k, v in cell.make_batch(s).items()}
+                    for s in range(6)]
+    step(host_batches[0])
+    emit({**profile_requests("train_driver_step", step, host_batches[1:]), "batch": DRIVER_BATCH,
+          "batches_on": "host"})
+    del cell, held, host_batches
+    torch.cuda.empty_cache()
+
+    # (b) preemption: SIGTERM at step 15 (final checkpoint), then a resume
+    # to 30, against an uninterrupted run on the same synthetic batches
+    ck = base / "ckpt_b"
+    sigterm_before = signal.getsignal(signal.SIGTERM)
+    res_u, _, _ = run(["--steps", str(DRIVER_PREEMPT_STEPS), "--telemetry", str(base / "b_u.jsonl")])
+    del res_u
+    torch.cuda.empty_cache()
+    res_p, _, printed_p = run(["--steps", str(DRIVER_PREEMPT_STEPS), "--ckpt-dir", str(ck), "--ckpt-every", "10",
+                               "--chaos-schedule", f"sigterm@step:{DRIVER_SIGTERM_AT}",
+                               "--telemetry", str(base / "b_p.jsonl")])
+    preempted, ran_p = res_p.preempted, res_p.steps_run
+    del res_p
+    torch.cuda.empty_cache()
+    check(signal.getsignal(signal.SIGTERM) == sigterm_before, "the SIGTERM handler was not restored")
+    saved = saver_lib.latest_step(ck)
+    t0 = time.perf_counter()
+    # no in-run save: only the final one (each save of the 3 GB state takes seconds)
+    res_r, _, printed_r = run(["--steps", str(DRIVER_PREEMPT_STEPS), "--ckpt-dir", str(ck), "--ckpt-every", "0",
+                               "--resume", "--telemetry", str(base / "b_r.jsonl")])
+    resumed_from = res_r.resumed_from
+    del res_r
+    torch.cuda.empty_cache()
+    lu, lp, lr = ({k: r["metrics"]["loss"] for k, r in _step_records(base / f).items()}
+                  for f in ("b_u.jsonl", "b_p.jsonl", "b_r.jsonl"))
+    recs_p = t_obs.read_jsonl(base / "b_p.jsonl")  # in-step saves, then the final one
+    ckpt_s = ([r["spans"]["checkpoint"] for r in recs_p if r.get("type") == "step" and "checkpoint" in r["spans"]]
+              + [r["dur_s"] for r in recs_p if r.get("type") == "span" and r.get("name") == "checkpoint"])
+    steps_u = _step_records(base / "b_u.jsonl").values()
+    later = range(DRIVER_SIGTERM_AT + 1, DRIVER_PREEMPT_STEPS + 1)
+    b_err = max(abs(lr[k] - lu[k]) / abs(lu[k]) for k in later) if sorted(lr) == list(later) else None
+    emit({"phase": "train_driver_preempt", "widths": "as train_driver_run", "batch": DRIVER_BATCH,
+          "steps": DRIVER_PREEMPT_STEPS, "sigterm_at": DRIVER_SIGTERM_AT, "preempted": preempted,
+          "steps_run_preempted": ran_p, "checkpoint_step": saved, "resumed_from": resumed_from,
+          "losses_uninterrupted": [lu[k] for k in sorted(lu)], "losses_resumed": [lr[k] for k in sorted(lr)],
+          "resumed_max_rel_err": b_err, "resumed_bit_equal": all(lr.get(k) == lu[k] for k in later),
+          "tolerance": "resumed losses within 1e-5 relative of the uninterrupted run",
+          "step_ms_p50_synthetic_batches": float(np.percentile([r["dur_s"] * 1e3 for r in steps_u], 50)),
+          "checkpoint_span_s": ckpt_s,
+          "printed_preempted": [ln for ln in printed_p.splitlines() if ln.startswith("ran ")],
+          "resume_run_s": time.perf_counter() - t0, "part_s": time.perf_counter() - phase_t0})
+    check(preempted and ran_p == DRIVER_SIGTERM_AT and "PREEMPTED" in printed_p, f"not preempted: {ran_p}")
+    check(saved == DRIVER_SIGTERM_AT, f"the preemption checkpoint is at step {saved}")
+    check(sorted(lp) == list(range(1, DRIVER_SIGTERM_AT + 1))
+          and max(abs(lp[k] - lu[k]) / abs(lu[k]) for k in lp) <= 1e-5,
+          "the preempted run differs from the uninterrupted one before the signal")
+    check(resumed_from == DRIVER_SIGTERM_AT and "resumed from step" in printed_r, f"resumed from {resumed_from}")
+    check(b_err is not None and b_err <= 1e-5, f"resumed losses differ by {b_err}")
+    shutil.rmtree(ck, ignore_errors=True)
+
+    # (c) an injected crash of the CLI in a fresh process (exit 42), then a
+    # resume, against an uninterrupted run of the CLI, at smoke width. Every
+    # step is saved and a save waits for the one before it, so the crash at
+    # step 6 leaves step 4 committed for certain, and step 5 perhaps.
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "dlrm-mlperf", "--device", "cuda",
+           "--steps", str(DRIVER_CRASH_STEPS), "--log-every", "1"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    ck = base / "ckpt_c"
+
+    def cli(extra: list) -> subprocess.Popen:
+        return subprocess.Popen(cmd + extra, env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+
+    t0 = time.perf_counter()
+    procs = [cli(["--telemetry", str(base / "c_u.jsonl")]),
+             cli(["--chaos-schedule", f"crash@step:{DRIVER_CRASH_AT}", "--ckpt-dir", str(ck),
+                  "--ckpt-every", "1", "--telemetry", str(base / "c_a.jsonl")])]
+    (out_u, err_u), (out_a, err_a) = (p.communicate(timeout=300) for p in procs)
+    resume = cli(["--resume", "--ckpt-dir", str(ck), "--ckpt-every", "1", "--telemetry", str(base / "c_r.jsonl")])
+    out_r, err_r = resume.communicate(timeout=300)
+    cli_s = time.perf_counter() - t0
+    rcs = [procs[0].returncode, procs[1].returncode, resume.returncode]
+    cu, ca, cr = ({k: r["metrics"]["loss"] for k, r in _step_records(base / f).items()}
+                  for f in ("c_u.jsonl", "c_a.jsonl", "c_r.jsonl"))
+    c_start = min(cr) - 1 if cr else None
+
+    def c_err(got: dict, want_steps: range):
+        return (max(abs(got[k] - cu[k]) / abs(cu[k]) for k in want_steps)
+                if sorted(got) == list(want_steps) and set(want_steps) <= set(cu) else None)
+
+    err_crashed = c_err(ca, range(1, DRIVER_CRASH_AT))
+    err_resumed = c_err(cr, range(c_start + 1, DRIVER_CRASH_STEPS + 1)) if c_start is not None else None
+    emit({"phase": "train_driver_crash", "cli": " ".join(cmd[1:]), "width": "smoke (batch 64)",
+          "crash_at": DRIVER_CRASH_AT, "ckpt_every": 1, "returncodes": rcs,
+          "crash_printed": out_a.strip().splitlines()[-1:], "resumed_from": c_start,
+          "losses_uninterrupted": [cu[k] for k in sorted(cu)], "losses_crashed": [ca[k] for k in sorted(ca)],
+          "losses_resumed": [cr[k] for k in sorted(cr)], "crashed_steps_max_rel_err": err_crashed,
+          "resumed_steps_max_rel_err": err_resumed,
+          "bit_equal": all(d.get(k) == cu.get(k) for d in (ca, cr) for k in d),
+          "three_processes_s": cli_s, "part_s": time.perf_counter() - phase_t0,
+          "stderr_tail": [e.strip().splitlines()[-3:] for e in (err_u, err_a, err_r) if e.strip()]})
+    check(rcs == [0, drv.CHAOS_EXIT, 0], f"CLI return codes {rcs}: {err_a[-2000:]}")
+    check(f"CHAOS: chaos: crash@step:{DRIVER_CRASH_AT}" in out_a, "the crash was not the injected one")
+    check(c_start in (DRIVER_CRASH_AT - 2, DRIVER_CRASH_AT - 1) and f"resumed from step {c_start}" in out_r,
+          f"the CLI resumed from {c_start}")
+    check(err_crashed is not None and err_crashed <= 1e-5, f"the crashed CLI's steps differ by {err_crashed}")
+    check(err_resumed is not None and err_resumed <= 1e-5, f"the resumed CLI's steps differ by {err_resumed}")
+
+    # (d) the benchmark twins: the autoscaler on a calibrated SimPipeline,
+    # and the telemetry overhead on the MSE cell at batch 128
+    t2 = table2_autoscale.run(steps=400, device="cuda", out=base / "table2_autoscale.json")
+    t4 = table4_obs.run(steps=20, repeats=4, device="cuda", out=base / "table4_obs.json")
+    emit({"phase": "train_driver_benchmarks", "table2_autoscale": t2, "table4_obs": t4,
+          "telemetry_overhead_fraction": t4["overhead_fraction"],
+          "telemetry_budget_note": "budget 0.05, reported, not gated: the MSE step at batch 128 moves by up to 30% "
+                                   "between runs of the same code", "phase_s": time.perf_counter() - phase_t0})
+    check(t2["fixed"]["n_actions"] == 0 and t4["base_steps_per_s"] > 0 and t4["telemetry_steps_per_s"] > 0,
+          "benchmark twins")
+    shutil.rmtree(base / "table", ignore_errors=True)
+    return launches
 
 
 # the CUDA kernel each wrapper launches, by the name the profiler gives it

@@ -8,14 +8,15 @@ moments ``{"m": tree, "v": tree}`` have the params' layout and convert the
 same way (``adamw_from_numpy``). The transformer's tree stacks every layer
 leaf on axis 0; ``transformer_from_numpy`` unstacks it into ``layers.{i}``.
 ``mse_dense_from_numpy`` takes the MSE example's attention projections and
-DNN, and ``mse_dense_to_numpy`` gives them back in the reference's layout.
+DNN. ``linears_to_numpy`` gives any module of linears back in the
+reference's layout, and ``linears_from_numpy`` takes it in again.
 
 Engine rows need no converter: the dict the reference's
 ``EmbeddingEngine.export_rows`` returns is what the port's ``import_rows``
 takes. ``sparse_to_tree`` lays the engine state out as the reference's
 pytree flattens it (a Blocks as ``(emb, (slots by name))``, an IDMap as the
-tuple of its tensor fields), and ``mse_state_to_tree`` the whole MSE train
-state, so a checkpoint holds the reference's leaf names
+tuple of its tensor fields), and ``train_state_to_tree`` a whole MSE or
+DLRM train state, so a checkpoint holds the reference's leaf names
 (``state/dense/attn_k/w``, ``state/sparse/dim8/idmap/2``, ...) and a
 checkpoint of either package restores in the other.
 """
@@ -89,17 +90,32 @@ def mlp_from_numpy(layers: Mapping, dims: tuple[int, ...], prefix: str = "") -> 
     return out
 
 
-def mse_dense_to_numpy(sd: Mapping[str, torch.Tensor]) -> dict:
-    """The inverse of ``mse_dense_from_numpy``: a ``MSEDense`` state dict
-    (or AdamW moments keyed alike) → ``{"attn_q": {"w", "b"}, "attn_k":
-    ..., "dnn": {"l0": ..., ...}}`` with ``w`` (d_in, d_out). The tensors
-    stay where they are (``w`` is a transposed view)."""
-    def lin(name):
-        return {"w": sd[f"{name}.weight"].t(), "b": sd[f"{name}.bias"]}
+def linears_to_numpy(sd: Mapping[str, torch.Tensor]) -> dict:
+    """A state dict of ``nn.Linear`` layers (or AdamW moments keyed alike)
+    → the reference's nested tree: ``a.b.weight`` becomes ``{"a": {"b":
+    {"w": (d_in, d_out)}}}`` and ``a.b.bias`` its ``"b"``. The tensors stay
+    where they are (``w`` is a transposed view)."""
+    out: dict = {}
+    for key, x in sd.items():
+        *path, leaf = key.split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[{"weight": "w", "bias": "b"}[leaf]] = x.t() if leaf == "weight" else x
+    return out
 
-    n_dnn = len({k.split(".")[1] for k in sd if k.startswith("dnn.")})
-    return {"attn_q": lin("attn_q"), "attn_k": lin("attn_k"),
-            "dnn": {f"l{i}": lin(f"dnn.l{i}") for i in range(n_dnn)}}
+
+def linears_from_numpy(tree: Mapping, prefix: str = "") -> dict[str, torch.Tensor]:
+    """The inverse of ``linears_to_numpy``: the reference's nested tree of
+    numpy leaves → a state dict on the CPU, ``w`` transposed."""
+    out = {}
+    for key, x in tree.items():
+        if isinstance(x, Mapping):
+            out.update(linears_from_numpy(x, f"{prefix}{key}."))
+        else:
+            a = np.asarray(x, dtype=np.float32)
+            out[prefix + {"w": "weight", "b": "bias"}[key]] = torch.tensor(a.T if key == "w" else a)
+    return out
 
 
 def sparse_to_tree(sparse: Mapping) -> dict:
@@ -126,25 +142,30 @@ def sparse_from_tree(tree: Mapping, like: Mapping, device) -> dict:
     return out
 
 
-def mse_state_to_tree(state: Mapping) -> dict:
-    """The twin's MSE train state ``{"step", "dense": MSEDense, "opt":
-    {"m", "v"}, "sparse"}`` in the layout of the reference example's state."""
-    return {"step": state["step"], "dense": mse_dense_to_numpy(state["dense"].state_dict()),
-            "opt": {k: mse_dense_to_numpy(state["opt"][k]) for k in ("m", "v")},
+def train_state_to_tree(state: Mapping) -> dict:
+    """A train state ``{"step", "dense": module of linears, "opt": {"m",
+    "v"}, "sparse"}`` (the MSE example's twin, or the recsys cell's with its
+    engine state stacked [1, ...]) in the layout of the reference's state."""
+    return {"step": state["step"], "dense": linears_to_numpy(state["dense"].state_dict()),
+            "opt": {k: linears_to_numpy(state["opt"][k]) for k in ("m", "v")},
             "sparse": sparse_to_tree(state["sparse"])}
 
 
-def mse_state_from_tree(tree: Mapping, state: Mapping) -> dict:
-    """The inverse of ``mse_state_to_tree``: the reference-layout tree of
+def train_state_from_tree(state: Mapping, tree: Mapping) -> dict:
+    """The inverse of ``train_state_to_tree``: the reference-layout tree of
     numpy leaves loaded into ``state`` (its module and AdamW moments in
-    place, a new step and engine state on the same device)."""
+    place, a new step and engine state on the same device); a cell's
+    ``load_state_tree``."""
     model = state["dense"]
-    device = model.attn_q.weight.device
-    model.load_state_dict(mse_dense_from_numpy(tree["dense"]))
+    device = next(model.parameters()).device
+    model.load_state_dict(linears_from_numpy(tree["dense"]))
     with torch.no_grad():
         for k in ("m", "v"):
-            for name, x in mse_dense_from_numpy(tree["opt"][k]).items():
-                state["opt"][k][name].copy_(x)
+            for name, x in linears_from_numpy(tree["opt"][k]).items():
+                dst = state["opt"][k][name]
+                if dst.shape != x.shape:
+                    raise ValueError(f"opt/{k}/{name}: shape {tuple(x.shape)}, state has {tuple(dst.shape)}")
+                dst.copy_(x)
     return {"step": torch.tensor(np.asarray(tree["step"]), dtype=torch.int32, device=device),
             "dense": model, "opt": state["opt"],
             "sparse": sparse_from_tree(tree["sparse"], state["sparse"], device)}

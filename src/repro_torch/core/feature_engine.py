@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.io.ragged import Ragged
 from repro_torch.kernels.fused_transform import ops as ft_ops
+from repro_torch.kernels.fused_transform.ref import offset_index
 
 _U64 = 1 << 64
 
@@ -114,14 +115,21 @@ class FeatureSpec:
             raise ValueError(f"{self.name}: cross needs cross_of")
 
 
+def _jnp_take(table: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``table[i]`` as the reference's ``jnp`` indexing reads it: a negative
+    index counts from the end once, then the index is clamped into the
+    table, so no column id raises."""
+    return table[offset_index(i.long(), table.shape[0] - 1)]
+
+
 def fused_hash(values: torch.Tensor, column_ids: torch.Tensor, salts: torch.Tensor) -> torch.Tensor:
     """All hash columns in one op: ids ^= per-column salt, then mix."""
-    return splitmix64(values.to(torch.int64) ^ salts[column_ids])
+    return splitmix64(values.to(torch.int64) ^ _jnp_take(salts, column_ids))
 
 
 def fused_mod(values: torch.Tensor, column_ids: torch.Tensor, vocab_sizes: torch.Tensor) -> torch.Tensor:
     v = values.to(torch.int64)
-    m = vocab_sizes[column_ids].to(torch.int64)
+    m = _jnp_take(vocab_sizes, column_ids).to(torch.int64)
     return torch.where(m > 0, v.abs() % m.clamp(min=1), v)
 
 
@@ -136,9 +144,10 @@ def fused_bucketize(
     (``boundary_offsets[c]:boundary_offsets[c+1]``). Bins are right-open.
 
     The reference's plain version, kept for the tests: it reads the offsets
-    on the host. ``FeatureEngine`` runs the fused_transform kernel's op."""
-    starts = boundary_offsets[column_ids]
-    ends = boundary_offsets[column_ids + 1]
+    on the host. ``FeatureEngine`` runs the fused_transform kernel's op.
+    The offsets are read as ``jnp`` reads them (``_jnp_take``)."""
+    starts = _jnp_take(boundary_offsets, column_ids)
+    ends = _jnp_take(boundary_offsets, column_ids.long() + 1)
     widths = np.diff(boundary_offsets.cpu().numpy())
     max_w = int(widths.max()) if widths.size else 1
     n_steps = int(np.ceil(np.log2(max(max_w, 2))) + 1)

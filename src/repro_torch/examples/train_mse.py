@@ -208,14 +208,9 @@ class MSECell:
                 "opt": adamw.init(dict(model.named_parameters())),
                 "sparse": local_view(self.engine.init_state())}
 
-    @staticmethod
-    def state_tree(state: dict) -> dict:
-        """The state in the reference example's layout (``convert``)."""
-        return convert.mse_state_to_tree(state)
-
-    @staticmethod
-    def load_state_tree(state: dict, tree: Mapping) -> dict:
-        return convert.mse_state_from_tree(tree, state)
+    # the state in the reference example's layout, and back
+    state_tree = staticmethod(convert.train_state_to_tree)
+    load_state_tree = staticmethod(convert.train_state_from_tree)
 
 
 def main(argv=None) -> dict:

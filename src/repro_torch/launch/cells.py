@@ -3,7 +3,7 @@ shape-name, device) → assembled Cell."""
 from __future__ import annotations
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import ShapeCell
+from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.launch.common import Cell, CellOptions
 
 
@@ -13,7 +13,13 @@ def build_cell(arch_id: str, shape_name: str, opts: CellOptions = CellOptions(),
     """Runs on ``cuda`` unless ``device`` names another device; raises when
     no card is present and no device was named."""
     arch = get_config(arch_id, smoke=smoke)
-    shape = shape_override or arch.shape(shape_name)
+    return build_arch_cell(arch, shape_override or arch.shape(shape_name), opts, device)
+
+
+def build_arch_cell(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
+                    device=None) -> Cell:
+    """``build_cell`` for a config the caller made (published widths, a cut
+    vocab)."""
     if arch.family == "recsys":
         from repro_torch.launch import recsys_cell
 

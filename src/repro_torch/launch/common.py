@@ -32,6 +32,10 @@ class Cell:
     make_batch: Callable[..., Any]      # (seed, vocab=...) -> batch on device
     ids_fn: Callable[[Any], Any]        # batch -> {feature: Ragged} engine input
     engine: Any = None
+    returns_state: bool = True          # False: a serve step, outputs only (the Trainer's contract)
+    # the state in the reference cell's pytree layout, and back, for checkpoints
+    state_tree: Callable[[Any], Any] | None = None
+    load_state_tree: Callable[[Any, Any], Any] | None = None
 
 
 def round_up(x: int, m: int) -> int:

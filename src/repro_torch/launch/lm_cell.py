@@ -127,7 +127,8 @@ def make_prefill_cell(arch: ArchConfig, shape: ShapeCell, opts: CellOptions,
                 "cache_v": v.to(torch.bfloat16), **met}
 
     return Cell(arch=arch, shape=shape, device=device, step_fn=serve_step, init_state=init_fn,
-                make_batch=_batch_maker(cfg, B, T, device), ids_fn=_tokens, engine=engine)
+                make_batch=_batch_maker(cfg, B, T, device), ids_fn=_tokens, engine=engine,
+                returns_state=False)
 
 
 def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),

@@ -7,7 +7,10 @@ the loss in the dense params and the compact rows ``rows_r``, and applies
 AdamW and SparseAdam. Blocks are updated in place, through views of the
 stacked state; the IDMap is new each step.
 
-Batch convention: {column: Ragged} on the cell's device.
+Batch convention: {column: Ragged}. The serve step takes it on the cell's
+device; the train step moves it there itself, so a loader's CPU batches
+reach the card inside the step (the Trainer's ``device_step`` span), as the
+reference's jitted step takes host arrays.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch import convert
 from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.core.embedding_engine import EmbeddingEngine, EngineConfig
 from repro_torch.core.feature_engine import FeatureEngine, FeatureSpec
@@ -134,6 +138,7 @@ def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
 
     def train_step(state, batch):
         # no_grad, not inference_mode: the plans and rows are saved for backward
+        batch = {k: Ragged(v.values.to(device), v.row_splits.to(device)) for k, v in batch.items()}
         step = state["step"] + 1
         with torch.no_grad():
             ids, _ = pl.prepared(batch)
@@ -164,5 +169,7 @@ def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
     step_fn = train_step if train else serve_step
     cell = Cell(arch=arch, shape=shape, device=device, step_fn=step_fn, init_state=init_fn,
                 make_batch=pl.make_batch, ids_fn=lambda batch: pl.prepared(batch)[0],
-                engine=pl.engine)
+                engine=pl.engine, returns_state=train,
+                state_tree=convert.train_state_to_tree if train else None,
+                load_state_tree=convert.train_state_from_tree if train else None)
     return cell

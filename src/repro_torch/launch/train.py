@@ -1,0 +1,295 @@
+"""End-to-end train driver (twin of ``repro/launch/train.py``): --arch/--shape
+→ cell → Trainer loop, on the card unless ``--device cpu``.
+
+It runs the reduced (smoke) config of the arch, as the reference does on
+its CPU container. The flags are the reference's, with ``--device`` added;
+``main`` parses them and calls ``run(args, arch)`` with the smoke config,
+and a caller that wants another config (published widths, a cut vocab)
+calls ``run`` itself.
+
+With ``--data-dir`` (recsys archs) batches stream from a ColumnIO table
+through an AsyncLoader instead of the synthetic generator; ``--autoscale``
+then closes the loop with a ``PipelineController`` (DESIGN.md §10) that
+resizes the reader pool and rebalances shards from the registry's
+step-edge signals. The loader's batches stay on the host: the train step
+moves each to the card, so the copy is timed in ``device_step``, not in the
+``data_wait`` the controller reads.
+
+Two deliberate differences from the reference:
+
+  * the reference builds its loader before it resumes, and checkpoints the
+    producer-side ``cursor``; the twin builds the loader after the resume,
+    from the restored consumer-side ``position``, and checkpoints that, so
+    a resumed run (one loader thread) trains on the batches an
+    uninterrupted run would have;
+  * the synthesized table's row groups hold at least one batch (the
+    reference writes 256-row groups, which give no whole batch, and so no
+    batch at all, for ``--batch`` above 256).
+
+``--ckpt-mode delta`` waits for the incremental checkpoints (ROADMAP A4).
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf \\
+      --steps 100 --batch 256 --ckpt-dir /tmp/ckpt [--resume] [--device cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import pathlib
+import sys
+
+from repro_torch import obs
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs.base import ShapeCell
+from repro_torch.ft.chaos import InjectedCrash
+from repro_torch.launch.cells import build_arch_cell
+from repro_torch.launch.common import resolve_device
+from repro_torch.pipelines import TrainConfig, Trainer
+
+CHAOS_EXIT = 42  # an injected crash is "the process died here" — not an error
+ROWS_PER_GROUP = 256  # the reference's row groups for a synthesized table
+
+
+def smoke_shape(arch, shape_name: str | None, batch: int, seq_len: int) -> ShapeCell:
+    fam = arch.family
+    if fam == "lm":
+        return ShapeCell(shape_name or "train_4k", "train",
+                         {"seq_len": seq_len, "global_batch": batch})
+    if fam == "recsys":
+        return ShapeCell(shape_name or "train_batch", "train", {"batch": batch})
+    return ShapeCell(shape_name or "molecule", "graph_batch",
+                     {"n_nodes": 12, "n_edges": 24, "batch": batch,
+                      "d_feat": 16, "n_classes": 2})
+
+
+def _with_step_chaos(stream, chaos, start: int):
+    """Fire the schedule's step events as the trainer pulls batches: the
+    batch yielded k-th becomes trainer step ``start + k``."""
+    step = start
+    for batch in stream:
+        step += 1
+        chaos.on_step(step)
+        yield batch
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser()
+    p.add_argument("--arch", required=True, choices=ARCH_IDS)
+    p.add_argument("--shape", default=None)
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--batch", type=int, default=64)
+    p.add_argument("--seq-len", type=int, default=128)
+    p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--ckpt-every", type=int, default=50)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--use-pallas", action="store_true",
+                   help="accepted for the reference's command lines: the port "
+                        "always runs its CUDA kernels on the card (and their "
+                        "plain versions on the CPU)")
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the card; no CPU fallback)")
+    p.add_argument("--telemetry", default=None, metavar="PATH",
+                   help="write a JSONL step-phase trace (DESIGN.md §9)")
+    p.add_argument("--console-every", type=int, default=0,
+                   help="print a registry report every N steps")
+    p.add_argument("--profile-spans", action="store_true",
+                   help="bridge step-phase spans to torch.profiler")
+    # ColumnIO data path + pipeline autoscaler (DESIGN.md §10)
+    p.add_argument("--data-dir", default=None, metavar="DIR",
+                   help="stream batches from a ColumnIO table (synthesized "
+                        "there on first use; recsys archs only)")
+    p.add_argument("--data-rows", type=int, default=8192,
+                   help="rows to synthesize when --data-dir is empty")
+    p.add_argument("--data-parts", type=int, default=4,
+                   help="part files when synthesizing the table")
+    p.add_argument("--io-threads", type=int, default=2,
+                   help="initial AsyncLoader reader threads")
+    p.add_argument("--prefetch", type=int, default=8,
+                   help="AsyncLoader prefetch-queue capacity")
+    p.add_argument("--autoscale", action="store_true",
+                   help="closed-loop reader-pool autoscaler (needs --data-dir)")
+    p.add_argument("--autoscale-min", type=int, default=1,
+                   help="reader-pool floor")
+    p.add_argument("--autoscale-max", type=int, default=8,
+                   help="reader-pool ceiling")
+    # fault tolerance (DESIGN.md §13)
+    p.add_argument("--ckpt-mode", choices=("full", "delta"), default="full",
+                   help="full = sharded snapshot saver; delta = incremental "
+                        "dirty-row frames (not ported yet: ROADMAP A4)")
+    p.add_argument("--chaos-schedule", default=None, metavar="SPEC",
+                   help="deterministic fault injection, e.g. "
+                        "'crash@step:12,sigterm@step:40' (frame, manifest "
+                        "and head sites fire only in delta mode) "
+                        f"(an injected crash exits {CHAOS_EXIT})")
+    # cross-process telemetry (DESIGN.md §12)
+    p.add_argument("--worker-id", default=None, metavar="ID",
+                   help="worker id stamped on telemetry snapshots")
+    p.add_argument("--snapshot-every", type=int, default=0, metavar="N",
+                   help="emit a mergeable registry snapshot every N steps "
+                        "(needs --telemetry; 0 = off)")
+    p.add_argument("--prometheus-port", type=int, default=None, metavar="P",
+                   help="serve GET /metrics for scraping (0 = ephemeral)")
+    p.add_argument("--aggregate", nargs="*", default=None, metavar="GLOB",
+                   help="tail peer telemetry files; publishes agg/* and "
+                        "gates the autoscaler on the fleet queue")
+    return p
+
+
+def main(argv=None) -> int:
+    p = build_parser()
+    args = p.parse_args(argv)
+    if args.snapshot_every and not args.telemetry:
+        p.error("--snapshot-every requires --telemetry (snapshots ride the "
+                "JSONL trace)")
+    if args.autoscale and not args.data_dir:
+        p.error("--autoscale requires --data-dir (nothing to scale without "
+                "an AsyncLoader)")
+    run(args, get_config(args.arch, smoke=True))
+    return 0
+
+
+def _make_loader(args, arch, cursor):
+    """The AsyncLoader over ``--data-dir`` (synthesized there on first
+    use), its budgets the cell's, from the restored position."""
+    from repro_torch.io import datagen
+    from repro_torch.io.columnio import AsyncLoader, BatchSpec
+    from repro_torch.launch.recsys_cell import _ids_per_row, _model_mod
+
+    table = pathlib.Path(args.data_dir)
+    model_specs = _model_mod(arch.arch_id).feature_specs(arch.model)
+    if not any(table.glob("part-*.col")):
+        gens = datagen.gen_for_specs(model_specs, seq_mean_len=4.0)
+        datagen.write_table(table, gens, n_rows=args.data_rows,
+                            rows_per_group=max(ROWS_PER_GROUP, args.batch),
+                            n_parts=args.data_parts)
+        print(f"synthesized table: {table} ({args.data_rows} rows, "
+              f"{args.data_parts} parts)")
+    # the loader pads every column to the cell's budget (batch * ids-per-row)
+    bspec = BatchSpec(batch_rows=args.batch,
+                      nnz_budget={s.name: args.batch * _ids_per_row(s)
+                                  for s in model_specs})
+    cursor = cursor or {}
+    return AsyncLoader(table, bspec, n_threads=args.io_threads,
+                       prefetch=args.prefetch, loop=True,
+                       start_part=cursor.get("part", 0),
+                       start_group=cursor.get("group", 0),
+                       start_batch=cursor.get("batch", 0))
+
+
+def run(args: argparse.Namespace, arch):
+    """Train ``arch`` (an ``ArchConfig``) as the flags say; returns the
+    ``TrainResult`` and the ``PipelineController`` (None without
+    ``--autoscale``). An injected crash ends the process with CHAOS_EXIT."""
+    if args.ckpt_mode == "delta":
+        raise NotImplementedError(
+            "--ckpt-mode delta waits for the port of ft/delta.py, dirty, hooks "
+            "and recovery (ROADMAP A4); use --ckpt-mode full")
+    if args.data_dir and arch.family != "recsys":
+        raise ValueError("--data-dir is a recsys-family data path")
+    device = resolve_device(args.device)
+    shape = smoke_shape(arch, args.shape, args.batch, args.seq_len)
+    cell = build_arch_cell(arch, shape, device=device)
+    if args.ckpt_dir and cell.state_tree is None:
+        raise NotImplementedError(
+            f"checkpoints of the {arch.family} train cell are not ported yet")
+
+    step_chaos = None
+    if args.chaos_schedule:
+        from repro_torch.ft import ChaosSchedule, StepChaos
+        sched = ChaosSchedule.parse(args.chaos_schedule)
+        step_chaos = StepChaos(sched)  # io sites fire only in delta mode
+        print(f"chaos schedule: {sched}")
+
+    tcfg = TrainConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                       ckpt_every=args.ckpt_every, resume=args.resume,
+                       log_every=args.log_every,
+                       telemetry_path=args.telemetry,
+                       console_every=args.console_every,
+                       profile_spans=args.profile_spans,
+                       worker=args.worker_id,
+                       snapshot_every=args.snapshot_every,
+                       ft_mode=args.ckpt_mode)
+    trainer = Trainer(cell, tcfg)
+    exporter = None
+    if args.prometheus_port is not None:
+        exporter = obs.PrometheusExporter(trainer.registry,
+                                          port=args.prometheus_port)
+        print(f"prometheus: serving /metrics on port {exporter.start()}")
+
+    state = cell.init_state()
+    state, start, cursor = trainer.try_resume(state)
+    if start:
+        print(f"resumed from step {start} (cursor={cursor})")
+
+    loader = controller = None
+    if args.data_dir:
+        loader = _make_loader(args, arch, cursor)
+        if args.autoscale:
+            from repro_torch.io.autoscale import AutoscaleConfig, PipelineController
+            aggregator = None
+            if args.aggregate is not None:
+                aggregator = obs.TelemetryAggregator()
+                for pat in args.aggregate:
+                    aggregator.discover(pat)
+            controller = PipelineController(
+                loader, AutoscaleConfig(min_readers=args.autoscale_min,
+                                        max_readers=args.autoscale_max),
+                aggregator=aggregator)
+            trainer.controller = controller
+
+    def batches():
+        s = args.seed + start
+        while True:
+            yield cell.make_batch(s)
+            s += 1
+
+    stream = iter(loader) if loader is not None else batches()
+    if step_chaos is not None:
+        stream = _with_step_chaos(stream, step_chaos, start)
+    cursor_fn = ((lambda: loader.position) if loader is not None
+                 else (lambda: {"part": 0, "group": 0}))
+    try:
+        res = trainer.run(state, stream, start_step=start,
+                          cursor_fn=cursor_fn, install_signals=True)
+    except InjectedCrash as e:
+        # stands in for SIGKILL: nothing that would normally run on the
+        # way out (final save, GC, loader drain) may run after it
+        print(f"CHAOS: {e}", flush=True)
+        os._exit(CHAOS_EXIT)
+    if loader is not None:
+        loader.stop()
+    if exporter is not None:
+        exporter.stop()
+    for m in res.metrics_history[-5:]:
+        print({k: round(v, 5) if isinstance(v, float) else v for k, v in m.items()})
+    print(f"ran {res.steps_run} steps"
+          + (f", resumed from {res.resumed_from}" if res.resumed_from else "")
+          + (", PREEMPTED" if res.preempted else ""))
+    if res.straggler_events:
+        print(f"straggler events: {len(res.straggler_events)}")
+        for ev in res.straggler_events[-3:]:
+            print(f"  step {ev.step}: {ev.wall_s*1e3:.1f}ms "
+                  f"(thresh {ev.threshold*1e3:.1f}ms, phase={ev.phase})")
+    # phase timeline summary from the unified registry (DESIGN.md §9)
+    snap = res.registry.snapshot()
+    for name in sorted(snap):
+        if name.startswith("trace/") and isinstance(snap[name], dict) \
+                and snap[name].get("count"):
+            s = snap[name]
+            print(f"{name:28s} p50={s['p50']*1e3:8.3f}ms "
+                  f"p99={s['p99']*1e3:8.3f}ms total={s['sum']:.3f}s")
+    if controller is not None:
+        print(f"autoscale: {len(controller.actions_log)} actions, "
+              f"final readers={loader.n_readers}")
+        for s, act in controller.actions_log:
+            print(f"  step {s}: {act}")
+    if args.telemetry:
+        print(f"telemetry trace: {args.telemetry}")
+    return res, controller
+
+
+if __name__ == "__main__":
+    sys.exit(main())

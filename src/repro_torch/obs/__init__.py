@@ -11,9 +11,13 @@ DESIGN.md §9): the modules the training loop reports through.
     periodic human-readable reporting (telemetry.py, a copy).
   * ``AnomalyDetector`` — rolling median/MAD per-phase gate feeding the
     watchdog ring buffer (anomaly.py).
-
-The reference's ``aggregator``, ``prometheus`` and ``mbu_bridge`` are not
-ported yet.
+  * ``record_mbu`` / ``record_roofline`` — fold kernel-quality numbers
+    into the same namespace (mbu_bridge.py, a copy).
+  * ``TelemetryAggregator`` — tails per-worker JSONL, merges into one
+    registry, derives ``agg/skew/<phase>`` + straggler attribution
+    (aggregator.py, a copy).
+  * ``render`` / ``PrometheusExporter`` — Prometheus text exposition +
+    stdlib scrape endpoint (prometheus.py, a copy).
 
 A process-wide default registry lets far-apart components (an AsyncLoader
 thread, the AsyncSaver, the Trainer) share one sink without plumbing;
@@ -22,9 +26,14 @@ it down, or call ``reset_default_registry``.
 """
 from __future__ import annotations
 
+from repro_torch.obs.aggregator import TelemetryAggregator  # noqa: F401
 from repro_torch.obs.anomaly import AnomalyDetector  # noqa: F401
+from repro_torch.obs.mbu_bridge import record_mbu, record_roofline  # noqa: F401
 from repro_torch.obs.merge import (  # noqa: F401
     SNAPSHOT_VERSION, RegistrySnapshot, merge_snapshots,
+)
+from repro_torch.obs.prometheus import (  # noqa: F401
+    PrometheusExporter, mangle, render, validate_exposition,
 )
 from repro_torch.obs.registry import (  # noqa: F401
     Counter, Gauge, Histogram, MetricsRegistry, NAME_RE, check_name,

@@ -84,6 +84,48 @@ def test_fused_hash_and_mod_bit_equal():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("c", [1, 2, 5])
+def test_fused_ops_read_out_of_range_column_ids_as_jnp(c):
+    """Every column id from -(C+3) to C+2 and the int32 extremes: the
+    per-column tables are read as jnp reads them (a negative id counts from
+    the end once, then clamps), so the hash, the mod and the bucketize
+    mirror give the JAX package's output and raise on none of them."""
+    r = np.random.default_rng(40 + c)
+    ids = np.concatenate([np.arange(-(c + 3), c + 3), [np.iinfo(np.int32).max, np.iinfo(np.int32).min]])
+    cids = np.repeat(ids, 9).astype(np.int32)
+    x = r.integers(I64.min, I64.max, size=cids.size, dtype=np.int64)
+    salts = r.integers(I64.min, I64.max, size=c, dtype=np.int64)
+    vocab = np.concatenate([[0], r.integers(1, 1000, size=c - 1)]).astype(np.int64)
+    got = t_fe.fused_hash(torch.from_numpy(x), torch.from_numpy(cids), torch.from_numpy(salts))
+    want = j_fe.fused_hash(jnp.asarray(x), jnp.asarray(cids), jnp.asarray(salts.view(np.uint64)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    got = t_fe.fused_mod(torch.from_numpy(x), torch.from_numpy(cids), torch.from_numpy(vocab))
+    want = j_fe.fused_mod(jnp.asarray(x), jnp.asarray(cids), jnp.asarray(vocab))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    widths = r.integers(0, 9, size=c)
+    flat = np.concatenate([np.sort(r.normal(size=w)) for w in widths]).astype(np.float32)
+    offs = np.concatenate([[0], np.cumsum(widths)]).astype(np.int32)
+    vals = r.normal(scale=2.0, size=cids.size).astype(np.float32)
+    vals[::9] = np.inf
+    got = t_fe.fused_bucketize(*(torch.from_numpy(a) for a in (vals, cids, flat, offs)))
+    want = j_fe.fused_bucketize(*(jnp.asarray(a) for a in (vals, cids, flat, offs)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_fused_hash_and_mod_on_the_out_of_range_example():
+    """C 2, salts [11, 22], vocab sizes [5, 3], values [7, 7], ids [-3, 2]:
+    the ids read columns 0 and 1, as in the JAX package."""
+    x, cids = np.array([7, 7], np.int64), np.array([-3, 2], np.int32)
+    salts, vocab = np.array([11, 22], np.int64), np.array([5, 3], np.int64)
+    got = t_fe.fused_mod(torch.from_numpy(x), torch.from_numpy(cids), torch.from_numpy(vocab))
+    np.testing.assert_array_equal(got.numpy(), [2, 1])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(j_fe.fused_mod(
+        jnp.asarray(x), jnp.asarray(cids), jnp.asarray(vocab))))
+    got = t_fe.fused_hash(torch.from_numpy(x), torch.from_numpy(cids), torch.from_numpy(salts))
+    in_range = j_fe.fused_hash(jnp.asarray(x), jnp.asarray(np.array([0, 1], np.int32)), jnp.asarray(salts))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(in_range))
+
+
 def test_fused_bucketize_bit_equal_on_boundaries():
     bounds = [[-1.0, 0.0, 0.5, 2.0], [10.0], [-3.0, -2.0, -1.0, 0.0, 1.0, 2.0, 3.0]]
     flat = np.array(sum(bounds, []), dtype=np.float32)

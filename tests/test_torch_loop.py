@@ -215,7 +215,7 @@ def test_loader_position_resumes_the_stream(runs):
 # --------------------------------------------------------------- checkpoints
 def test_state_tree_has_the_reference_names_and_values(runs):
     jflat = j_saver._flatten(runs["jres"].state)
-    tflat = t_saver._flatten(convert.mse_state_to_tree(runs["tres"].state))
+    tflat = t_saver._flatten(convert.train_state_to_tree(runs["tres"].state))
     assert len(jflat) == 53 and list(tflat) == list(jflat)
 
     def group(k):  # dense params, each AdamW moment, each engine tensor
@@ -242,9 +242,9 @@ def test_checkpoints_restore_across_packages(runs, tmp_path):
     j_saver.save({"state": jstate, "cursor": {"part": 1, "group": 1}, "saved_step": np.int64(STEPS)},
                  tmp_path / "j", STEPS, n_shards=3)
     cell, fresh = _t_cell()
-    like = {"state": convert.mse_state_to_tree(fresh), "cursor": {"part": 0, "group": 0}, "saved_step": np.int64(0)}
-    got = convert.mse_state_from_tree(t_saver.restore(tmp_path / "j", like)["state"], fresh)
-    for k, v in t_saver._flatten(convert.mse_state_to_tree(got)).items():
+    like = {"state": convert.train_state_to_tree(fresh), "cursor": {"part": 0, "group": 0}, "saved_step": np.int64(0)}
+    got = convert.train_state_from_tree(fresh, t_saver.restore(tmp_path / "j", like)["state"])
+    for k, v in t_saver._flatten(convert.train_state_to_tree(got)).items():
         np.testing.assert_array_equal(v, jflat[k], err_msg=k)
     cell, fresh = _t_cell()
     tr = t_trainer.Trainer(cell, t_trainer.TrainConfig(ckpt_dir=str(tmp_path / "j")), registry=t_obs.MetricsRegistry())
@@ -253,8 +253,8 @@ def test_checkpoints_restore_across_packages(runs, tmp_path):
     assert torch.equal(state["sparse"]["dim8"]["blocks"].emb, torch.tensor(jflat["sparse/dim8/blocks/0"]))
 
     tstate = runs["tres"].state
-    tflat = t_saver._flatten(convert.mse_state_to_tree(tstate))
-    t_saver.save({"state": convert.mse_state_to_tree(tstate), "cursor": {"part": 0, "group": 1, "batch": 1},
+    tflat = t_saver._flatten(convert.train_state_to_tree(tstate))
+    t_saver.save({"state": convert.train_state_to_tree(tstate), "cursor": {"part": 0, "group": 1, "batch": 1},
                   "saved_step": np.int64(STEPS)}, tmp_path / "t", STEPS, n_shards=4)
     like = {"state": j_mse.MSECell().init_state(), "cursor": {"part": 0, "group": 0}, "saved_step": np.int64(0)}
     back = j_saver.restore(tmp_path / "t", like)
@@ -284,8 +284,8 @@ def test_resumed_run_equals_the_uninterrupted_run(runs, tmp_path):
     whole = runs["tres"].metrics_history
     got = first.metrics_history + second.metrics_history
     assert [(m["step"], m["loss"]) for m in got] == [(m["step"], m["loss"]) for m in whole]
-    a = t_saver._flatten(convert.mse_state_to_tree(second.state))
-    b = t_saver._flatten(convert.mse_state_to_tree(runs["tres"].state))
+    a = t_saver._flatten(convert.train_state_to_tree(second.state))
+    b = t_saver._flatten(convert.train_state_to_tree(runs["tres"].state))
     for k in b:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 

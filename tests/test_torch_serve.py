@@ -1,5 +1,6 @@
 """The dlrm-mlperf smoke serve cell, JAX package against the PyTorch port on
 the CPU: same imported engine rows, same dense params, same batches."""
+import ast
 import os
 import subprocess
 import sys
@@ -158,6 +159,28 @@ def test_port_imports_neither_jax_nor_repro():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20
+
+
+def _imported_roots(path: Path) -> set[str]:
+    """The top-level package of every import in ``path``, at any depth of
+    the file (inside functions too), read from its syntax tree."""
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("name", ["chip_smoke.py"] + sorted(
+    p.name for p in (Path(__file__).resolve().parents[1] / "scripts").glob("*.py")))
+def test_card_scripts_import_neither_jax_nor_repro(name):
+    root = Path(__file__).resolve().parents[1]
+    path = root / name if name == "chip_smoke.py" else root / "scripts" / name
+    roots = _imported_roots(path)
+    assert not roots & {"jax", "jaxlib", "repro"}, sorted(roots)
+    assert "torch" in roots
 
 
 def test_build_cell_without_card_raises(monkeypatch):
