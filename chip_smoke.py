@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""The PyTorch port serving and training dlrm-mlperf, training the MSE
-ranking model of examples/train_mse.py (its step at full size, its main()
-with checkpoints and a resume), and serving the qwen2.5-3b prefill and
-training qwen2.5-3b, on one NVIDIA card, through its own CUDA kernels.
+"""The PyTorch port serving and training dlrm-mlperf (all on the device and
+over a tiered store), training the MSE ranking model of
+examples/train_mse.py (its step at full size, its main() with checkpoints
+and a resume), running the online-window example, and serving the
+qwen2.5-3b prefill and training qwen2.5-3b, on one NVIDIA card, through its
+own CUDA kernels.
 
     python3 chip_smoke.py [--save-inputs DIR]
 
@@ -95,6 +97,22 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 uninterrupted CLI run; then the benchmark twins
                 (the autoscaler on a calibrated SimPipeline, the telemetry
                 overhead at the MSE cell's batch of 128);
+     tiered   — full-width train_batch with a tiered engine (a device tier
+                of 524,288 rows over the host-DRAM tier, LRU), 12 steps
+                through the Trainer and the cell's storage hooks against the
+                all-device cell on the same batches: losses and the union
+                export (ids, emb, m, v, last use) bit-equal, zero overflow
+                and unplaceable ids, the launches held to what the store's
+                demote and promote calls and the steps imply; evict_to_host
+                at steps 10 and 12, each spilling exactly the device rows the
+                export counts; a 13th step that promotes the spilled rows it
+                touches, bit-equal again; evict_local on the all-device
+                state; the row gather and scatter set measured at step 6's
+                demote and promote shapes (phase 5);
+     window   — the online-window twin's main() (5 windows of 120 steps):
+                pre-train evals, post-train losses, live rows after each
+                eviction, its launches; its first window on the card
+                against the CPU in FP32 (within 1e-5) and in MIXED;
      lm train — full-width qwen2.5-3b train_4k (T 4,096, batch cut to 1)
                 from a fresh state on an emptied card: 2 warm-up and 5
                 timed steps with the kernels' launch counts, state and
@@ -128,6 +146,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import re
@@ -261,6 +280,17 @@ OP_COLS, OP_VALS = 100, 2_000
 DRIVER_VOCAB, DRIVER_BATCH, DRIVER_ROWS = 50_000, 8_192, 65_536
 DRIVER_STEPS, DRIVER_PREEMPT_STEPS, DRIVER_SIGTERM_AT = 40, 30, 15
 DRIVER_CRASH_STEPS, DRIVER_CRASH_AT = 12, 6
+# The tiered train (full_tiered_train): dlrm-mlperf train_batch at published
+# widths over a device tier of 524,288 rows (about 22% of the 2.4 M rows live
+# after 12 steps), the kernels measured at step 6's demote and promote, the
+# stale spill at step 10; the online window's first window, card against CPU:
+# within 1e-5 in FP32, and in the example's MIXED (bf16 sums in another
+# order) within 8e-4, set between the largest of four sound dense seeds
+# (3.51e-4) and the same run in the other compute type (1.74e-3, the fault
+# of a card path that ignores MIXED), which each run also holds above it
+# (scripts/window_precision_spread.py)
+TIER_ROWS, TIER_STEPS, TIER_MID_STEP, TIER_EVICT_AT = 524_288, 12, 6, 10
+WINDOW_LOSS_TOL, MIXED_WINDOW_LOSS_TOL = 1e-5, 8e-4
 DRIVER_PER_STEP = {  # launches a step on the dlrm-mlperf train path
     "fused_gather.gather_rows": 4, "segment_reduce.segment_sum_csr_group": 1,
     "segment_reduce.segment_expand_csr_group": 1, "fused_scatter.scatter_add_rows": 3,
@@ -1788,6 +1818,17 @@ def main() -> None:
         e["launches_by_path"]["train_driver"] = driver_launches[e["name"]]
     torch.cuda.empty_cache()
 
+    # ----------------- 4 the tiered train at full width, and the online window
+    device_info = {"device": name, "nvidia_smi": smi}
+    tiered_launches = tiered_train_phase(counts, reset_counts, phase, recorded, recorder,
+                                         {e["name"]: e for e in entries}, dev, arch, arch.shape("train_batch")["batch"],
+                                         device_info)
+    window_launches = online_window_phase(counts, reset_counts, dev, device_info)
+    for e in entries:
+        e["launches_by_path"].update(tiered_train=tiered_launches[e["name"]],
+                                     online_window=window_launches[e["name"]])
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------ 4 full-width LM train
     torch.cuda.synchronize()
     start_bytes = torch.cuda.memory_allocated()  # what earlier phases still hold: near zero
@@ -1939,6 +1980,8 @@ def main() -> None:
         e["launches_by_path"]["lm_train"] = lm_launches[e["name"]]
         e["launches"] = sum(e["launches_by_path"].values())
     fwd_by_path = {"csr_op": csr_launches["flash_attention.flash_fwd"],
+                   "tiered_train": tiered_launches["flash_attention.flash_fwd"],
+                   "online_window": window_launches["flash_attention.flash_fwd"],
                    "mse_loop": loop_launches["flash_attention.flash_fwd"],
                    "train_driver": driver_launches["flash_attention.flash_fwd"],
                    "slab_op": slab_launches["flash_attention.flash_fwd"],
@@ -1958,6 +2001,8 @@ def main() -> None:
         "library_call": "F.scaled_dot_product_attention(is_causal=True), kv expanded", "at": flash_at,
         "bf16_route": "tensor cores (wgmma, TMA)", **flash_build["flash_attention.flash_fwd"]})
     bwd_by_path = {"csr_op": csr_launches["flash_attention.flash_bwd"],
+                   "tiered_train": tiered_launches["flash_attention.flash_bwd"],
+                   "online_window": window_launches["flash_attention.flash_bwd"],
                    "mse_loop": loop_launches["flash_attention.flash_bwd"],
                    "train_driver": driver_launches["flash_attention.flash_bwd"],
                    "slab_op": slab_launches["flash_attention.flash_bwd"],
@@ -2202,6 +2247,303 @@ def train_driver_phase(counts, reset_counts) -> dict:
 
 
 # the CUDA kernel each wrapper launches, by the name the profiler gives it
+def tiered_train_phase(counts, reset_counts, phase: dict, recorded: dict, recorder, by_name: dict, dev, arch,
+                       batch: int, device_info: dict, tier_rows: int = TIER_ROWS, n_steps: int = TIER_STEPS) -> dict:
+    """dlrm-mlperf ``train_batch`` with a tiered engine (a device tier of
+    ``tier_rows`` rows over the host-DRAM tier) through the Trainer and the
+    cell's storage hooks, against the all-device cell on the same batches:
+    losses and the union export bit-equal, zero overflow and unplaceable
+    ids, then ``evict_to_host`` and a last step that promotes the spilled
+    rows it touches, bit-equal again, and ``evict_local`` on the all-device
+    state. Each kernel's launches over the tiered run are held to what the
+    store's demote and promote calls and the steps imply; the row gather
+    and the scatter set are measured at a middle step's demote and promote
+    shapes. Returns the tiered run's launch counts."""
+    from repro_torch import obs as t_obs
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.kernels.fused_gather import ops as fg_ops, ref as fg_ref
+    from repro_torch.kernels.fused_scatter import ops as fs_ops, ref as fs_ref
+    from repro_torch.launch import recsys_cell
+    from repro_torch.launch.common import CellOptions, local_view
+    from repro_torch.pipelines import TrainConfig, Trainer
+    from repro_torch.storage import StorageConfig
+
+    phase_t0 = time.perf_counter()
+    base = ROOT / "build" / "tiered"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    shape = ShapeCell("train_batch", "train", {"batch": batch})
+    tcell = recsys_cell.build(arch, shape, CellOptions(storage=StorageConfig(policy="lru"),
+                                                       storage_device_rows=tier_rows), device=dev)
+    ccell = recsys_cell.build(arch, shape, device=dev)
+    store = tcell.engine.storage
+    gkey = f"dim{arch.model.embed_dim}"
+    batches = [tcell.make_batch(30_000 + s, vocab=arch.model.vocab_per_feature) for s in range(n_steps + 1)]
+
+    # count the store's tier moves, and record the kernels' inputs at a
+    # middle step's demote and promote
+    calls, at_step = {"demote": 0, "promote": 0}, {"s": 0}
+    prefetch = store.prefetch
+
+    def prefetch_at(state, eng, step):
+        at_step["s"] = step
+        return prefetch(state, eng, step)
+
+    def counted(kind: str):
+        fn = getattr(store, f"_{kind}")
+
+        def wrapper(*args, **kw):
+            calls[kind] += 1
+            phase["name"] = f"tiered_{kind}" if at_step["s"] == TIER_MID_STEP else None
+            try:
+                return fn(*args, **kw)
+            finally:
+                phase["name"] = None
+        return wrapper
+
+    store.prefetch = prefetch_at
+    store._demote, store._promote = counted("demote"), counted("promote")
+    real = {"gather_rows": recorder(fg_ops, "gather_rows"),  # a demote's first: the emb read
+            "scatter_set_rows": recorder(fs_ops, "scatter_set_rows", True)}  # its clear, a promote's write
+
+    def trainer(cell, hooks, steps, tel=None):
+        return Trainer(cell, TrainConfig(total_steps=steps, log_every=1, watchdog=False, anomaly=False,
+                                         telemetry_path=tel), hooks=hooks, registry=t_obs.MetricsRegistry())
+
+    tel = base / "tiered.jsonl"
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    tr = trainer(tcell, tcell.storage_hooks, n_steps, str(tel))
+    res_t = tr.run(tcell.init_state(), iter(batches[:n_steps]))
+    torch.cuda.synchronize()
+    tiered_s = time.perf_counter() - t0
+    launches = counts()
+    hist = res_t.metrics_history
+    for m in hist:
+        check(m[f"{gkey}/idmap_row_overflow"] == 0 and m["storage/unplaceable"] == 0
+              and all(v == 0 for k, v in m.items() if "overflow" in k), f"tiered step {m['step']}: {m}")
+        check(m["storage/device_rows"] <= tier_rows, f"tiered step {m['step']}: {m['storage/device_rows']} device rows")
+    inserting = sum(m[f"{gkey}/idmap_inserted"] > 0 for m in hist)
+    want = {k: 0 for k in launches}
+    want.update({"fused_gather.gather_rows": 4 * n_steps + 3 * calls["demote"],
+                 "segment_reduce.segment_sum_csr_group": n_steps,
+                 "segment_reduce.segment_expand_csr_group": n_steps,
+                 "fused_scatter.scatter_add_rows": 3 * n_steps,
+                 "fused_scatter.scatter_set_rows": 3 * (calls["demote"] + calls["promote"] + inserting)})
+    check(launches == want, f"tiered launches {launches}, expected {want} from {calls} and {inserting} inserting steps")
+    check(calls["demote"] > 0 and calls["promote"] > 0, f"the tier never churned: {calls}")
+    spans = _step_records(tel)
+
+    res_c = trainer(ccell, None, n_steps).run(ccell.init_state(), iter(batches[:n_steps]))
+    torch.cuda.synchronize()
+    hist_c = res_c.metrics_history
+    losses, losses_c = [m["loss"] for m in hist], [m["loss"] for m in hist_c]
+    check(losses == losses_c, f"tiered losses {losses} differ from the all-device run's {losses_c}")
+
+    def union(cell, state) -> dict:
+        """The engine's union export, sorted by id."""
+        r = cell.engine.export_rows(state["sparse"])[gkey]
+        o = np.argsort(r["ids"], kind="stable")
+        return {"ids": r["ids"][o], "last_use": r["last_use"][o], "emb": r["emb"][o],
+                **{k: r["slots"][k][o] for k in ("m", "v")}, "n_device": r["ids"].size - store.host_rows()
+                if cell is tcell else r["ids"].size, "raw_last_use": r["last_use"]}
+
+    def same(a: dict, b: dict, what: str) -> list:
+        check(a["ids"].size == b["ids"].size and np.array_equal(a["ids"], b["ids"]),
+              f"{what}: {a['ids'].size} ids against {b['ids'].size}")
+        differ = [k for k in ("emb", "m", "v", "last_use") if not np.array_equal(a[k], b[k])]
+        check(not differ, f"{what}: {differ} differ from the all-device run's")
+        return ["ids", "emb", "m", "v", "last_use"]
+
+    ut, uc = union(tcell, res_t.state), union(ccell, res_c.state)
+    compared12 = same(ut, uc, f"union export after {n_steps} steps")
+    rows_live = int(ut["ids"].size)
+    host = store.host[gkey]
+    host_rows, host_bytes = host.n_rows, host.nbytes
+    # the device rows idle since before TIER_EVICT_AT, counted in the export;
+    # under LRU at this ratio the device tier holds only the last two steps'
+    # rows, so a second pass spills those idle since before the last step
+    dev_lu = ut["raw_last_use"][: ut["n_device"]]
+    spills, before = [], 0
+    for older in (TIER_EVICT_AT, n_steps):
+        n_stale = int((dev_lu < older).sum())
+        spills.append({"older_than": older, "counted_in_export": n_stale - before})
+        before = n_stale
+    del ut, uc
+    state_t = res_t.state
+    for x in spills:
+        state_t["sparse"], emet = tcell.engine.evict_to_host(state_t["sparse"], x["older_than"])
+        x["spilled"] = emet["spilled_stale"]
+        check(x["spilled"] == x["counted_in_export"],
+              f"evict_to_host({x['older_than']}) spilled {x['spilled']}, the export counts {x['counted_in_export']}")
+    check(spills[-1]["spilled"] > 0, f"nothing idle on the device before step {n_steps}: {spills}")
+    spilled_dev_after = store.device_resident()
+
+    # the last step promotes the spilled rows it touches
+    last = batches[n_steps]
+    with torch.no_grad():
+        eng = tcell.engine.engine_ids(tcell.ids_fn(last))[gkey]
+    touched = np.unique(eng[eng != -1].cpu().numpy())
+    on_host_touched = int(host.contains(touched).sum())
+    tr.cfg.total_steps = n_steps + 1
+    res_t2 = tr.run(state_t, iter([last]), start_step=n_steps)
+    tr_c = trainer(ccell, None, n_steps + 1)
+    res_c2 = tr_c.run(res_c.state, iter([last]), start_step=n_steps)
+    torch.cuda.synchronize()
+    m13, c13 = res_t2.metrics_history[-1], res_c2.metrics_history[-1]
+    check(m13["storage/promoted"] == on_host_touched and on_host_touched > 0
+          and m13["storage/unplaceable"] == 0,
+          f"step {n_steps + 1} promoted {m13['storage/promoted']} of {on_host_touched} host rows it touches")
+    check(m13["loss"] == c13["loss"], f"step {n_steps + 1}: loss {m13['loss']} against {c13['loss']}")
+    ut, uc = union(tcell, res_t2.state), union(ccell, res_c2.state)
+    compared13 = same(ut, uc, f"union export after step {n_steps + 1}")
+    want_discard = int((uc["last_use"] < TIER_EVICT_AT).sum())
+    check(int((ut["last_use"] < TIER_EVICT_AT).sum()) == want_discard, "stale counts of the two unions")
+    del ut, uc
+    fg_ops.gather_rows, fs_ops.scatter_set_rows = real["gather_rows"], real["scatter_set_rows"]  # no more records
+    _, dmet = ccell.engine.evict_local(local_view(res_c2.state["sparse"]), TIER_EVICT_AT)
+    check(int(dmet[f"{gkey}/evicted"]) == want_discard,
+          f"evict_local discarded {int(dmet[gkey + '/evicted'])}, the export counts {want_discard}")
+
+    # the kernels at the middle step's demote and promote shapes
+    measured = {}
+    for path, kname, plain, entry in (
+            ("tiered_demote", "gather_rows", fg_ref.gather_rows, "fused_gather.gather_rows"),
+            ("tiered_demote", "scatter_set_rows", fs_ref.scatter_set_rows, "fused_scatter.scatter_set_rows"),
+            ("tiered_promote", "scatter_set_rows", fs_ref.scatter_set_rows, "fused_scatter.scatter_set_rows")):
+        check((kname, path) in recorded, f"step {TIER_MID_STEP} made no {path} call")
+        args, kw = recorded.pop((kname, path))
+        label = f"{path}_{'read' if kname == 'gather_rows' else 'clear' if path == 'tiered_demote' else 'write'}"
+        measured[label] = _measure(kname, real[kname], plain, args, kw, 20, dev)
+        _add_path(by_name[entry], label, measured[label])
+        del args
+        torch.cuda.empty_cache()
+
+    def pct(xs, q):
+        return float(np.percentile(xs, q))
+
+    wall_t = [m["wall_s"] * 1e3 for m in hist[1:]]
+    wall_c = [m["wall_s"] * 1e3 for m in hist_c[1:]]
+    pre = [spans[s]["spans"].get("pre_step", 0.0) * 1e3 for s in sorted(spans)]
+    post = [spans[s]["spans"].get("post_step", 0.0) * 1e3 for s in sorted(spans)]
+    dev_ms = [spans[s]["spans"].get("device_step", 0.0) * 1e3 for s in sorted(spans)]
+    mcfg = arch.model
+    emit({"phase": "full_tiered_train", **device_info, "arch": arch.arch_id, "batch": batch,
+          "widths": {"n_dense": mcfg.n_dense, "n_sparse": mcfg.n_sparse, "embed_dim": mcfg.embed_dim,
+                     "bot_mlp": mcfg.bot_mlp, "top_mlp": mcfg.top_mlp},
+          "reduced": {"vocab_per_feature": [4_000_000, mcfg.vocab_per_feature], "devices": [256, 1]},
+          "storage": {"policy": "lru", "device_rows": tier_rows}, "steps": n_steps,
+          "loss": losses, "losses_equal_all_device": True,
+          "union_export_bit_equal": {f"after_{n_steps}": compared12, f"after_{n_steps + 1}": compared13},
+          "rows_live": rows_live, "host_rows": host_rows, "host_tier_bytes": host_bytes,
+          "device_rows": [m["storage/device_rows"] for m in hist],
+          "promoted": [m["storage/promoted"] for m in hist], "demoted": [m["storage/demoted"] for m in hist],
+          "fresh": [m["storage/fresh"] for m in hist], "hit_rate": [m["storage/hit_rate"] for m in hist],
+          "store_calls": calls, "inserting_steps": inserting,
+          "step_ms_p50": pct(wall_t, 50), "step_ms_p99": pct(wall_t, 99), "step_ms": wall_t,
+          "all_device_step_ms_p50": pct(wall_c, 50), "all_device_step_ms_p99": pct(wall_c, 99),
+          "all_device_step_ms": wall_c, "step_ms_note": "Trainer wall_s of steps 2 on (step 1 warms up)",
+          "pre_step_ms": pre, "post_step_ms": post, "device_step_ms": dev_ms,
+          "pre_step_ms_p50": pct(pre[1:], 50), "post_step_ms_p50": pct(post[1:], 50),
+          "evict_to_host": spills, "device_rows_after_evict": spilled_dev_after,
+          f"step_{n_steps + 1}": {"promoted": m13["storage/promoted"], "host_rows_touched": on_host_touched,
+                                  "loss": m13["loss"], "hit_rate": m13["storage/hit_rate"]},
+          "evict_local_all_device": {"older_than": TIER_EVICT_AT, "evicted": int(dmet[f"{gkey}/evicted"]),
+                                     "counted_in_export": want_discard},
+          "kernels_at_tier_moves": {k: {x: v[x] for x in ("shape", "ms", "kernel_device_ms", "plain_ms",
+                                                         "library_ms", "bound_ms", "bound_by", "host_us")}
+                                    for k, v in measured.items()},
+          "launches": launches, "tiered_run_s": tiered_s, "phase_s": time.perf_counter() - phase_t0})
+    del res_t, res_t2, res_c, res_c2, state_t, tcell, ccell, store, batches, tr, tr_c
+    gc.collect()  # the store's wrapped methods hold it in a cycle
+    torch.cuda.empty_cache()
+    return launches
+
+
+def online_window_phase(counts, reset_counts, dev, device_info: dict, **main_kw) -> dict:
+    """The twin of examples/online_window.py: its ``main()`` on the card at
+    the example's settings (5 windows of 120 steps, eviction age 150, rows
+    per shard 4,096), with each window's pre-train eval and last loss and
+    each eviction's live rows checked and the launches counted (the sets 3
+    for each train step whose insert placed rows); then its first window on
+    the card and on the CPU, in FP32 and in the example's MIXED, each held
+    to its tolerance. Returns the launch counts of the ``main()`` run."""
+    from repro_torch.examples import online_window as ow
+    from repro_torch.models.layers import FP32
+
+    phase_t0 = time.perf_counter()
+    cell = ow.Cell(dev)
+    fetch, inserts = cell.engine.fetch_local, []
+
+    def recorded_fetch(state, ids, step, train=True):
+        out = fetch(state, ids, step, train=train)
+        if train:  # kept on the card, read after the run
+            inserts.append({k: v for k, v in out[3].items() if k.endswith(("/idmap_inserted", "/idmap_row_overflow"))})
+        return out
+
+    cell.engine.fetch_local = recorded_fetch
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = ow.main(["--device", str(dev)], cell=cell, quiet=True, **main_kw)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = counts()
+    wins = out["windows"]
+    n_train = len(wins) * main_kw.get("steps_per_window", 120)
+    n_eval = len(wins)
+    inserting = sum(int(v) > 0 for rec in inserts for k, v in rec.items() if k.endswith("/idmap_inserted"))
+    row_overflow = sum(int(v) for rec in inserts for k, v in rec.items() if k.endswith("/idmap_row_overflow"))
+    check(len(inserts) == n_train and row_overflow == 0,
+          f"online window: {len(inserts)} train fetches for {n_train} steps, {row_overflow} rows overflowed")
+    want = {k: 0 for k in launches}
+    want.update({"fused_gather.gather_rows": 4 * n_train + n_eval,
+                 "segment_reduce.segment_sum_csr_group": n_train + n_eval,
+                 "segment_reduce.segment_expand_csr_group": n_train,
+                 "fused_scatter.scatter_add_rows": 3 * n_train,
+                 "fused_scatter.scatter_set_rows": 3 * inserting})
+    check(inserting > 0 and launches == want,
+          f"online window launches {launches}, expected {want} from {inserting} inserting steps")
+    pre = [w["pre_eval_loss"] for w in wins]
+    post = [w["train_metrics"][-1]["loss"] for w in wins]
+    evictions = out["evictions"]
+    live = [e["live"] for e in evictions]
+    check(all(p >= 0.6 for p in pre), f"pre-train eval {pre}")
+    check(all(a < b for a, b in zip(post, pre)), f"post-train loss {post} against pre-train {pre}")
+    check(all(n <= out["rows_per_shard"] for n in live), f"live rows after eviction {live}")
+    del out
+
+    def first_window(device, prec) -> list:
+        o = ow.main(n_windows=1, log_every=1, cell=ow.Cell(device, prec=prec), quiet=True,
+                    **{k: v for k, v in main_kw.items() if k not in ("log_every", "n_windows")})
+        w = o["windows"][0]
+        return [w["pre_eval_loss"]] + [m["loss"] for m in w["train_metrics"]]
+
+    fp32 = {d: first_window(d, FP32) for d in (str(dev), "cpu")}
+    fp32_diff = max(abs(a - b) for a, b in zip(fp32[str(dev)], fp32["cpu"]))
+    check(fp32_diff <= WINDOW_LOSS_TOL, f"first window, FP32, card against CPU: {fp32_diff}")
+    mixed = {d: first_window(d, None) for d in (str(dev), "cpu")}
+    mixed_diff = max(abs(a - b) for a, b in zip(mixed[str(dev)], mixed["cpu"]))
+    control_diff = max(abs(a - b) for a, b in zip(fp32[str(dev)], mixed["cpu"]))  # MIXED ignored on the card
+    check(mixed_diff <= MIXED_WINDOW_LOSS_TOL < control_diff,
+          f"first window, MIXED, card against CPU: {mixed_diff} (limit {MIXED_WINDOW_LOSS_TOL}, "
+          f"the card's FP32 run against it {control_diff})")
+    emit({"phase": "online_window", **device_info, "entry": "repro_torch.examples.online_window.main",
+          "settings": {"windows": len(wins), "steps_per_window": main_kw.get("steps_per_window", 120),
+                       "batch": ow.BATCH, "rows_per_shard": ow.ROWS_PER_SHARD,
+                       "evict_age": main_kw.get("evict_age", 150)},
+          "pre_eval_loss": pre, "post_train_loss": post, "evictions": evictions,
+          "launches": launches, "run_s": run_s,
+          "steps_per_s": n_train / run_s,
+          "inserting_steps": inserting,
+          "first_window_card_vs_cpu": {"fp32_max_abs_diff": fp32_diff, "tolerance": WINDOW_LOSS_TOL,
+                                       "mixed_max_abs_diff": mixed_diff, "mixed_tolerance": MIXED_WINDOW_LOSS_TOL,
+                                       "card_fp32_vs_cpu_mixed": control_diff, "losses": len(fp32["cpu"])},
+          "phase_s": time.perf_counter() - phase_t0})
+    return launches
+
+
 KERNEL_NAMES = {"gather_rows": "gather_rows_kernel", "segment_sum_csr": "segment_sum_sorted_kernel",
                 "segment_expand_csr": "segment_expand_csr_kernel", "scatter_add_rows": "scatter_rows_kernel",
                 "scatter_set_rows": "scatter_rows_kernel", "segment_sum_csr_group": "segment_sum_group_kernel",

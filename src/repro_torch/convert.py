@@ -19,6 +19,15 @@ tuple of its tensor fields), and ``train_state_to_tree`` a whole MSE or
 DLRM train state, so a checkpoint holds the reference's leaf names
 (``state/dense/attn_k/w``, ``state/sparse/dim8/idmap/2``, ...) and a
 checkpoint of either package restores in the other.
+
+A tiered engine's state comes across two ways. The reference's union
+``export_rows`` (both tiers, with per-id counts) is what a tiered engine's
+``import_rows`` takes: it refills the device tier with the hottest rows and
+the host tier with the rest. Or the device tier as a pytree (the layout
+above) with the store's ``checkpoint_payload``, which
+``tiered_state_from_numpy`` loads as they are; the same keys name the host
+tier in a checkpoint's ``extra.safetensors``, so the reference's tiered
+checkpoint resumes through the port's Trainer hooks unchanged.
 """
 from __future__ import annotations
 
@@ -140,6 +149,20 @@ def sparse_from_tree(tree: Mapping, like: Mapping, device) -> dict:
                   "blocks": blocks_lib.Blocks(emb=t(emb), slots=dict(zip(sorted(v["blocks"].slots),
                                                                          map(t, slot_vals))))}
     return out
+
+
+def tiered_state_from_numpy(engine, sparse: Mapping, payload: Mapping[str, np.ndarray] | None) -> dict:
+    """The reference's tiered engine state in the port: ``sparse``, the
+    device tier as ``sparse_to_tree`` lays it out (numpy leaves, stacked
+    [D, ...]), goes onto ``engine.device``; ``payload``, the reference
+    store's ``checkpoint_payload``, becomes ``engine.storage``'s host tier
+    and access counts; the residency mirror is rebuilt from the IDMaps."""
+    if engine.storage is None:
+        raise ValueError("the engine has no tiered store (EngineConfig.storage)")
+    state = sparse_from_tree(sparse, engine.init_state(), engine.device)
+    engine.storage.restore_payload(payload)
+    engine.storage.sync_from_state(state)
+    return state
 
 
 def train_state_to_tree(state: Mapping) -> dict:

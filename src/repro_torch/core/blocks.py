@@ -3,17 +3,22 @@
 Contiguous storage for one merged dim-group's embedding rows and their
 optimizer slot rows on one device. Row 0 is the reserved overflow bucket.
 New rows are initialised from their feature id by a stateless hash, bit for
-bit as the reference does. Row writes go through the scatter kernel and
-update the tensors in place (the reference returns new arrays).
+bit as the reference does. Row reads go through the gather kernel; row
+writes go through the scatter kernel and update the tensors in place (the
+reference returns new arrays). The tiered store's tier moves read a row
+with its slot rows (``gather_with_slots``: three gathers), write whole rows
+(``write_rows``) and zero them (``clear_rows``): three scatter sets each,
+where the reference's ``.at[].set(mode="drop")`` computes the same.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Mapping
 
 import numpy as np
 import torch
 
+from repro_torch.core import write_log
 from repro_torch.core.feature_engine import _SPLITMIX_C1, _srl, splitmix64
 from repro_torch.kernels.fused_gather import ops as fg_ops
 from repro_torch.kernels.fused_scatter import ops as fs_ops
@@ -70,4 +75,32 @@ def init_rows(b: Blocks, offsets: torch.Tensor, ids: torch.Tensor, is_new: torch
     zeros = torch.zeros_like(init)
     for v in b.slots.values():
         fs_ops.scatter_set_rows(v, dst, zeros)
+    return b
+
+
+def gather_with_slots(b: Blocks, offsets: torch.Tensor) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Embedding rows with their optimizer slot rows at ``offsets``: the
+    demotion read (a spill carries the Adam moments, so a later promotion
+    resumes training bit for bit)."""
+    return gather(b, offsets), {k: fg_ops.gather_rows(v, offsets) for k, v in b.slots.items()}
+
+
+def write_rows(b: Blocks, offsets: torch.Tensor, emb: torch.Tensor, slots: Mapping[str, torch.Tensor],
+               mask: torch.Tensor) -> Blocks:
+    """Write whole rows (embedding and slots) at ``offsets`` where ``mask``,
+    in place: the promotion write. Masked-off slots write nothing."""
+    fs_ops.scatter_set_rows(b.emb, offsets, emb, mask)
+    for k, v in b.slots.items():
+        fs_ops.scatter_set_rows(v, offsets, slots[k], mask)
+    write_log.note_rows_written(mask)
+    return b
+
+
+def clear_rows(b: Blocks, offsets: torch.Tensor, mask: torch.Tensor) -> Blocks:
+    """Zero the rows at ``offsets`` where ``mask``, in place, so a demoted
+    row's state cannot leak into the row's next owner."""
+    zeros = torch.zeros((offsets.shape[0], b.dim), dtype=torch.float32, device=b.emb.device)
+    fs_ops.scatter_set_rows(b.emb, offsets, zeros, mask)
+    for v in b.slots.values():
+        fs_ops.scatter_set_rows(v, offsets, zeros, mask)
     return b

@@ -11,6 +11,13 @@
     segment-sum launch (its gradient one launch too); none and tile per
     feature through the sequence-tile kernel.
   * Backward update: SparseAdam on the rows the forward fetched, in place.
+  * Tiered storage (``EngineConfig.storage``): the device tier becomes a
+    row cache over a host-DRAM tier (``storage/tiered.py``); rows move at
+    step edges (``storage_prefetch``, ``storage_admit``, ``evict_to_host``),
+    and ``export_rows`` / ``import_rows`` see the union of both tiers.
+  * Eviction for continuous training: ``evict_local`` discards stale rows
+    of one device's state; ``evict_to_host`` does it on the stacked state
+    (spilling them to the host tier when there is one).
 """
 from __future__ import annotations
 
@@ -23,11 +30,13 @@ import torch
 from repro_torch.core import blocks as blocks_lib
 from repro_torch.core import exchange
 from repro_torch.core import idmap as idmap_lib
+from repro_torch.core import write_log
 from repro_torch.core.feature_engine import FeatureSpec, _fnv1a64, hash_combine
 from repro_torch.io.ragged import Ragged
 from repro_torch.kernels.segment_reduce import ops as sr_ops
 from repro_torch.kernels.sequence_tile import ops as st_ops
 from repro_torch.optim.sparse_adam import SparseAdamConfig, apply_row_updates
+from repro_torch.storage.tiered import StorageConfig, TieredEmbeddingStore
 
 PAD = -1
 
@@ -62,6 +71,9 @@ class EngineConfig:
     recv_budget: int = 8192
     # per-dim overrides: dim -> dict of the five knobs above
     overrides: Mapping[int, Mapping[str, int]] = dataclasses.field(default_factory=dict)
+    # tiered storage: non-None turns the device tier into a row cache over a
+    # host-DRAM tier; rows_per_shard then bounds the hot rows, not the live
+    storage: StorageConfig | None = None
 
 
 def _stack(xs: list[torch.Tensor]) -> torch.Tensor:
@@ -93,6 +105,11 @@ class EmbeddingEngine:
             )
             self.groups[g.key] = g
         self.salts = {s.name: _stable_salt(s.table_key()) for s in emb_specs}
+        self.storage: TieredEmbeddingStore | None = None
+        if cfg.storage is not None:
+            self.storage = TieredEmbeddingStore(
+                {k: (g.dim, g.rows_per_shard) for k, g in self.groups.items()},
+                cfg.n_devices, cfg.storage, self.device)
 
     # ------------------------------------------------------------------ state
     def init_state(self) -> dict:
@@ -186,7 +203,9 @@ class EmbeddingEngine:
     # ------------------------------------------------------- export / import
     def export_rows(self, state) -> dict:
         """Stacked state [D, ...] → {group: {ids, emb, slots, last_use}} of all
-        live rows, as host numpy: the checkpoint-portable form."""
+        live rows, as host numpy: the checkpoint-portable form. With a
+        tiered store it is the union of both tiers (the host rows after the
+        device's), and each id's access count rides along as ``counts``."""
         out = {}
         for key in self.groups:
             m = state[key]["idmap"].map(lambda x: x.cpu().numpy())
@@ -200,19 +219,33 @@ class EmbeddingEngine:
                 for sk in b.slots:
                     slots[sk].append(b.slots[sk][d][offs].cpu().numpy())
                 last.append(m.last_use[d][occ])
+            if self.storage is not None:
+                h = self.storage.host[key].export()
+                ids.append(h["ids"])
+                emb.append(h["emb"])
+                for sk in b.slots:
+                    slots[sk].append(h["slots"][sk])
+                last.append(h["last_use"])
             out[key] = {
                 "ids": np.concatenate(ids),
                 "emb": np.concatenate(emb),
                 "slots": {k: np.concatenate(v) for k, v in slots.items()},
                 "last_use": np.concatenate(last),
             }
+            if self.storage is not None:
+                out[key]["counts"] = self.storage.counts[key].get(out[key]["ids"], 1)
         return out
 
     def import_rows(self, rows: Mapping[str, Mapping]) -> dict:
         """Build state for this engine's device count from exported rows
         (numpy arrays or tensors): re-shard by the exchange's owner function
         and insert per shard, each row keeping its own last_use step. Rows
-        are written into the fresh state in place."""
+        are written into the fresh state in place.
+
+        With a tiered store, each shard's hottest rows (by last_use, then
+        id) fill the device tier up to its capacity and the rest land in the
+        host tier, so an export taken at one tier split restores onto any
+        other; the access counts come from the export's ``counts``."""
         state = self.init_state()
         D = self.cfg.n_devices
         dev = self.device
@@ -221,17 +254,32 @@ class EmbeddingEngine:
                 continue  # this engine has dims the export lacks
             data = rows[key]
             ids = torch.as_tensor(data["ids"], device=dev)
+            if self.storage is not None:
+                self.storage.host[key].clear()
+                ids_np = ids.cpu().numpy()
+                counts = data.get("counts", np.ones(ids_np.shape, np.int64))
+                self.storage.load_counts(key, ids_np, _numpy(counts))
             if ids.numel() == 0:
                 continue
             owner = exchange._owner_of(ids, D)
             last_use = torch.as_tensor(data["last_use"], device=dev)
             emb = torch.as_tensor(data["emb"], device=dev)
             slots = {k: torch.as_tensor(v, device=dev) for k, v in data["slots"].items()}
+            cap = g.rows_per_shard - 1  # row 0 reserved
             maps = []
             for d in range(D):
                 sel = torch.nonzero(owner == d).squeeze(1)
                 m = state[key]["idmap"].map(lambda x: x[d])
                 b = state[key]["blocks"].map(lambda x: x[d])  # views: written in place
+                if self.storage is not None and sel.numel() > cap:
+                    # the hottest rows stay on the device; the tail spills
+                    sel_np, last_np = sel.cpu().numpy(), _numpy(data["last_use"])
+                    hot = sel_np[np.lexsort((ids_np[sel_np], -last_np[sel_np]))]
+                    cold = hot[cap:]
+                    self.storage.host[key].put(
+                        ids_np[cold], _numpy(data["emb"])[cold],
+                        {k: _numpy(v)[cold] for k, v in data["slots"].items()}, last_np[cold])
+                    sel = torch.from_numpy(hot[:cap]).to(dev)
                 if sel.numel():
                     m, offs, is_new, _ = idmap_lib.lookup_or_insert(m, ids[sel], last_use[sel])
                     src = sel[is_new]
@@ -241,7 +289,65 @@ class EmbeddingEngine:
                         v[dst] = slots[k][src]
                 maps.append(m)
             state[key]["idmap"] = _stack_maps(maps)
+        if self.storage is not None:
+            self.storage.sync_from_state(state)
         return state
+
+    # ------------------------------------------------------------------ evict
+    def evict_local(self, state_local: dict, older_than) -> tuple[dict, dict]:
+        """Staleness discard on one device's state. With a tiered store,
+        ``evict_to_host`` spills the stale rows to the host tier instead."""
+        new_state, metrics = {}, {}
+        for key in self.groups:
+            m, n = idmap_lib.evict(state_local[key]["idmap"], older_than)
+            new_state[key] = {"idmap": m, "blocks": state_local[key]["blocks"]}
+            metrics[f"{key}/evicted"] = n
+        return new_state, metrics
+
+    # ------------------------------------------- tiered storage (step edges)
+    # The host tier is numpy, so host ↔ device row traffic runs at step
+    # edges on the stacked state: prefetch fills before the step's insert,
+    # admit and evict spill after the update.
+    def storage_prefetch(self, state: dict, ids_by_feature: Mapping[str, Ragged], step) -> tuple[dict, dict]:
+        """Fill pass: promote this step's host-resident rows to the device
+        (and demote policy-chosen victims under capacity pressure) so the
+        step meets no overflow. Returns (state, metrics)."""
+        self._need_storage()
+        eng = {k: v.cpu().numpy() for k, v in self.engine_ids(ids_by_feature).items()}
+        return self.storage.prefetch(state, eng, int(step))
+
+    def storage_admit(self, state: dict, step) -> tuple[dict, dict]:
+        """Spill pass: demote rows that entered the device tier this step but
+        fail the admission policy (e.g. below ``min_count_to_admit``)."""
+        self._need_storage()
+        return self.storage.post_step(state, int(step))
+
+    def evict_to_host(self, state: dict, older_than) -> tuple[dict, dict]:
+        """Staleness pass over the stacked state. A tiered engine spills the
+        stale rows device → host (no state is lost); an untiered one
+        discards them, as ``evict_local`` does, per shard."""
+        if self.storage is not None:
+            return self.storage.evict_stale(state, int(older_than))
+        new_state, metrics = {}, {}
+        for key in self.groups:
+            maps, n_total = [], 0
+            for d in range(self.cfg.n_devices):
+                m = state[key]["idmap"].map(lambda x: x[d])
+                with write_log.shard_scope(key, d):
+                    m, n = idmap_lib.evict(m, int(older_than))
+                maps.append(m)
+                n_total += int(n)
+            new_state[key] = {"idmap": _stack_maps(maps), "blocks": state[key]["blocks"]}
+            metrics[f"{key}/evicted"] = n_total
+        return new_state, metrics
+
+    def _need_storage(self) -> None:
+        if self.storage is None:
+            raise ValueError("EngineConfig.storage is not set")
+
+
+def _numpy(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def _stack_maps(maps: list[idmap_lib.IDMap]) -> idmap_lib.IDMap:

@@ -9,6 +9,10 @@ Insertion keeps the reference's two passes and its per-round scatter-min
 claim (the lowest batch rank wins a contested slot), so the port hands out
 exactly the reference's slots and offsets; a CAS table would not.
 
+``remove`` (the tiered store's demote) and ``evict`` (stale-row discard
+for continuous training) clear slots and push the freed rows onto the free
+stack; ``_probe_find`` scans every round, so no tombstone is needed.
+
 Input ids of one call must be unique, apart from PAD (-1) padding.
 """
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core import write_log
 from repro_torch.core.feature_engine import splitmix64, umod
 
 PAD = -1
@@ -168,4 +173,60 @@ def lookup_or_insert(
         free_stack=m.free_stack, free_size=free_size, next_row=next_row,
         n_rows=m.n_rows, max_probes=m.max_probes,
     )
-    return new_m, out_off, is_new & row_ok, metrics
+    is_new = is_new & row_ok
+    write_log.note_insert(ids, is_new)
+    return new_m, out_off, is_new, metrics
+
+
+def _push_free(m: IDMap, freed: torch.Tensor, offs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The free stack and its size after pushing ``offs`` where ``freed``,
+    in cumsum order; pushes past the capacity are dropped and the size is
+    clamped to it."""
+    cap = m.capacity
+    dst = m.free_size + torch.cumsum(freed, 0, dtype=torch.int32) - 1
+    dst = torch.where(freed & (dst < cap), dst, cap).long()
+    free_stack = _with_dump(m.free_stack)
+    free_stack.index_put_((dst,), offs.to(torch.int32))
+    n_freed = freed.sum(dtype=torch.int32)
+    return free_stack[:cap], torch.clamp(m.free_size + n_freed, max=cap).to(torch.int32)
+
+
+def remove(m: IDMap, ids: torch.Tensor) -> tuple[IDMap, torch.Tensor, torch.Tensor]:
+    """Remove specific ids; their rows are recycled through the free stack.
+
+    The demotion primitive of the tiered store: the caller gathers the rows
+    at the returned offsets before they are reused. Returns (new_map,
+    offsets, freeable): offsets of missing, PAD and overflow-row ids are
+    OVERFLOW_ROW, which never enters the free stack. ids must be unique up
+    to PAD.
+    """
+    cap = m.capacity
+    found = _probe_find(m.keys, m.occupied, ids, _home(ids, cap), m.max_probes)
+    found_mask = found >= 0
+    offs = m.offsets[found.clamp(min=0)]
+    occupied = _with_dump(m.occupied)
+    occupied.index_put_((torch.where(found_mask, found, cap).long(),), torch.zeros((), dtype=torch.bool,
+                                                                                   device=ids.device))
+    freeable = found_mask & (offs != OVERFLOW_ROW)
+    free_stack, free_size = _push_free(m, freeable, offs)
+    new_m = dataclasses.replace(m, occupied=occupied[:cap], free_stack=free_stack, free_size=free_size)
+    write_log.note_remove(ids, found_mask)
+    return new_m, torch.where(freeable, offs, OVERFLOW_ROW), freeable
+
+
+def evict(m: IDMap, older_than: torch.Tensor | int) -> tuple[IDMap, torch.Tensor]:
+    """Free every row whose last access predates ``older_than``: the slot
+    is cleared and its row pushed onto the free stack, the paper's
+    stale-feature eviction for continuous training. Returns (new_map,
+    n_evicted).
+
+    A slot whose insert found no row holds OVERFLOW_ROW; it is cleared and
+    counted, but row 0 is not pushed (the reference pushes it: ROADMAP §C).
+    """
+    stale = m.occupied & (m.last_use < torch.as_tensor(older_than, device=m.last_use.device).to(torch.int32))
+    if write_log.get_observer() is not None:
+        # a discarding evict: no surviving copy, a tombstone for recovery
+        write_log.note_evict(m.keys[stale])
+    free_stack, free_size = _push_free(m, stale & (m.offsets != OVERFLOW_ROW), m.offsets)
+    new_m = dataclasses.replace(m, occupied=m.occupied & ~stale, free_stack=free_stack, free_size=free_size)
+    return new_m, stale.sum(dtype=torch.int32)

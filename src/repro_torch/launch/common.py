@@ -19,6 +19,13 @@ class CellOptions:
     recv_slack: float = 2.0       # owner recv-unique budget over U
     sparse_opt_lr: float = 1e-3   # SparseAdam on the embedding rows
     dense_opt_lr: float = 1e-3    # AdamW on the dense params
+    # tiered embedding storage (storage.StorageConfig): non-None turns the
+    # device tier into a row cache over a host-DRAM tier, and the train cell
+    # gives the Trainer its step-edge hooks (``cell.storage_hooks``)
+    storage: Any | None = None
+    # the device tier's rows per shard when storage is on (the cache size);
+    # None keeps the arch-derived all-device sizing
+    storage_device_rows: int | None = None
 
 
 @dataclasses.dataclass
@@ -36,6 +43,7 @@ class Cell:
     # the state in the reference cell's pytree layout, and back, for checkpoints
     state_tree: Callable[[Any], Any] | None = None
     load_state_tree: Callable[[Any, Any], Any] | None = None
+    storage_hooks: Any = None           # a tiered train cell's StorageTrainerHooks
 
 
 def round_up(x: int, m: int) -> int:

@@ -11,6 +11,10 @@ Batch convention: {column: Ragged}. The serve step takes it on the cell's
 device; the train step moves it there itself, so a loader's CPU batches
 reach the card inside the step (the Trainer's ``device_step`` span), as the
 reference's jitted step takes host arrays.
+
+With ``CellOptions.storage`` the engine is tiered: ``storage_device_rows``
+sizes the device tier, and the train cell's ``storage_hooks`` move rows
+between the tiers at the Trainer's step edges.
 """
 from __future__ import annotations
 
@@ -29,6 +33,14 @@ from repro_torch.launch.common import Cell, CellOptions, local_view, resolve_dev
 from repro_torch.models.layers import MIXED
 from repro_torch.optim import adamw
 from repro_torch.optim.sparse_adam import SparseAdamConfig
+
+
+# IDMap slots per device-tier row in a tiered cell. The reference gives every
+# cell 2 (``map_capacity_per_shard=2 * rows``); a tier runs near full, so the
+# map sits at half load, where 32 linear probes lose some inserts at scale
+# (a full-width dlrm-mlperf step, up to 10 of its 350,000 ids: ROADMAP §C). At 4
+# the load is a quarter and no insert is lost.
+TIERED_MAP_FACTOR = 4
 
 
 def _model_mod(arch_id: str):
@@ -99,9 +111,15 @@ def _plumbing(arch: ArchConfig, b_loc: int, specs: list[FeatureSpec],
         c = max(8, round_up(int(np.ceil(u / D * opts.capacity_slack)), 8))
         r = min(D * c, max(round_up(int(opts.recv_slack * u), 8), 64))
         rows = max(round_up(int(rows_global.get(dim, 1 << 20) * 1.5 / D), 128), 1024)
+        slots = 2 * rows
+        if opts.storage is not None and opts.storage_device_rows is not None:
+            # tiered: rows_per_shard is the device tier's cache size, not the
+            # live-row ceiling; the host tier holds the rest
+            rows = opts.storage_device_rows
+            slots = TIERED_MAP_FACTOR * rows
         overrides[dim] = dict(u_budget=u, per_dest_cap=c, recv_budget=r,
-                              rows_per_shard=rows, map_capacity_per_shard=2 * rows)
-    eng = EmbeddingEngine(specs, EngineConfig(n_devices=D, overrides=overrides), device)
+                              rows_per_shard=rows, map_capacity_per_shard=slots)
+    eng = EmbeddingEngine(specs, EngineConfig(n_devices=D, overrides=overrides, storage=opts.storage), device)
     fe = FeatureEngine(specs, device)
     nnz = {s.name: b_loc * _ids_per_row(s) for s in specs}
     return _Plumbing(engine=eng, fengine=fe, specs=specs, nnz_loc=nnz, b_loc=b_loc, D=D,
@@ -136,9 +154,12 @@ def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
     sopt = SparseAdamConfig(lr=opts.sparse_opt_lr)
     acfg = adamw.AdamWConfig(lr=opts.dense_opt_lr)
 
+    def on_device(batch):
+        return {k: Ragged(v.values.to(device), v.row_splits.to(device)) for k, v in batch.items()}
+
     def train_step(state, batch):
         # no_grad, not inference_mode: the plans and rows are saved for backward
-        batch = {k: Ragged(v.values.to(device), v.row_splits.to(device)) for k, v in batch.items()}
+        batch = on_device(batch)
         step = state["step"] + 1
         with torch.no_grad():
             ids, _ = pl.prepared(batch)
@@ -172,4 +193,11 @@ def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
                 engine=pl.engine, returns_state=train,
                 state_tree=convert.train_state_to_tree if train else None,
                 load_state_tree=convert.train_state_from_tree if train else None)
+    if train and pl.engine.storage is not None:
+        from repro_torch.storage.integration import StorageTrainerHooks
+
+        # step-edge hooks for the Trainer: host <-> device spill and fill
+        # around the step, and the host tier in the checkpoint
+        cell.storage_hooks = StorageTrainerHooks(
+            pl.engine, lambda batch: pl.prepared(on_device(batch))[0], state_key="sparse")
     return cell

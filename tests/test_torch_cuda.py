@@ -898,3 +898,87 @@ def test_smoke_lm_train_cell_card_matches_cpu(cuda):
     for n, p in states["cpu"]["dense"].state_dict().items():
         np.testing.assert_allclose(states["cuda"]["dense"].state_dict()[n].cpu().numpy(), p.numpy(),
                                    rtol=0, atol=6e-3, err_msg=n)
+
+
+# The tiered store's row moves at their shapes: a demote reads K rows with
+# their slot rows (three gathers) and zeroes them (three scatter sets), a
+# promote writes K whole rows (three scatter sets), on views of the stacked
+# state. (R, D, K): the dlrm-mlperf full-width tier (524,288 rows, about
+# 300,000 moved a step), a smaller dim-128 tier, the smoke D 16.
+@pytest.mark.cuda
+@pytest.mark.parametrize("r_rows,d,k", [(524_288, 128, 300_000), (65_536, 128, 40_000), (1_024, 16, 400)])
+def test_tier_move_row_ops_match_plain(cuda, r_rows, d, k):
+    from repro_torch.core import blocks as t_blocks
+
+    r = np.random.default_rng(r_rows + k)
+    emb, m, v = (r.normal(size=(r_rows, d)).astype(np.float32) for _ in range(3))
+    offs = r.permutation(np.arange(1, r_rows))[:k].astype(np.int32)
+    offs[:: 97] = 0  # OVERFLOW_ROW slots, masked off as remove() masks them
+    mask = (r.random(k) < 0.9) & (offs != 0)
+    new = [r.normal(size=(k, d)).astype(np.float32) for _ in range(3)]
+    views = {}
+    for dev in ("cpu", "cuda"):
+        stacked = {n: torch.from_numpy(x)[None].to(dev) for n, x in (("emb", emb), ("m", m), ("v", v))}
+        views[dev] = (stacked, t_blocks.Blocks(emb=stacked["emb"][0], slots={"m": stacked["m"][0],
+                                                                             "v": stacked["v"][0]}))
+    o, ok = {d_: torch.from_numpy(offs).to(d_) for d_ in views}, {d_: torch.from_numpy(mask).to(d_) for d_ in views}
+    # demote: read, then clear
+    before = (t_fg.LAUNCHES, t_fs.LAUNCHES_SET)
+    got = t_blocks.gather_with_slots(views["cuda"][1], o["cuda"])
+    t_blocks.clear_rows(views["cuda"][1], o["cuda"], ok["cuda"])
+    torch.cuda.synchronize()
+    assert (t_fg.LAUNCHES - before[0], t_fs.LAUNCHES_SET - before[1]) == (3, 3)
+    want = t_blocks.gather_with_slots(views["cpu"][1], o["cpu"])
+    t_blocks.clear_rows(views["cpu"][1], o["cpu"], ok["cpu"])
+    assert torch.equal(got[0].cpu(), want[0])
+    for s in ("m", "v"):
+        assert torch.equal(got[1][s].cpu(), want[1][s])
+    # promote: write whole rows where the insert gave a row
+    before = t_fs.LAUNCHES_SET
+    nd = {dev: [torch.from_numpy(x).to(dev) for x in new] for dev in views}
+    for dev in ("cuda", "cpu"):
+        t_blocks.write_rows(views[dev][1], o[dev], nd[dev][0], {"m": nd[dev][1], "v": nd[dev][2]}, ok[dev])
+    torch.cuda.synchronize()
+    assert t_fs.LAUNCHES_SET - before == 3
+    for n in ("emb", "m", "v"):
+        assert torch.equal(views["cuda"][0][n].cpu(), views["cpu"][0][n]), n
+    assert not (views["cpu"][0]["emb"][0, 0] == 0).all()  # row 0 untouched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["lru", "lfu", "freq:2"])
+def test_tiered_engine_loop_card_matches_cpu(cuda, policy):
+    """The engine-level tiered loop (a device tier of 7 rows under a working
+    set of 20) on the card and on the CPU: every storage counter equal each
+    step, the union export's ids equal and its rows within SparseAdam's
+    rtol 1e-6; the tier moves launched their kernels."""
+    from repro_torch.core.embedding_engine import EmbeddingEngine, EngineConfig
+    from repro_torch.launch.common import local_view, stacked
+    from repro_torch.optim.sparse_adam import SparseAdamConfig
+    from repro_torch.storage import StorageConfig
+
+    engines = {dev: EmbeddingEngine([FeatureSpec("f", transform="hash", emb_dim=4, pooling="sum")], EngineConfig(
+        n_devices=1, rows_per_shard=8, map_capacity_per_shard=128, u_budget=16, per_dest_cap=16, recv_budget=16,
+        storage=StorageConfig(policy=policy)), dev) for dev in ("cpu", "cuda")}
+    states = {dev: e.init_state() for dev, e in engines.items()}
+    r = np.random.default_rng(0)
+    before = (t_fg.LAUNCHES, t_fs.LAUNCHES_SET)
+    for i in range(1, 15):
+        ids_list = r.integers(0, 20, 5)
+        mets = {}
+        for dev, eng in engines.items():
+            ids = {"f": Ragged.from_lists([list(ids_list)], nnz_budget=8)}
+            ids = {k: Ragged(v.values.to(dev), v.row_splits.to(dev)) for k, v in ids.items()}
+            st, met = eng.storage_prefetch(states[dev], ids, i)
+            stl, rows, plans, _ = eng.fetch_local(local_view(st), ids, torch.tensor(i, device=dev))
+            stl = eng.update_local(stl, plans, {k: rows[k] * 0.5 for k in rows}, SparseAdamConfig(lr=0.1),
+                                   torch.tensor(i, device=dev))
+            st, amet = eng.storage_admit(stacked(stl, st), i)
+            states[dev], mets[dev] = st, {**met, **amet}
+        assert mets["cuda"] == mets["cpu"], f"step {i}"
+    assert engines["cuda"].storage.totals["demoted"] > 0
+    assert t_fs.LAUNCHES_SET > before[1] and t_fg.LAUNCHES > before[0]
+    rows = {dev: e.export_rows(states[dev])["dim4"] for dev, e in engines.items()}
+    for k in ("ids", "last_use", "counts"):
+        np.testing.assert_array_equal(rows["cuda"][k], rows["cpu"][k], err_msg=k)
+    np.testing.assert_allclose(rows["cuda"]["emb"], rows["cpu"]["emb"], rtol=1e-6, atol=1e-7)
