@@ -113,6 +113,27 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 pre-train evals, post-train losses, live rows after each
                 eviction, its launches; its first window on the card
                 against the CPU in FP32 (within 1e-5) and in MIXED;
+     delta    — delta checkpoints and crash recovery at the train
+                driver's sizes (published widths, vocab 50,000, batch
+                8,192): a row for each of the 1.3 M ids imported, the
+                Trainer with ft_mode="delta" and FTTrainerHooks from step
+                1,000 for 20 steps, a save every 2 (a base, 8 deltas, a
+                compaction base, the final save), one evict_to_host discard
+                of about 5% of the rows, half of them negative ids, a digest
+                of the sorted export at every save; every delta at <= 10%
+                dirty under 25% of the base's bytes, exact launches (4
+                gathers a step and 3 a delta save's row read); a crash at
+                each persistence site (a mid-shard crash, a torn frame, a
+                crash before the manifest and before HEAD), each recovery
+                bit-equal to the writer at the save before, the run ending
+                bit-equal; the chain recovered into a tiered engine (262,144
+                device rows) that trains 4 steps bit-equal to the
+                all-device run with delta saves, that chain recovered
+                bit-equal onto an all-device and a tiered engine, no
+                discarded id back anywhere; the CLI with --ckpt-mode delta
+                crashed at step 6 in a fresh process (exit 42) and resumed
+                from step 5 within 1e-5; the row gather measured at the
+                delta read (phase 5, path delta_read);
      lm train — full-width qwen2.5-3b train_4k (T 4,096, batch cut to 1)
                 from a fresh state on an emptied card: 2 warm-up and 5
                 timed steps with the kernels' launch counts, state and
@@ -290,6 +311,20 @@ DRIVER_CRASH_STEPS, DRIVER_CRASH_AT = 12, 6
 # of a card path that ignores MIXED), which each run also holds above it
 # (scripts/window_precision_spread.py)
 TIER_ROWS, TIER_STEPS, TIER_MID_STEP, TIER_EVICT_AT = 524_288, 12, 6, 10
+# The delta checkpoints (delta_ckpt) at the train driver's sizes: a row for
+# each of the 26 x 50,000 ids the vocab gives (1.3 M rows: emb, m and v,
+# 2.0 GB), the Trainer from step 1,000 with a save every 2 steps over 20
+# steps (a base, 8 deltas, a compaction base at depth 8, the run's final
+# save), imported last uses in [0, 1,000) and one discard of the rows idle
+# since before step 64 after step 1,010; a crash at each persistence site
+# (4 frames a save: the 3rd frame of the 2nd save, a torn 3rd frame of the
+# 3rd, the 4th manifest, the 5th HEAD), each recovery landing on the save
+# before; a tiered engine of 262,144 device rows for 4 more steps
+DELTA_START, DELTA_STEPS, DELTA_EVERY, DELTA_EVICT_AT, DELTA_CUTOFF, DELTA_MAX_DEPTH = 1_000, 20, 2, 10, 64, 8
+DELTA_CHAOS = "crash@frame:7,torn@frame:14,crash@manifest:4,crash@head:5"
+DELTA_RECOVERED = [1_002, 1_004, 1_006, 1_008]
+DELTA_TIER_ROWS, DELTA_TIER_STEPS = 262_144, 4
+DELTA_CLI_STEPS, DELTA_CLI_CRASH_AT = 12, 6
 WINDOW_LOSS_TOL, MIXED_WINDOW_LOSS_TOL = 1e-5, 8e-4
 DRIVER_PER_STEP = {  # launches a step on the dlrm-mlperf train path
     "fused_gather.gather_rows": 4, "segment_reduce.segment_sum_csr_group": 1,
@@ -1829,6 +1864,14 @@ def main() -> None:
                                      online_window=window_launches[e["name"]])
     torch.cuda.empty_cache()
 
+    # ------------------ 4 delta checkpoints and crash recovery (train driver sizes)
+    delta_arch = dataclasses.replace(arch, model=dataclasses.replace(arch.model, vocab_per_feature=DRIVER_VOCAB))
+    delta_launches = delta_ckpt_phase(counts, reset_counts, phase, recorded, recorder,
+                                      {e["name"]: e for e in entries}, dev, delta_arch, DRIVER_BATCH, device_info)
+    for e in entries:
+        e["launches_by_path"]["delta_ckpt"] = delta_launches[e["name"]]
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------ 4 full-width LM train
     torch.cuda.synchronize()
     start_bytes = torch.cuda.memory_allocated()  # what earlier phases still hold: near zero
@@ -1980,6 +2023,7 @@ def main() -> None:
         e["launches_by_path"]["lm_train"] = lm_launches[e["name"]]
         e["launches"] = sum(e["launches_by_path"].values())
     fwd_by_path = {"csr_op": csr_launches["flash_attention.flash_fwd"],
+                   "delta_ckpt": delta_launches["flash_attention.flash_fwd"],
                    "tiered_train": tiered_launches["flash_attention.flash_fwd"],
                    "online_window": window_launches["flash_attention.flash_fwd"],
                    "mse_loop": loop_launches["flash_attention.flash_fwd"],
@@ -2001,6 +2045,7 @@ def main() -> None:
         "library_call": "F.scaled_dot_product_attention(is_causal=True), kv expanded", "at": flash_at,
         "bf16_route": "tensor cores (wgmma, TMA)", **flash_build["flash_attention.flash_fwd"]})
     bwd_by_path = {"csr_op": csr_launches["flash_attention.flash_bwd"],
+                   "delta_ckpt": delta_launches["flash_attention.flash_bwd"],
                    "tiered_train": tiered_launches["flash_attention.flash_bwd"],
                    "online_window": window_launches["flash_attention.flash_bwd"],
                    "mse_loop": loop_launches["flash_attention.flash_bwd"],
@@ -2541,6 +2586,427 @@ def online_window_phase(counts, reset_counts, dev, device_info: dict, **main_kw)
                                        "mixed_max_abs_diff": mixed_diff, "mixed_tolerance": MIXED_WINDOW_LOSS_TOL,
                                        "card_fp32_vs_cpu_mixed": control_diff, "losses": len(fp32["cpu"])},
           "phase_s": time.perf_counter() - phase_t0})
+    return launches
+
+
+def _sha256s(arrays: dict) -> dict:
+    """The sha256 of each array's bytes, each hashed on its own thread."""
+    import concurrent.futures
+    import hashlib
+
+    with concurrent.futures.ThreadPoolExecutor(len(arrays)) as ex:
+        futs = {k: ex.submit(lambda a: hashlib.sha256(np.ascontiguousarray(a)).hexdigest(), v)
+                for k, v in arrays.items()}
+    return {k: f.result() for k, f in futs.items()}
+
+
+def _device_export(sparse: dict, gkey: str) -> dict:
+    """An all-device engine's export (one shard) sorted by id on the card:
+    ids, emb, m, v and last_use, copied to the host."""
+    m, b = sparse[gkey]["idmap"], sparse[gkey]["blocks"]
+    live = m.occupied[0] & (m.offsets[0] != 0)
+    keys = m.keys[0][live]
+    order = torch.argsort(keys)
+    offs = m.offsets[0][live][order].long()
+    return {"ids": keys[order].cpu().numpy(), "emb": b.emb[0][offs].cpu().numpy(),
+            "m": b.slots["m"][0][offs].cpu().numpy(), "v": b.slots["v"][0][offs].cpu().numpy(),
+            "last_use": m.last_use[0][live][order].cpu().numpy()}
+
+
+def _union_export(engine, sparse: dict, gkey: str) -> dict:
+    """``engine.export_rows`` (both tiers of a tiered engine, with the
+    access counts) sorted by id on the host."""
+    r = engine.export_rows(sparse)[gkey]
+    o = np.argsort(r["ids"], kind="stable")
+    out = {"ids": r["ids"][o], "emb": r["emb"][o], "m": r["slots"]["m"][o], "v": r["slots"]["v"][o],
+           "last_use": r["last_use"][o]}
+    if "counts" in r:
+        out["counts"] = r["counts"][o]
+    return out
+
+
+DIGEST_KEYS = ("ids", "emb", "m", "v", "last_use")
+
+
+def delta_ckpt_phase(counts, reset_counts, phase: dict, recorded: dict, recorder, by_name: dict, dev, arch,
+                     batch: int, device_info: dict, tier_rows: int = DELTA_TIER_ROWS) -> dict:
+    """Incremental checkpoints and crash recovery on the card at the train
+    driver's sizes (dlrm-mlperf at published widths, ``arch``'s vocab):
+    (a) the Trainer with ``ft_mode="delta"`` and ``FTTrainerHooks`` over 20
+    steps from a state that holds a row for every id the vocab gives, a
+    save every 2 steps, a staleness discard through ``evict_to_host``
+    between steps 10 and 11, a digest of the sorted export at every save;
+    (a') the same state 4 steps further on the device with no checkpoint;
+    (b) the writer under one ``ChaosIO`` schedule that fires once at each
+    persistence site, restarted from the chain after each crash; (c) (a)'s
+    chain recovered into a tiered engine that trains 4 steps with delta
+    saves, and that chain recovered onto an all-device and a tiered
+    engine; (d) the CLI with ``--ckpt-mode delta`` crashed in a fresh
+    process and resumed. Every recovered export is bit-equal to the
+    writer's at its step; the row gather is measured at the delta read's
+    shape. Returns (a)'s launch counts."""
+    import os
+
+    from repro_torch import ft as t_ft, obs as t_obs
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.core import write_log
+    from repro_torch.ft import delta as delta_mod, manifest as man_lib
+    from repro_torch.io.ragged import Ragged
+    from repro_torch.kernels.fused_gather import ops as fg_ops, ref as fg_ref
+    from repro_torch.launch import recsys_cell, train as drv
+    from repro_torch.launch.common import CellOptions
+    from repro_torch.pipelines import TrainConfig, Trainer
+    from repro_torch.storage import StorageConfig
+
+    phase_t0 = time.perf_counter()
+    base = ROOT / "build" / "delta_ckpt"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    mcfg = arch.model
+    vocab, D = mcfg.vocab_per_feature, mcfg.embed_dim
+    gkey = f"dim{D}"
+    shape = ShapeCell("train_batch", "train", {"batch": batch})
+    start, end = DELTA_START, DELTA_START + DELTA_STEPS
+    evict_at = start + DELTA_EVICT_AT
+    tiered_opts = dict(storage=StorageConfig(policy="lru"), storage_device_rows=tier_rows)
+
+    def new_cell(**opts):
+        return recsys_cell.build(arch, shape, CellOptions(**opts), device=dev)
+
+    cell = new_cell()
+    # every id the vocab gives: each sparse column holds 0 .. vocab - 1
+    full = {}
+    for s in recsys_cell._model_mod(arch.arch_id).feature_specs(mcfg):
+        k = s.max_len or 1
+        vals = (torch.zeros((vocab * k,), dtype=torch.float32, device=dev) if s.transform == "raw"
+                else torch.arange(vocab, dtype=torch.int64, device=dev))
+        full[s.name] = Ragged(vals, torch.arange(vocab + 1, dtype=torch.int32, device=dev) * (vals.numel() // vocab))
+    with torch.no_grad():
+        all_ids = torch.unique(cell.engine.engine_ids(cell.ids_fn(full))[gkey])
+    del full
+    n_rows = all_ids.numel()
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    rows0 = {gkey: {"ids": all_ids, "emb": torch.randn((n_rows, D), generator=g, device=dev) * 0.01,
+                    "slots": {"m": torch.randn((n_rows, D), generator=g, device=dev) * 1e-4,
+                              "v": torch.rand((n_rows, D), generator=g, device=dev) * 1e-6},
+                    "last_use": torch.randint(0, start, (n_rows,), generator=g, device=dev, dtype=torch.int32)}}
+    batches = [cell.make_batch(60_000 + s, vocab=vocab) for s in range(DELTA_STEPS + DELTA_TIER_STEPS)]
+
+    def initial_state(c):
+        st = c.init_state()
+        st["sparse"] = c.engine.import_rows(rows0)
+        st["step"] = torch.tensor(start, dtype=torch.int32, device=dev)
+        return st
+
+    evictions: list = []
+
+    def evict_fn(c):
+        def evict(state, older_than):
+            m = state["sparse"][gkey]["idmap"]
+            ids = m.keys[0][m.occupied[0] & (m.last_use[0] < older_than)].cpu().numpy()
+            state = dict(state)
+            state["sparse"], met = c.engine.evict_to_host(state["sparse"], older_than)
+            evictions.append({"older_than": int(older_than), "ids": ids, "evicted": int(met[f"{gkey}/evicted"])})
+            return state
+        return evict
+
+    def trainer_for(c, directory, hooks, total, io=None):
+        cfg = TrainConfig(total_steps=total, ckpt_dir=str(directory), ckpt_every=DELTA_EVERY, ft_mode="delta",
+                          log_every=1, watchdog=False, anomaly=False, evict_every=evict_at,
+                          evict_age_steps=evict_at - DELTA_CUTOFF, ft_io=io)
+        return Trainer(c, cfg, hooks=hooks, evict_fn=evict_fn(c), registry=t_obs.MetricsRegistry())
+
+    # a save's parts: the row read and the GC (which re-hashes the chain's frames)
+    parts = {"read_s": 0.0, "gc_s": 0.0}
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                parts[key] += time.perf_counter() - t0
+        return wrapper
+
+    real_gc, real_subset = man_lib.gc, delta_mod.export_rows_subset
+    man_lib.gc = timed(real_gc, "gc_s")
+    delta_mod.export_rows_subset = timed(real_subset, "read_s")
+
+    def instrument(tr, saves: list, digest_fn=None, digests=None, record: bool = False):
+        """Each save timed and logged, and (with ``digest_fn``) a digest of
+        the export at its step, outside the timing."""
+        real_save = tr.ft.save
+        eng = tr.ft.engine
+        eng.export_rows = timed(eng.export_rows, "read_s")
+
+        def save(state, step, cursor=None):
+            parts.update(read_s=0.0, gc_s=0.0)
+            phase["name"] = "delta_read" if record else None
+            t0 = time.perf_counter()
+            try:
+                man = real_save(state, step, cursor)
+            finally:
+                phase["name"] = None
+            save_s = time.perf_counter() - t0
+            saves.append({"step": int(step), "kind": man.kind, "depth": man.chain_depth,
+                          "n_dirty": man.extra["n_dirty"], "n_dead": man.extra["n_dead"],
+                          "dirty_fraction": tr.registry.get("ckpt/dirty_fraction").value,
+                          "frame_bytes": sum(f["nbytes"] for f in man.frames), "save_s": save_s, **parts})
+            if digest_fn is not None and int(step) not in digests:
+                digests[int(step)] = digest_fn(state)
+            return man
+        tr.ft.save = save
+
+    def dig_dev(state):
+        return _sha256s(_device_export(state["sparse"], gkey))
+
+    def release():
+        write_log.set_observer(None)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------ (a) uninterrupted writer
+    dir_a = base / "a"
+    state = initial_state(cell)
+    tr = trainer_for(cell, dir_a, t_ft.FTTrainerHooks(cell.engine, cell.ids_fn), end)
+    saves_a, dig_a = [], {start: dig_dev(state)}
+    instrument(tr, saves_a, dig_dev, dig_a, record=True)
+    real_gather = recorder(fg_ops, "gather_rows")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res_a = tr.run(state, iter(batches[:DELTA_STEPS]), start_step=start)
+    torch.cuda.synchronize()
+    a_s = time.perf_counter() - t0
+    launches = counts()
+    fg_ops.gather_rows = real_gather
+    del state
+    hist_a = res_a.metrics_history
+    losses_a = [m["loss"] for m in hist_a]
+    for s in saves_a:
+        emit({"phase": "delta_ckpt_save", "run": "a", **s})
+    kinds = [(s["kind"], s["depth"]) for s in saves_a]
+    want_kinds = [("base", 0)] + [("delta", i) for i in range(1, DELTA_MAX_DEPTH + 1)] + [("base", 0), ("delta", 1)]
+    check(kinds == want_kinds, f"(a) saves {kinds}, expected {want_kinds}")
+    check(len(hist_a) == DELTA_STEPS and all(np.isfinite(losses_a)), f"(a) losses {losses_a}")
+    check(all(v == 0 for m in hist_a for k, v in m.items() if "overflow" in k), "(a) overflow")
+    inserting = sum(m[f"{gkey}/idmap_inserted"] > 0 for m in hist_a)
+    deltas_read = sum(s["kind"] == "delta" and s["n_dirty"] > 0 for s in saves_a)
+    want = {k: 0 for k in launches}
+    want.update({"fused_gather.gather_rows": 4 * DELTA_STEPS + 3 * deltas_read,
+                 "segment_reduce.segment_sum_csr_group": DELTA_STEPS,
+                 "segment_reduce.segment_expand_csr_group": DELTA_STEPS,
+                 "fused_scatter.scatter_add_rows": 3 * DELTA_STEPS,
+                 "fused_scatter.scatter_set_rows": 3 * inserting})
+    check(launches == want, f"(a) launches {launches}, expected {want} ({deltas_read} delta reads, "
+                            f"{inserting} inserting steps)")
+    base_bytes = saves_a[0]["frame_bytes"]
+    deltas = [s for s in saves_a if s["kind"] == "delta" and s["n_dirty"]]
+    small = [s for s in deltas if s["dirty_fraction"] <= 0.10]
+    check(small and all(s["frame_bytes"] < 0.25 * base_bytes for s in small),
+          f"deltas at <= 10% dirty against 25% of the base's {base_bytes} bytes: "
+          f"{[(s['step'], s['dirty_fraction'], s['frame_bytes']) for s in deltas]}")
+    # the discard: a share of the rows, about half of them negative ids, and
+    # a tombstone for each that stays dead (C4 on the card)
+    check(len(evictions) == 1 and evictions[0]["evicted"] == evictions[0]["ids"].size > 0,
+          f"(a) evictions {[(e['older_than'], e['evicted'], e['ids'].size) for e in evictions]}")
+    ev = evictions[0]
+    ev_ids = np.sort(ev["ids"])
+    m_a = res_a.state["sparse"][gkey]["idmap"]
+    gone = ev_ids[~np.isin(ev_ids, m_a.keys[0][m_a.occupied[0]].cpu().numpy())]  # never touched again
+    del m_a
+    neg_share = float((ev_ids < 0).mean())
+    tomb = next(s for s in saves_a if s["step"] >= evict_at)
+    check(0.35 < neg_share < 0.65 and (gone < 0).any() and tomb["n_dead"] >= gone.size,
+          f"evicted {ev_ids.size} ids, {neg_share:.3f} negative, {gone.size} never back, "
+          f"{tomb['n_dead']} tombstones at step {tomb['step']}")
+
+    # (a') the same state 4 more steps on the device, no checkpoint
+    cont_losses, dig_cont, st = [], {}, res_a.state
+    for i in range(DELTA_TIER_STEPS):
+        st, met = cell.step_fn(st, batches[DELTA_STEPS + i])
+        cont_losses.append(float(met["loss"]))
+        if (i + 1) % DELTA_EVERY == 0:
+            dig_cont[end + i + 1] = dig_dev(st)
+    del st, met, res_a, tr, cell
+    release()
+
+    # ----------------------------------------------------- (b) crash matrix
+    io_b = t_ft.ChaosIO(t_ft.ChaosSchedule.parse(DELTA_CHAOS))  # no fsync, as the chaos tests run it
+    dir_b = base / "b"
+    recovered, crashes, saves_b, final_b = [], [], [], None
+    t0 = time.perf_counter()
+    for session in range(1, 9):
+        c = new_cell()
+        trb = trainer_for(c, dir_b, t_ft.FTTrainerHooks(c.engine, c.ids_fn), end, io=io_b)
+        instrument(trb, saves_b)
+        if trb.ft.has_chain():
+            tr0 = time.perf_counter()
+            st, s0, _ = trb.try_resume(c.init_state())
+            torch.cuda.synchronize()
+            rec_s = time.perf_counter() - tr0
+            d = dig_dev(st)
+            bad = [k for k in DIGEST_KEYS if d[k] != dig_a.get(s0, {}).get(k)]
+            recovered.append({"step": s0, "recovery_s": rec_s, "differs": bad})
+            check(not bad, f"(b) the recovery at step {s0} differs from (a)'s export in {bad}")
+        else:
+            st, s0 = initial_state(c), start
+        try:
+            res = trb.run(st, iter(batches[s0 - start:DELTA_STEPS]), start_step=s0)
+        except t_ft.InjectedCrash as e:
+            crashes.append({"session": session, "error": str(e)})
+        else:
+            x = _device_export(res.state["sparse"], gkey)
+            final_b = (_sha256s(x), x["ids"])
+            del res, x
+        del st, trb, c
+        release()
+        if final_b is not None:
+            break
+    b_s = time.perf_counter() - t0
+    check([str(e) for e in io_b.fired] == DELTA_CHAOS.split(","), f"(b) fired {[str(e) for e in io_b.fired]}")
+    check([r["step"] for r in recovered] == DELTA_RECOVERED,
+          f"(b) recovered at {[r['step'] for r in recovered]}, expected {DELTA_RECOVERED}")
+    check(final_b is not None and final_b[0] == dig_a[end], "(b) the finished run's export differs from (a)'s")
+    check(not np.isin(gone, final_b[1]).any(), "(b) an evicted id came back")
+
+    # --------------------------------------------- (c) tier independence
+    t0 = time.perf_counter()
+    tcell = new_cell(**tiered_opts)
+    trc = trainer_for(tcell, dir_a, tcell.storage_hooks, end + DELTA_TIER_STEPS)
+    saves_c, dig_c = [], {}
+
+    def dig_union(state):
+        return _sha256s(_union_export(tcell.engine, state["sparse"], gkey))
+
+    instrument(trc, saves_c, dig_union, dig_c)
+    tr0 = time.perf_counter()
+    st, s0, _ = trc.try_resume(tcell.init_state())
+    c_rec_s = time.perf_counter() - tr0
+    store = tcell.engine.storage
+    split_after_recovery = {"device": store.device_resident(), "host": store.host_rows()}
+    d = dig_union(st)
+    check(s0 == end and {k: d[k] for k in DIGEST_KEYS} == dig_a[end],
+          f"(c) the tiered recovery at step {s0} differs from (a)'s export")
+    res_c = trc.run(st, iter(batches[DELTA_STEPS:]), start_step=end)
+    del st
+    hist_c = res_c.metrics_history
+    losses_c = [m["loss"] for m in hist_c]
+    loss_err = max(abs(a - b) for a, b in zip(losses_c, cont_losses))
+    check(len(losses_c) == DELTA_TIER_STEPS and loss_err <= 1e-5,
+          f"(c) tiered losses {losses_c} against the all-device run's {cont_losses}")
+    check(all(m["storage/unplaceable"] == 0 and all(v == 0 for k, v in m.items() if "overflow" in k)
+              for m in hist_c), "(c) overflow or unplaceable ids")
+    for s, dc in dig_cont.items():
+        check({k: dig_c[s][k] for k in DIGEST_KEYS} == dc,
+              f"(c) the tiered union export at step {s} differs from the all-device run's")
+    c_kinds = [(s["kind"], s["depth"]) for s in saves_c]
+    check(all(k == "delta" for k, _ in c_kinds), f"(c) saves {c_kinds}")
+    tip = end + DELTA_TIER_STEPS
+    with torch.no_grad():  # the discarded ids that (c)'s 4 steps did not bring back
+        touched = torch.cat([tcell.engine.engine_ids(tcell.ids_fn(b))[gkey] for b in batches[DELTA_STEPS:]])
+    gone_c = gone[~np.isin(gone, touched.cpu().numpy())]
+    del res_c, trc, tcell, store
+    release()
+    recovered_c = {}
+    for name, opts in (("all_device", {}), ("tiered", tiered_opts)):
+        c = new_cell(**opts)
+        ck = t_ft.DeltaCheckpointer(dir_a, c.engine, t_ft.DirtyTracker(registry=t_obs.MetricsRegistry()),
+                                    registry=t_obs.MetricsRegistry(), state_tree=c.state_tree,
+                                    load_state_tree=c.load_state_tree)
+        tr0 = time.perf_counter()
+        res = ck.recover(like_state=c.init_state())
+        torch.cuda.synchronize()
+        rs = time.perf_counter() - tr0
+        x = _union_export(c.engine, res.state["sparse"], gkey) if opts else _device_export(res.state["sparse"], gkey)
+        dx = _sha256s(x)
+        want_d = dig_c[tip] if opts else {k: dig_c[tip][k] for k in DIGEST_KEYS}
+        bad = [k for k in want_d if dx.get(k) != want_d[k]]
+        check(res.step == tip and not bad, f"(c) the recovery onto the {name} engine at step {res.step} "
+                                           f"differs in {bad}")
+        check(not np.isin(gone_c, x["ids"]).any(), f"(c) an evicted id came back on the {name} engine")
+        recovered_c[name] = {"step": res.step, "recovery_s": rs, "frames_read": res.frames_read,
+                             "rows": int(x["ids"].size), "compared": sorted(want_d)}
+        del c, ck, res, x
+        release()
+    c_s = time.perf_counter() - t0
+
+    # ------------------------------------------- (d) the CLI, fresh processes
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "dlrm-mlperf", "--device", "cuda",
+           "--steps", str(DELTA_CLI_STEPS), "--log-every", "1", "--batch", "64", "--ckpt-mode", "delta",
+           "--ckpt-every", "1"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+    def cli(extra: list) -> subprocess.Popen:
+        return subprocess.Popen(cmd + extra, env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+
+    t0 = time.perf_counter()
+    procs = [cli(["--ckpt-dir", str(base / "d_u"), "--telemetry", str(base / "d_u.jsonl")]),
+             cli(["--ckpt-dir", str(base / "d_c"), "--chaos-schedule", f"crash@step:{DELTA_CLI_CRASH_AT}",
+                  "--telemetry", str(base / "d_a.jsonl")])]
+    (out_u, err_u), (out_a, err_a) = (p.communicate(timeout=300) for p in procs)
+    resume = cli(["--ckpt-dir", str(base / "d_c"), "--resume", "--telemetry", str(base / "d_r.jsonl")])
+    out_r, err_r = resume.communicate(timeout=300)
+    d_s = time.perf_counter() - t0
+    rcs = [procs[0].returncode, procs[1].returncode, resume.returncode]
+    cu, ca, cr = ({k: r["metrics"]["loss"] for k, r in _step_records(base / f).items()}
+                  for f in ("d_u.jsonl", "d_a.jsonl", "d_r.jsonl"))
+    d_start = min(cr) - 1 if cr else None
+    d_err = (max(abs(got[k] - cu[k]) / abs(cu[k]) for got in (ca, cr) for k in got)
+             if cr and sorted(cr) == list(range(d_start + 1, DELTA_CLI_STEPS + 1)) and set(ca) <= set(cu) else None)
+    check(rcs == [0, drv.CHAOS_EXIT, 0], f"delta CLI return codes {rcs}: {err_a[-2000:]} {err_r[-2000:]}")
+    check(f"CHAOS: chaos: crash@step:{DELTA_CLI_CRASH_AT}" in out_a, "the delta CLI's crash was not the injected one")
+    check(d_start == DELTA_CLI_CRASH_AT - 1 and f"resumed from step {d_start}" in out_r,
+          f"the delta CLI resumed from {d_start}")
+    check(d_err is not None and d_err <= 1e-5, f"the delta CLI's steps differ by {d_err}")
+    cli_chain = [(m.step, m.kind) for m in man_lib.load_chain(base / "d_c")]
+
+    # ------------------------------------- the row gather at the delta read
+    man_lib.gc, delta_mod.export_rows_subset = real_gc, real_subset
+    check(("gather_rows", "delta_read") in recorded, "no delta save read its rows through the gather")
+    args, kw = recorded.pop(("gather_rows", "delta_read"))
+    read_at = _measure("gather_rows", real_gather, fg_ref.gather_rows, args, kw, 20, dev)
+    _add_path(by_name["fused_gather.gather_rows"], "delta_read", read_at)
+    del args, rows0, all_ids, batches
+    torch.cuda.empty_cache()
+
+    def med(key, xs):
+        return float(np.median([s[key] for s in xs]))
+
+    emit({"phase": "delta_ckpt", **device_info, "arch": arch.arch_id, "batch": batch,
+          "widths": {"n_dense": mcfg.n_dense, "n_sparse": mcfg.n_sparse, "embed_dim": D,
+                     "bot_mlp": mcfg.bot_mlp, "top_mlp": mcfg.top_mlp},
+          "reduced": {"vocab_per_feature": [4_000_000, vocab], "batch": [65_536, batch], "devices": [256, 1]},
+          "rows_imported": n_rows, "start_step": start, "steps": DELTA_STEPS, "ckpt_every": DELTA_EVERY,
+          "saves": [{k: s[k] for k in ("step", "kind", "depth", "n_dirty", "n_dead", "dirty_fraction",
+                                       "frame_bytes", "save_s", "read_s", "gc_s")} for s in saves_a],
+          "base_bytes": base_bytes, "delta_over_base": [s["frame_bytes"] / base_bytes for s in deltas],
+          "delta_save_s_p50": med("save_s", deltas), "delta_read_s_p50": med("read_s", deltas),
+          "delta_gc_s_p50": med("gc_s", deltas), "dirty_fraction_p50": med("dirty_fraction", deltas),
+          "base_save_s": [s["save_s"] for s in saves_a if s["kind"] == "base"],
+          "eviction": {"older_than": ev["older_than"], "discarded": int(ev_ids.size),
+                       "discarded_share": ev_ids.size / n_rows, "negative_share": neg_share,
+                       "never_back": int(gone.size), "never_back_negative": int((gone < 0).sum()),
+                       "never_back_after_c": int(gone_c.size),
+                       "tombstones": {"step": tomb["step"], "n_dead": tomb["n_dead"]}},
+          "losses": losses_a, "step_ms_p50": float(np.median([m["wall_s"] * 1e3 for m in hist_a])),
+          "launches": launches, "launches_want": want, "run_a_s": a_s,
+          "crash_matrix": {"schedule": DELTA_CHAOS, "fired": [str(e) for e in io_b.fired], "crashes": crashes,
+                           "recovered": recovered, "final_bit_equal": True, "run_s": b_s,
+                           "saves": [(s["step"], s["kind"], s["save_s"]) for s in saves_b]},
+          "tiered": {"device_rows": tier_rows, "recovery_s": c_rec_s, "split_after_recovery": split_after_recovery,
+                     "losses": losses_c, "all_device_losses": cont_losses, "loss_max_abs_err": loss_err,
+                     "saves": c_kinds, "union_bit_equal_at": sorted(dig_cont), "recovered": recovered_c,
+                     "run_s": c_s},
+          "cli": {"cmd": " ".join(cmd[1:]), "crash_at": DELTA_CLI_CRASH_AT, "returncodes": rcs,
+                  "resumed_from": d_start, "max_rel_err": d_err, "chain": cli_chain,
+                  "losses_uninterrupted": [cu[k] for k in sorted(cu)], "losses_resumed": [cr[k] for k in sorted(cr)],
+                  "three_processes_s": d_s},
+          "delta_read_gather": {k: read_at[k] for k in ("shape", "ms", "kernel_device_ms", "plain_ms",
+                                                      "library_ms", "bound_ms", "bound_by", "host_us")},
+          "phase_s": time.perf_counter() - phase_t0})
+    shutil.rmtree(base, ignore_errors=True)
     return launches
 
 

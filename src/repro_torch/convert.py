@@ -168,10 +168,14 @@ def tiered_state_from_numpy(engine, sparse: Mapping, payload: Mapping[str, np.nd
 def train_state_to_tree(state: Mapping) -> dict:
     """A train state ``{"step", "dense": module of linears, "opt": {"m",
     "v"}, "sparse"}`` (the MSE example's twin, or the recsys cell's with its
-    engine state stacked [1, ...]) in the layout of the reference's state."""
-    return {"step": state["step"], "dense": linears_to_numpy(state["dense"].state_dict()),
-            "opt": {k: linears_to_numpy(state["opt"][k]) for k in ("m", "v")},
-            "sparse": sparse_to_tree(state["sparse"])}
+    engine state stacked [1, ...]) in the layout of the reference's state.
+    A state without ``sparse`` (a delta frame's dense part) gives a tree
+    without it."""
+    tree = {"step": state["step"], "dense": linears_to_numpy(state["dense"].state_dict()),
+            "opt": {k: linears_to_numpy(state["opt"][k]) for k in ("m", "v")}}
+    if "sparse" in state:
+        tree["sparse"] = sparse_to_tree(state["sparse"])
+    return tree
 
 
 def train_state_from_tree(state: Mapping, tree: Mapping) -> dict:
@@ -189,9 +193,11 @@ def train_state_from_tree(state: Mapping, tree: Mapping) -> dict:
                 if dst.shape != x.shape:
                     raise ValueError(f"opt/{k}/{name}: shape {tuple(x.shape)}, state has {tuple(dst.shape)}")
                 dst.copy_(x)
-    return {"step": torch.tensor(np.asarray(tree["step"]), dtype=torch.int32, device=device),
-            "dense": model, "opt": state["opt"],
-            "sparse": sparse_from_tree(tree["sparse"], state["sparse"], device)}
+    out = {"step": torch.tensor(np.asarray(tree["step"]), dtype=torch.int32, device=device),
+           "dense": model, "opt": state["opt"]}
+    if "sparse" in tree:
+        out["sparse"] = sparse_from_tree(tree["sparse"], state["sparse"], device)
+    return out
 
 
 def transformer_from_numpy(tree: Mapping, cfg: TransformerConfig) -> dict[str, torch.Tensor]:

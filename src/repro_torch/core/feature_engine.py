@@ -20,7 +20,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-from repro_torch.io.ragged import Ragged
+from repro_torch.io.ragged import PAD_ID, Ragged
 from repro_torch.kernels.fused_transform import ops as ft_ops
 from repro_torch.kernels.fused_transform.ref import offset_index
 
@@ -222,9 +222,31 @@ class FeatureEngine:
             r = self._maybe_truncate(batch[s.name], s)
             dense, _ = r.to_padded(s.max_len or 1, pad_value=0.0)
             dense_out[s.name] = dense.to(torch.float32)
-        if self.groups.get("cross"):
-            raise NotImplementedError("cross features are not ported yet")
+        for s in self.groups.get("cross", []):
+            a, b = s.cross_of
+            ra = id_out[a] if a in id_out else batch[a]
+            rb = id_out[b] if b in id_out else batch[b]
+            id_out[s.name] = self._cross(ra, rb, s)
         return id_out, dense_out
+
+    def _cross(self, a: Ragged, b: Ragged, s: FeatureSpec) -> Ragged:
+        """Per-row cartesian hash-combine, densified at (ka, kb) caps, as
+        the reference computes it (its final gather, by the uncompacted
+        mask, included)."""
+        ka = kb = min(s.max_len or 8, 8)
+        da, ma = a.to_padded(ka, pad_value=0)
+        db, mb = b.to_padded(kb, pad_value=0)
+        crossed = hash_combine(da[:, :, None], db[:, None, :])
+        mask = (ma[:, :, None] & mb[:, None, :]).reshape(a.n_rows, -1)
+        flat = torch.where(mask, crossed.reshape(a.n_rows, -1), PAD_ID)
+        # compact each row's valid entries to the left so CSR is tight
+        invalid = (~mask).to(torch.uint8)
+        flat = torch.gather(flat, 1, torch.argsort(invalid, dim=1, stable=True))
+        lens = mask.sum(dim=1, dtype=torch.int32)
+        splits = torch.cat([torch.zeros((1,), dtype=torch.int32, device=lens.device),
+                            torch.cumsum(lens, 0, dtype=torch.int32)])
+        gorder = torch.argsort(invalid.reshape(-1), stable=True)
+        return Ragged(flat.reshape(-1)[gorder], splits)
 
     def _group_column_ids(self, kind: str, cols: list[Ragged], device: torch.device) -> torch.Tensor:
         """The group's (N,) int32 column ids, column i's ``nnz_budget``

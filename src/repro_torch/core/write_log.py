@@ -20,6 +20,11 @@ tracers there). The port runs eagerly; the train step's own insert
 (`exchange.fetch`) runs outside any shard scope, so the second guard
 leaves it unobserved, as the reference's traced call is.
 
+Every note keeps each id but PAD (-1). The reference keeps only ids >= 0,
+which drops the negative half of the salted 64-bit engine ids as well: a
+negative id a plain engine's evict discards then gets no tombstone, and a
+recovery brings it back from an older frame (ROADMAP §C, C4).
+
 The observer protocol:
 
     mark(group, ids)          rows whose contents changed (np.int64 array)
@@ -76,6 +81,9 @@ def _current() -> tuple[str, int] | None:
     return stack[-1] if stack else None
 
 
+PAD = -1
+
+
 def _np(x, dtype) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()
@@ -88,7 +96,7 @@ def note_insert(ids, is_new) -> None:
     if obs is None or ctx is None:
         return
     ids_np = _np(ids, np.int64)
-    sel = ids_np[_np(is_new, bool) & (ids_np >= 0)]
+    sel = ids_np[_np(is_new, bool) & (ids_np != PAD)]
     if sel.size:
         obs.mark(ctx[0], sel)
 
@@ -100,7 +108,7 @@ def note_remove(ids, moved) -> None:
     if obs is None or ctx is None:
         return
     ids_np = _np(ids, np.int64)
-    sel = ids_np[_np(moved, bool) & (ids_np >= 0)]
+    sel = ids_np[_np(moved, bool) & (ids_np != PAD)]
     if sel.size:
         obs.mark(ctx[0], sel)
 
@@ -112,7 +120,7 @@ def note_evict(keys) -> None:
     if obs is None or ctx is None:
         return
     keys_np = _np(keys, np.int64)
-    keys_np = keys_np[keys_np >= 0]
+    keys_np = keys_np[keys_np != PAD]
     if keys_np.size:
         obs.mark_dead(ctx[0], keys_np)
 

@@ -1,7 +1,7 @@
 """Crash-consistent manifest chain for incremental checkpoints
 (DESIGN.md §13); a copy of ``repro/ft/manifest.py`` on the port's
-``checkpoint.safetensors_io``. A chain either package commits loads in the
-other.
+``checkpoint.safetensors_io``, whose chain validation hashes the frames on
+a few threads. A chain either package commits loads in the other.
 
 Layout of a delta-checkpoint directory::
 
@@ -30,6 +30,7 @@ crashes.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import hashlib
 import json
@@ -150,16 +151,24 @@ def _read_manifest(directory: pathlib.Path, name: str,
         return None
 
 
-def _frames_valid(directory: pathlib.Path, m: Manifest) -> bool:
-    for fr in m.frames:
-        path = directory / fr["file"]
-        try:
-            data = path.read_bytes()
-        except OSError:
-            return False
-        if len(data) != fr["nbytes"] or sha256(data) != fr["sha256"]:
-            return False
-    return True
+def _frame_valid(path: pathlib.Path, fr: Mapping) -> bool:
+    try:
+        data = path.read_bytes()
+    except OSError:
+        return False
+    return len(data) == fr["nbytes"] and sha256(data) == fr["sha256"]
+
+
+def _frames_valid(directory: pathlib.Path, chain: list[Manifest]) -> bool:
+    """Every frame of ``chain`` at its recorded size and hash. The frames
+    are read and hashed on a few threads at once (``hashlib`` releases the
+    GIL): a chain holds gigabytes, and the GC after every save validates it
+    whole."""
+    frames = [(directory / fr["file"], fr) for m in chain for fr in m.frames]
+    if len(frames) <= 1:
+        return all(_frame_valid(p, fr) for p, fr in frames)
+    with concurrent.futures.ThreadPoolExecutor(min(len(frames), os.cpu_count() or 1, 8)) as ex:
+        return all(ex.map(lambda x: _frame_valid(*x), frames))
 
 
 def _build_chain(directory: pathlib.Path, tip: Manifest
@@ -176,9 +185,8 @@ def _build_chain(directory: pathlib.Path, tip: Manifest
             return None
         chain.append(parent)
         cur = parent
-    for m in chain:
-        if not _frames_valid(directory, m):
-            return None
+    if not _frames_valid(directory, chain):
+        return None
     return chain[::-1]
 
 

@@ -34,6 +34,9 @@ class Ragged:
     def nnz_budget(self) -> int:
         return self.values.shape[0]
 
+    def live_nnz(self) -> torch.Tensor:
+        return self.row_splits[-1]
+
     def row_lengths(self) -> torch.Tensor:
         return self.row_splits[1:] - self.row_splits[:-1]
 

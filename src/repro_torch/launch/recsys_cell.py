@@ -189,7 +189,7 @@ def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
 
     step_fn = train_step if train else serve_step
     cell = Cell(arch=arch, shape=shape, device=device, step_fn=step_fn, init_state=init_fn,
-                make_batch=pl.make_batch, ids_fn=lambda batch: pl.prepared(batch)[0],
+                make_batch=pl.make_batch, ids_fn=lambda batch: pl.prepared(on_device(batch))[0],
                 engine=pl.engine, returns_state=train,
                 state_tree=convert.train_state_to_tree if train else None,
                 load_state_tree=convert.train_state_from_tree if train else None)

@@ -26,7 +26,11 @@ Two deliberate differences from the reference:
     reference writes 256-row groups, which give no whole batch, and so no
     batch at all, for ``--batch`` above 256).
 
-``--ckpt-mode delta`` waits for the incremental checkpoints (ROADMAP A4).
+``--ckpt-mode delta`` (recsys archs, with ``--ckpt-dir``) writes incremental
+frames on a manifest chain: a tiered cell marks its dirty rows through its
+``storage_hooks``, any other through an ``ft.FTTrainerHooks`` on the cell's
+engine, and a chaos schedule's frame, manifest and head events fire in the
+checkpointer's ``ChaosIO``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf \\
@@ -118,7 +122,7 @@ def build_parser() -> argparse.ArgumentParser:
     # fault tolerance (DESIGN.md §13)
     p.add_argument("--ckpt-mode", choices=("full", "delta"), default="full",
                    help="full = sharded snapshot saver; delta = incremental "
-                        "dirty-row frames (not ported yet: ROADMAP A4)")
+                        "dirty-row frames (needs --ckpt-dir)")
     p.add_argument("--chaos-schedule", default=None, metavar="SPEC",
                    help="deterministic fault injection, e.g. "
                         "'crash@step:12,sigterm@step:40' (frame, manifest "
@@ -183,10 +187,8 @@ def run(args: argparse.Namespace, arch):
     """Train ``arch`` (an ``ArchConfig``) as the flags say; returns the
     ``TrainResult`` and the ``PipelineController`` (None without
     ``--autoscale``). An injected crash ends the process with CHAOS_EXIT."""
-    if args.ckpt_mode == "delta":
-        raise NotImplementedError(
-            "--ckpt-mode delta waits for the port of ft/delta.py, dirty, hooks "
-            "and recovery (ROADMAP A4); use --ckpt-mode full")
+    if args.ckpt_mode == "delta" and not args.ckpt_dir:
+        raise ValueError("--ckpt-mode delta requires --ckpt-dir")
     if args.data_dir and arch.family != "recsys":
         raise ValueError("--data-dir is a recsys-family data path")
     device = resolve_device(args.device)
@@ -196,12 +198,17 @@ def run(args: argparse.Namespace, arch):
         raise NotImplementedError(
             f"checkpoints of the {arch.family} train cell are not ported yet")
 
-    step_chaos = None
+    hooks = ft_io = step_chaos = None
     if args.chaos_schedule:
-        from repro_torch.ft import ChaosSchedule, StepChaos
+        from repro_torch.ft import ChaosIO, ChaosSchedule, StepChaos
         sched = ChaosSchedule.parse(args.chaos_schedule)
-        step_chaos = StepChaos(sched)  # io sites fire only in delta mode
+        step_chaos = StepChaos(sched)
+        if args.ckpt_mode == "delta":  # io sites fire only in delta mode
+            ft_io = ChaosIO(sched)
         print(f"chaos schedule: {sched}")
+    if args.ckpt_mode == "delta":
+        from repro_torch.ft import FTTrainerHooks
+        hooks = cell.storage_hooks or FTTrainerHooks(cell.engine, cell.ids_fn, state_key="sparse")
 
     tcfg = TrainConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
                        ckpt_every=args.ckpt_every, resume=args.resume,
@@ -211,8 +218,8 @@ def run(args: argparse.Namespace, arch):
                        profile_spans=args.profile_spans,
                        worker=args.worker_id,
                        snapshot_every=args.snapshot_every,
-                       ft_mode=args.ckpt_mode)
-    trainer = Trainer(cell, tcfg)
+                       ft_mode=args.ckpt_mode, ft_io=ft_io)
+    trainer = Trainer(cell, tcfg, hooks=hooks)
     exporter = None
     if args.prometheus_port is not None:
         exporter = obs.PrometheusExporter(trainer.registry,

@@ -21,8 +21,8 @@ Port of ``repro/pipelines/trainer.py``. The step runs as the cell gives it
 synchronise of the cell's device. A cell whose state is not a tree of
 dicts, lists, tuples and tensors (an ``nn.Module`` inside) gives
 ``state_tree(state)`` and ``load_state_tree(state, tree)``: the checkpoint
-holds that tree, in the reference's layout. ``ft_mode="delta"`` waits for
-the fault-tolerance port (ROADMAP A4).
+holds that tree, in the reference's layout; so does the dense part of a
+delta frame (``ft_mode="delta"``).
 """
 from __future__ import annotations
 
@@ -69,10 +69,14 @@ class TrainConfig:
     anomaly: bool = True
     anomaly_k: float = 6.0
     anomaly_window: int = 64
-    # fault tolerance (DESIGN.md §13): "delta" (ft.DeltaCheckpointer's
-    # incremental frames, with its chain options) waits for the port of
-    # ft/ (ROADMAP A4)
+    # fault tolerance (DESIGN.md §13): "delta" swaps the full-snapshot
+    # AsyncSaver for ft.DeltaCheckpointer — incremental dirty-row frames
+    # on a crash-consistent manifest chain
     ft_mode: str = "full"              # "full" | "delta"
+    ft_max_chain_depth: int = 8        # deltas per base before compaction
+    ft_compact_dirty_fraction: float = 0.5
+    ft_keep_chains: int = 2            # committed chains GC retains
+    ft_io: Any = None                  # ft.FileIO override (chaos harness)
 
 
 class StragglerEvent(NamedTuple):
@@ -243,11 +247,10 @@ class Trainer:
         self.reporter = (obs.ConsoleReporter(self.registry, cfg.console_every)
                          if cfg.console_every else None)
         self.saver = None
+        self.ft = None
         if cfg.ft_mode == "delta":
-            raise NotImplementedError(
-                "ft_mode='delta' waits for the port of ft/ and core/write_log.py "
-                "(ROADMAP A4); use ft_mode='full'")
-        if cfg.ft_mode != "full":
+            self._init_delta_ckpt()
+        elif cfg.ft_mode != "full":
             raise ValueError(f"unknown ft_mode {cfg.ft_mode!r}")
         elif cfg.ckpt_dir:
             self.saver = saver_lib.AsyncSaver(cfg.ckpt_dir, cfg.n_ckpt_shards,
@@ -262,6 +265,33 @@ class Trainer:
         # snapshot epoch: bumped to the resume step by run() so counters
         # from different process incarnations merge additively (§12/§13)
         self._epoch = 0
+
+    def _init_delta_ckpt(self):
+        """ft_mode="delta": dirty-row tracking + incremental frames on a
+        crash-consistent manifest chain (DESIGN.md §13)."""
+        from repro_torch import ft as ft_lib
+        from repro_torch.core import write_log
+
+        cfg = self.cfg
+        engine = getattr(self.hooks, "engine", None)
+        if cfg.ckpt_dir is None or engine is None:
+            raise ValueError(
+                "ft_mode='delta' needs ckpt_dir and engine-bearing hooks "
+                "(storage.StorageTrainerHooks or ft.FTTrainerHooks)")
+        tracker = ft_lib.DirtyTracker(registry=self.registry)
+        if hasattr(self.hooks, "attach_tracker"):
+            self.hooks.attach_tracker(tracker)
+        write_log.set_observer(tracker)
+        self.ft = ft_lib.DeltaCheckpointer(
+            cfg.ckpt_dir, engine, tracker,
+            sparse_key=getattr(self.hooks, "state_key", "sparse"),
+            n_shards=cfg.n_ckpt_shards,
+            max_chain_depth=cfg.ft_max_chain_depth,
+            compact_dirty_fraction=cfg.ft_compact_dirty_fraction,
+            keep_chains=cfg.ft_keep_chains,
+            registry=self.registry, io=cfg.ft_io,
+            state_tree=getattr(self.cell, "state_tree", None),
+            load_state_tree=getattr(self.cell, "load_state_tree", None))
 
     def _emit_snapshot(self, step: int):
         """One mergeable registry snapshot record (the aggregator's input
@@ -282,11 +312,16 @@ class Trainer:
         return fn(state) if fn is not None else state
 
     def _save(self, state, step: int, cursor: Mapping | None, blocking=False):
+        cursor = {"part": 0, "group": 0, "batch": 0, **(cursor or {})}
+        if self.ft is not None:
+            with self.tracer.span("checkpoint"):
+                self.ft.save(state, step, cursor=cursor)
+            return
         if self.saver is None:
             return
         with self.tracer.span("checkpoint"):
             payload = {"state": self._state_tree(state),
-                       "cursor": {"part": 0, "group": 0, "batch": 0, **(cursor or {})},
+                       "cursor": cursor,
                        "saved_step": np.int64(step)}
             extra = (self.hooks.ckpt_extra()
                      if self.hooks is not None and hasattr(self.hooks, "ckpt_extra")
@@ -302,6 +337,11 @@ class Trainer:
         the same (state, step) — recovery never mutates the chain."""
         if not (self.cfg.ckpt_dir and self.cfg.resume):
             return init_state, 0, None
+        if self.ft is not None:
+            if not self.ft.has_chain():
+                return init_state, 0, None
+            res = self.ft.recover(like_state=init_state)
+            return res.state, int(res.step), res.cursor
         step = saver_lib.latest_step(self.cfg.ckpt_dir)
         if step is None:
             return init_state, 0, None

@@ -982,3 +982,97 @@ def test_tiered_engine_loop_card_matches_cpu(cuda, policy):
     for k in ("ids", "last_use", "counts"):
         np.testing.assert_array_equal(rows["cuda"][k], rows["cpu"][k], err_msg=k)
     np.testing.assert_allclose(rows["cuda"]["emb"], rows["cpu"]["emb"], rtol=1e-6, atol=1e-7)
+
+
+def _ft_engine(dev, policy=None, rows=64):
+    from repro_torch.core.embedding_engine import EmbeddingEngine, EngineConfig
+    from repro_torch.storage import StorageConfig
+
+    return EmbeddingEngine([FeatureSpec("f", transform="hash", emb_dim=4, pooling="sum")], EngineConfig(
+        n_devices=1, rows_per_shard=rows, map_capacity_per_shard=2 * rows, u_budget=16, per_dest_cap=16,
+        recv_budget=16, storage=StorageConfig(policy=policy) if policy else None), dev)
+
+
+def _ft_rows(seed: int, n: int) -> dict:
+    r = np.random.default_rng(seed)
+    ids = np.unique(r.integers(-(1 << 62), 1 << 62, size=2 * n, dtype=np.int64))[:n]
+    r.shuffle(ids)
+    return {"dim4": {"ids": ids, "emb": r.normal(size=(n, 4)).astype(np.float32),
+                     "slots": {"m": r.normal(size=(n, 4)).astype(np.float32),
+                               "v": r.random(size=(n, 4)).astype(np.float32)},
+                     "last_use": r.integers(0, 40, n).astype(np.int32)}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,seed", [(None, 0), (None, 1), ("lru", 2), ("lru", 3)])
+def test_export_rows_subset_card_matches_cpu(cuda, policy, seed):
+    """The delta-frame read on the card equals the CPU's bit for bit, in
+    the same order, for wanted sets with PAD, absent ids and (tiered)
+    host-tier ids; its three row reads launched the gather kernel."""
+    from repro_torch import ft as t_ft_lib
+
+    rows = _ft_rows(seed, 90)  # all on the device, or 63 there and the rest on the host
+    engines = {dev: _ft_engine(dev, policy, 64 if policy else 256) for dev in ("cpu", "cuda")}
+    states = {dev: e.import_rows(rows) for dev, e in engines.items()}
+    if policy:
+        assert engines["cuda"].storage.host_rows() > 0
+    r = np.random.default_rng(seed + 10)
+    live = rows["dim4"]["ids"]
+    wanted = {"dim4": np.concatenate([r.choice(live, 40, replace=False), [-1], r.integers(0, 1 << 40, 5)])}
+    before = t_fg.LAUNCHES
+    out = {dev: t_ft_lib.export_rows_subset(e, states[dev], wanted)["dim4"] for dev, e in engines.items()}
+    torch.cuda.synchronize()
+    assert t_fg.LAUNCHES - before == 3
+    assert out["cuda"]["ids"].size == 40
+    for k in ("ids", "emb", "last_use", "counts"):
+        if k in out["cpu"]:
+            assert out["cuda"][k].dtype == out["cpu"][k].dtype, k
+            np.testing.assert_array_equal(out["cuda"][k], out["cpu"][k], err_msg=k)
+    for k in ("m", "v"):
+        np.testing.assert_array_equal(out["cuda"]["slots"][k], out["cpu"]["slots"][k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_delta_save_and_recover_card_matches_cpu(cuda, tmp_path):
+    """A base, a staleness discard (a negative id among the discarded) and
+    a delta on the card write the CPU's frames byte for byte, and a
+    recovery on the card reproduces the CPU's export."""
+    from repro_torch import ft as t_ft_lib, obs as t_obs
+    from repro_torch.core import write_log
+
+    rows = _ft_rows(4, 90)
+    exports, prev = {}, write_log.get_observer()
+    try:
+        for dev in ("cpu", "cuda"):
+            eng = _ft_engine(dev)
+            tracker = t_ft_lib.DirtyTracker(registry=t_obs.MetricsRegistry())
+            write_log.set_observer(tracker)
+            io = t_ft_lib.FileIO()
+            io.durable = False
+            ck = t_ft_lib.DeltaCheckpointer(tmp_path / dev, eng, tracker, registry=t_obs.MetricsRegistry(),
+                                            io=io, compact_dirty_fraction=2.0)
+            state = eng.import_rows(rows)
+            ck.save({"sparse": state, "step": np.int64(1)}, 1)
+            tracker.mark("dim4", rows["dim4"]["ids"][:20])
+            state, _ = eng.evict_to_host(state, 6)
+            man = ck.save({"sparse": state, "step": np.int64(2)}, 2)
+            assert man.kind == "delta" and man.extra["n_dead"] > 0
+            e2 = _ft_engine(dev)
+            res = t_ft_lib.DeltaCheckpointer(tmp_path / dev, e2, t_ft_lib.DirtyTracker(
+                registry=t_obs.MetricsRegistry()), registry=t_obs.MetricsRegistry()).recover(
+                like_state={"step": np.int64(0)})
+            exports[dev] = (eng.export_rows(state)["dim4"], e2.export_rows(res.state["sparse"])["dim4"])
+    finally:
+        write_log.set_observer(prev)
+    names = sorted(p.name for p in (tmp_path / "cpu").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "cuda").iterdir())
+    for n in names:
+        assert (tmp_path / "cuda" / n).read_bytes() == (tmp_path / "cpu" / n).read_bytes(), n
+    for i in range(2):
+        a, b = exports["cuda"][i], exports["cpu"][i]
+        oa, ob = np.argsort(a["ids"]), np.argsort(b["ids"])
+        for k in ("ids", "emb", "last_use"):
+            np.testing.assert_array_equal(a[k][oa], b[k][ob], err_msg=k)
+        for k in ("m", "v"):
+            np.testing.assert_array_equal(a["slots"][k][oa], b["slots"][k][ob], err_msg=k)
+    assert (exports["cuda"][1]["ids"] < 0).any()

@@ -9,8 +9,9 @@ file of either package. An injected
 crash exits 42 and a resume repeats the uninterrupted run; a SIGTERM ends
 the run preempted with a checkpoint; the ColumnIO path runs under the
 autoscaler; a checkpoint of either package's driver holds the same state
-names and the twin resumes from the reference's; delta checkpoints and a
-missing card raise."""
+names and the twin resumes from the reference's; with ``--ckpt-mode delta``
+(both cells' MIXED set to FP32) both drivers write the same manifests and
+frames, and each resumes from the other's chain; a missing card raises."""
 import os
 import shutil
 import subprocess
@@ -22,13 +23,20 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import write_log as j_wlog
+from repro.launch import recsys_cell as j_recsys
 from repro.launch import train as j_train
 from repro.launch.mesh import make_test_mesh
+from repro.models import layers as j_layers
 from repro.models.recsys import dlrm as j_dlrm
 from repro_torch import obs as t_obs
 from repro_torch.checkpoint import saver as t_saver
 from repro_torch.convert import dense_from_numpy
+from repro_torch.core import write_log as t_wlog
+from repro_torch.ft import manifest as t_man, recovery as t_rec
+from repro_torch.launch import recsys_cell as t_recsys
 from repro_torch.launch import train as t_train
+from repro_torch.models import layers as t_layers
 from repro_torch.models.recsys import dlrm as t_dlrm
 
 STEPS, BATCH = 6, 32
@@ -43,6 +51,17 @@ def _records(path) -> dict:
     return {r["step"]: r["metrics"] for r in t_obs.read_jsonl(path) if r.get("type") == "step" and "metrics" in r}
 
 
+_t_init = t_dlrm.init
+
+
+def _init_like_reference(cfg, seed=0, device=None):
+    """The twin's DLRM with the reference's initial dense params."""
+    model = _t_init(cfg, seed, device)
+    params = jax.tree.map(np.asarray, j_dlrm.init(jax.random.PRNGKey(seed), cfg))
+    model.load_state_dict(dense_from_numpy(params, cfg))
+    return model
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """One reference main() and one twin main() with the same flags; the
@@ -55,15 +74,7 @@ def runs(tmp_path_factory):
                                      "--ckpt-dir", str(d / "jck")]) == 0
     finally:
         mp.undo()
-    real_init = t_dlrm.init
-
-    def init_like_reference(cfg, seed=0, device=None):
-        model = real_init(cfg, seed, device)
-        params = jax.tree.map(np.asarray, j_dlrm.init(jax.random.PRNGKey(seed), cfg))
-        model.load_state_dict(dense_from_numpy(params, cfg))
-        return model
-
-    mp.setattr(t_dlrm, "init", init_like_reference)
+    mp.setattr(t_dlrm, "init", _init_like_reference)
     try:
         assert t_train.main(FLAGS + ["--steps", str(STEPS), "--device", "cpu",
                                      "--telemetry", str(d / "t.jsonl"), "--ckpt-dir", str(d / "tck")]) == 0
@@ -149,8 +160,122 @@ def test_data_dir_runs_under_the_autoscaler(tmp_path):
 
 
 def test_delta_checkpoints_raise_naming_a4(tmp_path):
-    with pytest.raises(NotImplementedError, match="A4"):
-        t_train.main(FLAGS + ["--device", "cpu", "--ckpt-mode", "delta", "--ckpt-dir", str(tmp_path)])
+    """Delta mode is ported (ROADMAP A4): as in the reference, it needs a
+    checkpoint directory, and writes a manifest chain there."""
+    with pytest.raises(ValueError, match="--ckpt-mode delta requires --ckpt-dir"):
+        t_train.main(FLAGS + ["--device", "cpu", "--ckpt-mode", "delta"])
+    try:
+        assert t_train.main(FLAGS + ["--device", "cpu", "--steps", "2", "--ckpt-mode", "delta",
+                                     "--ckpt-every", "1", "--ckpt-dir", str(tmp_path)]) == 0
+    finally:
+        t_wlog.set_observer(None)
+    # step 2 dirties over half the live rows: a compaction base, then the
+    # run's final save, an empty delta
+    assert [(m.step, m.kind) for m in t_man.load_chain(tmp_path)] == [(2, "base"), (2, "delta")]
+
+
+# ------------------------------------------------------- delta checkpoints
+
+DELTA_FLAGS = FLAGS + ["--steps", str(STEPS), "--ckpt-mode", "delta", "--ckpt-every", "2"]
+
+
+@pytest.fixture(scope="module")
+def delta_runs(tmp_path_factory):
+    """Both drivers with ``--ckpt-mode delta``, saving every 2 steps, both
+    cells' MIXED set to FP32 (the smoke train step is then held to 1e-5),
+    the twin from the reference's dense params. Delta mode installs a
+    process-wide write_log observer in each package: restored after."""
+    d = tmp_path_factory.mktemp("delta")
+    mp = pytest.MonkeyPatch()
+    mp.setattr(j_train, "small_mesh", make_test_mesh)
+    mp.setattr(j_recsys, "MIXED", j_layers.FP32)
+    mp.setattr(t_recsys, "MIXED", t_layers.FP32)
+    mp.setattr(t_dlrm, "init", _init_like_reference)
+    try:
+        assert j_train.main(DELTA_FLAGS + ["--telemetry", str(d / "j.jsonl"), "--ckpt-dir", str(d / "jck")]) == 0
+        assert t_train.main(DELTA_FLAGS + ["--device", "cpu", "--telemetry", str(d / "t.jsonl"),
+                                           "--ckpt-dir", str(d / "tck")]) == 0
+    finally:
+        mp.undo()
+        j_wlog.set_observer(None)
+        t_wlog.set_observer(None)
+    return d
+
+
+def _chain_summary(directory) -> list:
+    return [(m.step, m.kind, m.chain_depth, m.extra["n_dirty"], m.extra["n_dead"])
+            for m in t_man.load_chain(directory)]
+
+
+def test_delta_manifests_equal(delta_runs):
+    """The same sequence of saves, with equal dirty and dead counts: the
+    newest chain is step 4's base (a compaction: step 3 and 4 dirtied over
+    half the live rows), a delta and the run's final save (an empty delta
+    at the last step); the FP32 losses within 1e-5."""
+    d = delta_runs
+    want = _chain_summary(d / "jck")
+    assert _chain_summary(d / "tck") == want
+    assert [(s, k) for s, k, *_ in want] == [(4, "base"), (6, "delta"), (6, "delta")]
+    assert want[1][3] > 0 and want[-1][3] == 0
+    j, t = _records(d / "j.jsonl"), _records(d / "t.jsonl")
+    assert sorted(t) == sorted(j) == list(range(1, STEPS + 1))
+    for step in j:
+        np.testing.assert_allclose(t[step]["loss"], j[step]["loss"], rtol=1e-5, err_msg=str(step))
+
+
+def _group(key: str) -> str:
+    """The tensor group a frame float is held within (tests/test_torch_train.py's
+    groups): the dense params, each AdamW moment, the rows, each slot."""
+    return "/".join(key.split("/")[:3 if key.startswith("__dense__/opt/") else 2])
+
+
+def test_delta_frames_equal(delta_runs):
+    """Frame for frame: the same tensor names, integers bit-equal, floats
+    within 1e-5 of their group's largest magnitude (the FP32 smoke train
+    step's tolerance)."""
+    d = delta_runs
+    for jm, tm in zip(t_man.load_chain(d / "jck"), t_man.load_chain(d / "tck"), strict=True):
+        jf, tf = t_rec._read_manifest_tensors(d / "jck", jm), t_rec._read_manifest_tensors(d / "tck", tm)
+        assert sorted(tf) == sorted(jf)
+        assert {"dim16/ids", "dim16/emb", "dim16/slots/m", "__dense__/step", "__dense__/dense/bot/l0/w"} <= set(tf)
+        scale: dict = {}
+        for k, w in jf.items():
+            if w.size and not np.issubdtype(w.dtype, np.integer):
+                scale[_group(k)] = max(scale.get(_group(k), 0.0), float(np.abs(w).max()))
+        for k, w in jf.items():
+            assert tf[k].dtype == w.dtype and tf[k].shape == w.shape, k
+            if np.issubdtype(w.dtype, np.integer):
+                np.testing.assert_array_equal(tf[k], w, err_msg=k)
+            else:
+                np.testing.assert_allclose(tf[k], w, rtol=0, atol=1e-5 * max(scale.get(_group(k), 0.0), 1e-30),
+                                           err_msg=k)
+
+
+def test_delta_chains_resume_across_packages(delta_runs, tmp_path, capsys):
+    """The twin resumes from the reference's chain and the reference from
+    the twin's, each at the chain's last step."""
+    d = delta_runs
+    for src in ("jck", "tck"):
+        shutil.copytree(d / src, tmp_path / src)
+    more = FLAGS + ["--steps", str(STEPS + 2), "--ckpt-mode", "delta", "--ckpt-every", "2", "--resume"]
+    mp = pytest.MonkeyPatch()
+    mp.setattr(j_train, "small_mesh", make_test_mesh)
+    try:
+        res, _ = t_train.run(t_train.build_parser().parse_args(
+            more + ["--device", "cpu", "--ckpt-dir", str(tmp_path / "jck"), "--telemetry", str(tmp_path / "t.jsonl")]),
+            t_train.get_config("dlrm-mlperf", smoke=True))
+        assert j_train.main(more + ["--ckpt-dir", str(tmp_path / "tck"), "--telemetry", str(tmp_path / "j.jsonl")]) == 0
+    finally:
+        mp.undo()
+        j_wlog.set_observer(None)
+        t_wlog.set_observer(None)
+    assert res.resumed_from == STEPS and res.steps_run == 2 and int(res.state["step"]) == STEPS + 2
+    assert f"resumed from step {STEPS}" in capsys.readouterr().out
+    for f in ("t.jsonl", "j.jsonl"):
+        got = _records(tmp_path / f)
+        assert sorted(got) == [STEPS + 1, STEPS + 2] and all(np.isfinite(m["loss"]) for m in got.values())
+    for src in ("jck", "tck"):
+        assert t_man.load_chain(tmp_path / src)[-1].step == STEPS + 2
 
 
 def test_no_card_and_no_device_raises(monkeypatch):

@@ -290,11 +290,16 @@ def test_resumed_run_equals_the_uninterrupted_run(runs, tmp_path):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-def test_delta_checkpoints_wait_for_the_ft_port():
+def test_delta_checkpoints_wait_for_the_ft_port(tmp_path):
+    """Delta mode is ported: as in the reference, it needs a checkpoint
+    directory and hooks that carry the engine (the dirty rows' source)."""
     cell = t_mse.MSECell("cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        t_trainer.Trainer(cell, t_trainer.TrainConfig(ckpt_dir="x", ft_mode="delta"),
-                          registry=t_obs.MetricsRegistry())
+    for ckpt_dir in (None, str(tmp_path)):
+        with pytest.raises(ValueError, match="needs ckpt_dir and engine-bearing hooks"):
+            t_trainer.Trainer(cell, t_trainer.TrainConfig(ckpt_dir=ckpt_dir, ft_mode="delta"),
+                              registry=t_obs.MetricsRegistry())
+    with pytest.raises(ValueError, match="unknown ft_mode"):
+        t_trainer.Trainer(cell, t_trainer.TrainConfig(ft_mode="deltas"), registry=t_obs.MetricsRegistry())
 
 
 def test_main_without_a_card_raises(tmp_path):

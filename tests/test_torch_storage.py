@@ -277,10 +277,23 @@ class _Untouchable:
         raise AssertionError("read as an array")
 
 
+def _reference_filter(events: list) -> list:
+    """The port's events as the reference records them: it keeps only ids
+    >= 0 (C4, ROADMAP §C), and a mark left with no id is not sent."""
+    out = []
+    for kind, g, x in events:
+        if kind in ("mark", "dead"):
+            x = [i for i in x if i >= 0]
+            if not x:
+                continue
+        out.append((kind, g, x))
+    return out
+
+
 def test_write_log_notes_equal():
-    """Each note with an observer and a shard scope: the same marks, with
-    the reference's filter of ids >= 0 (which also drops the negative half
-    of the engine ids: ROADMAP §C)."""
+    """Each note with an observer and a shard scope: the port keeps every id
+    but PAD, the reference only ids >= 0, which also drops the negative half
+    of the engine ids (C4, ROADMAP §C, repaired in the port)."""
     ids = np.array([5, -1, -7, 9, 3], np.int64)
     flags = np.array([True, True, True, False, True])
     out = []
@@ -296,8 +309,10 @@ def test_write_log_notes_equal():
         finally:
             wl.set_observer(prev)
         out.append(rec.events)
-    assert out[1] == out[0]
-    assert out[1][0] == ("mark", "dim8", [5, 3])
+    assert out[0][0] == ("mark", "dim8", [5, 3])
+    assert out[1][0] == ("mark", "dim8", [5, -7, 3])
+    assert out[1][2] == ("dead", "dim8", [5, -7, 9, 3])
+    assert _reference_filter(out[1]) == out[0]
 
 
 def test_write_log_without_observer_touches_nothing():
@@ -433,7 +448,8 @@ def test_tiered_matches_all_device_bit_for_bit():
 
 def test_write_log_marks_equal():
     """With an observer installed, the tier moves report the same marks and
-    row-write counts in the same order as the reference's."""
+    row-write counts in the same order as the reference's, the negative ids
+    kept (C4)."""
     events = []
     for wl, eng_pair_idx, step in ((j_wlog, 0, _j_step), (t_wlog, 1, _t_step)):
         eng = _engines(6, "freq:2")[eng_pair_idx]
@@ -448,7 +464,8 @@ def test_write_log_marks_equal():
         finally:
             wl.set_observer(prev)
         events.append(rec.events)
-    assert events[1] == events[0]
+    assert _reference_filter(events[1]) == events[0]
+    assert any(i < 0 for e in events[1] if e[0] == "mark" for i in e[2])
     assert {e[0] for e in events[1]} == {"mark", "written"}
 
 
@@ -477,7 +494,8 @@ def test_evict_to_host_equal(policy, older_than):
     assert tm["spilled_stale" if policy else "dim4/evicted"] > 0
     _maps_equal(ts["dim4"]["idmap"], js["dim4"]["idmap"])
     _exports_equal(te, ts, je, js)
-    assert recs[1].events == recs[0].events
+    assert _reference_filter(recs[1].events) == recs[0].events
+    assert any(i < 0 for e in recs[1].events if e[0] in ("mark", "dead") for i in e[2])
     js, jmet, _ = _j_step(je, js, [1, 2, 3, 4, 5], 9, tiered=policy is not None)
     ts, tmet, _ = _t_step(te, ts, [1, 2, 3, 4, 5], 9, tiered=policy is not None)
     assert tmet == jmet
