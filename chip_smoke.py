@@ -2,9 +2,10 @@
 """The PyTorch port serving and training dlrm-mlperf (all on the device and
 over a tiered store), training the MSE ranking model of
 examples/train_mse.py (its step at full size, its main() with checkpoints
-and a resume), running the online-window example, and serving the
-qwen2.5-3b prefill and training qwen2.5-3b, on one NVIDIA card, through its
-own CUDA kernels.
+and a resume), running the online-window example, serving and training
+Wide & Deep, SASRec and MIND, scoring 1,000,000 retrieval candidates for
+the four recsys archs, and serving the qwen2.5-3b prefill and training
+qwen2.5-3b, on one NVIDIA card, through its own CUDA kernels.
 
     python3 chip_smoke.py [--save-inputs DIR]
 
@@ -46,7 +47,10 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
   3. smoke    — the smoke-size serve cell, then three steps of the smoke
                 train cell, then two qwen2.5 smoke prefill requests, then
                 three qwen2.5 smoke train steps, then three steps of the MSE
-                example's cell at its own size, on the card against the
+                example's cell at its own size, then the Wide & Deep (one
+                and two dim groups), SASRec and MIND smoke serve cells and
+                three train steps of each, then each recsys arch's smoke
+                retrieval cell (1,000 candidates), on the card against the
                 same cells on the CPU: same rows, params and batches;
   4. serve    — full-width dlrm-mlperf (vocab cut to 250,000 per feature):
                 6.5 M rows imported, 20 serve_p99 requests (batch 512) and
@@ -134,6 +138,20 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 crashed at step 6 in a fresh process (exit 42) and resumed
                 from step 5 within 1e-5; the row gather measured at the
                 delta read (phase 5, path delta_read);
+     recsys   — Wide & Deep, SASRec and MIND at published widths (their
+                vocabs too): serve_p99 (batch 512, 3 warm-up and 20 timed
+                requests over rows imported for the ids they touch) and
+                train_batch (batch 65,536 from a fresh state: 3 warm-up and
+                10 timed steps, the launches of every step held to what the
+                engine's groups and inserts imply, zero overflow, a
+                torch.profiler trace of three steps, ten steps on one
+                repeated batch); then retrieval_cand (batch 1, 1,000,000
+                candidates, 2 warm-up and 10 timed requests, finite scores,
+                over 100 distinct) for all four recsys archs (dlrm-mlperf's
+                vocab cut as above); then the serve_retrieval twin's main();
+                the D-50 gather, tile, untile and scatter, the grouped sum
+                at D 32 and 8 and at D 64 and the candidates' row gathers
+                measured on their recorded inputs (phase 5);
      lm train — full-width qwen2.5-3b train_4k (T 4,096, batch cut to 1)
                 from a fresh state on an emptied card: 2 warm-up and 5
                 timed steps with the kernels' launch counts, state and
@@ -1110,6 +1128,9 @@ def main() -> None:
               "moments": f"{MSE_LATER_MOMENT_FRAC} of the largest magnitude"}})
     del mcells, states, outs, sp, dense
 
+    # ------------------- 3 smoke Wide & Deep, SASRec, MIND and retrieval, card vs CPU
+    smoke_models_phase(rng)
+
     # ------------------------------------------------------ 4 full-width serve
     arch = dataclasses.replace(dlrm_mlperf.ARCH, model=dataclasses.replace(
         dlrm_mlperf.ARCH.model, vocab_per_feature=VOCAB))
@@ -1149,20 +1170,20 @@ def main() -> None:
     recorded: dict = {}
     phase = {"name": None}
 
-    def keep(a, whole: bool):
-        """A copy with the same strides; tables over 2^28 elements are kept
-        as they are unless ``whole`` (the scatter writes into its table)."""
-        if not torch.is_tensor(a) or (a.numel() >= (1 << 28) and not whole):
-            return a
-        return torch.empty_strided(a.shape, a.stride(), dtype=a.dtype, device=a.device).copy_(a.detach())
-
-    def recorder(mod, fn_name, whole: bool = False):
-        fn = getattr(mod, fn_name)
+    def recorder(mod, fn_name, whole: bool = False, every: bool = False):
+        """Wraps ``mod.fn_name`` so that, while ``phase["name"]`` is set, it
+        keeps copies of its first call's inputs under (fn_name, phase), or
+        with ``every`` of each call's under (fn_name, phase, call index).
+        Returns the function it wrapped."""
+        fn, calls = getattr(mod, fn_name), {}
 
         def wrapper(*args, **kw):
-            key = (fn_name, phase["name"])
-            if phase["name"] and key not in recorded:
-                recorded[key] = ([keep(a, whole) for a in args], kw)
+            name = phase["name"]
+            if name and every:
+                calls[name] = i = calls.get(name, -1) + 1
+                recorded[(fn_name, name, i)] = ([_keep(a, whole) for a in args], kw)
+            elif name and (fn_name, name) not in recorded:
+                recorded[(fn_name, name)] = ([_keep(a, whole) for a in args], kw)
             return fn(*args, **kw)
         setattr(mod, fn_name, wrapper)
         return fn
@@ -1872,6 +1893,13 @@ def main() -> None:
         e["launches_by_path"]["delta_ckpt"] = delta_launches[e["name"]]
     torch.cuda.empty_cache()
 
+    # ------- 4 Wide & Deep, SASRec and MIND at published widths, and retrieval
+    recsys_launches = recsys_models_phase(counts, reset_counts, phase, recorded, recorder,
+                                          {e["name"]: e for e in entries}, dev, device_info)
+    for e in entries:
+        e["launches_by_path"]["recsys_models"] = recsys_launches[e["name"]]
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------ 4 full-width LM train
     torch.cuda.synchronize()
     start_bytes = torch.cuda.memory_allocated()  # what earlier phases still hold: near zero
@@ -1899,7 +1927,7 @@ def main() -> None:
 
     def record_last_bwd(*args, **kw):  # layer 0's backward: the step's last call
         if phase["name"]:
-            recorded[("flash_bwd", phase["name"])] = ([keep(a, False) for a in args], kw)
+            recorded[("flash_bwd", phase["name"])] = ([_keep(a, False) for a in args], kw)
         return real["flash_bwd"](*args, **kw)
 
     real["flash_bwd"] = fa_ops.flash_bwd
@@ -2024,6 +2052,7 @@ def main() -> None:
         e["launches"] = sum(e["launches_by_path"].values())
     fwd_by_path = {"csr_op": csr_launches["flash_attention.flash_fwd"],
                    "delta_ckpt": delta_launches["flash_attention.flash_fwd"],
+                   "recsys_models": recsys_launches["flash_attention.flash_fwd"],
                    "tiered_train": tiered_launches["flash_attention.flash_fwd"],
                    "online_window": window_launches["flash_attention.flash_fwd"],
                    "mse_loop": loop_launches["flash_attention.flash_fwd"],
@@ -2046,6 +2075,7 @@ def main() -> None:
         "bf16_route": "tensor cores (wgmma, TMA)", **flash_build["flash_attention.flash_fwd"]})
     bwd_by_path = {"csr_op": csr_launches["flash_attention.flash_bwd"],
                    "delta_ckpt": delta_launches["flash_attention.flash_bwd"],
+                   "recsys_models": recsys_launches["flash_attention.flash_bwd"],
                    "tiered_train": tiered_launches["flash_attention.flash_bwd"],
                    "online_window": window_launches["flash_attention.flash_bwd"],
                    "mse_loop": loop_launches["flash_attention.flash_bwd"],
@@ -3010,6 +3040,495 @@ def delta_ckpt_phase(counts, reset_counts, phase: dict, recorded: dict, recorder
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The other recsys models: Wide & Deep, SASRec, MIND, and the retrieval cell
+
+RECSYS_MODELS = ("wide-deep", "sasrec", "mind")
+RETRIEVAL_ARCHS = ("dlrm-mlperf", "wide-deep", "sasrec", "mind")
+N_RETR_WARMUP, N_RETR = 2, 10
+# The models keep their published vocabs in every cell; dlrm-mlperf keeps
+# VOCAB (its published 4,000,000 needs 240 GB). A retrieval cell holds two
+# engines, each sized for the whole table (emb, m, v: 12 D bytes a row, and
+# 42 bytes of IDMap): Wide & Deep's two take 67.7 GB, and a request of
+# 1,000,000 candidates about 8 GB more.
+# smoke cells card against CPU: each arch's smoke config, and Wide & Deep's
+# with two dim groups (embed_dim 16, wide_dim 8)
+SMOKE_MODELS = (("wide-deep", {}), ("wide-deep", {"embed_dim": 16}), ("sasrec", {}), ("mind", {}))
+RECSYS_KERNELS = ("fused_gather.gather_rows", "segment_reduce.segment_sum_csr_group",
+                  "segment_reduce.segment_expand_csr_group", "sequence_tile.sequence_tile",
+                  "sequence_tile.sequence_untile", "fused_scatter.scatter_add_rows", "fused_scatter.scatter_set_rows")
+
+
+def _recsys_arch(arch_id: str, smoke: bool = False, **change):
+    from repro_torch.configs import get_config
+
+    arch = get_config(arch_id, smoke=smoke)
+    return dataclasses.replace(arch, model=dataclasses.replace(arch.model, **change)) if change else arch
+
+
+def _vocab(arch) -> int:
+    m = arch.model
+    return m.vocab_per_feature if hasattr(m, "vocab_per_feature") else m.vocab
+
+
+def _per_step(engine, train: bool, inserting: int = 0) -> dict:
+    """The launches one serve request or train step makes through a recsys
+    engine: per dim group one row gather (four in training: the fetch, then
+    SparseAdam's reads of emb, m and v), one grouped sum (and its gradient)
+    if the group has a sum or mean feature, one tile (and untile) per
+    sequence feature, three scatter adds (SparseAdam's writes) and, in each
+    of the ``inserting`` groups that inserted rows, three sets."""
+    groups = engine.groups.values()
+    sums = sum(any(s.pooling in ("sum", "mean") for s in g.features) for g in groups)
+    tiles = sum(s.pooling in ("none", "tile") for g in groups for s in g.features)
+    want = {k: 0 for k in DRIVER_PER_STEP}
+    want.update({"fused_gather.gather_rows": (4 if train else 1) * len(groups),
+                 "segment_reduce.segment_sum_csr_group": sums,
+                 "segment_reduce.segment_expand_csr_group": sums if train else 0,
+                 "sequence_tile.sequence_tile": tiles, "sequence_tile.sequence_untile": tiles if train else 0,
+                 "fused_scatter.scatter_add_rows": 3 * len(groups) if train else 0,
+                 "fused_scatter.scatter_set_rows": 3 * inserting})
+    return want
+
+
+def _request_rows(engines, ids_list, dev, scale: float = 0.05) -> tuple[dict, dict]:
+    """Rows (random emb, zero moments) for every engine id the requests
+    touch, in the export form ``import_rows`` takes; and their count per
+    group."""
+    per_group: dict = {}
+    for engine, ids in zip(engines, ids_list):
+        for key, e in engine.engine_ids(ids).items():
+            per_group.setdefault(key, []).append(e)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows, n = {}, {}
+    for key, parts in per_group.items():
+        u = torch.unique(torch.cat(parts))
+        u = u[u != -1]
+        d = int(key[3:])
+        emb = torch.randn((u.numel(), d), generator=gen, device=dev) * scale
+        zeros = torch.zeros_like(emb)
+        rows[key] = {"ids": u, "emb": emb, "slots": {"m": zeros, "v": zeros},
+                     "last_use": torch.zeros(u.numel(), dtype=torch.int32, device=dev)}
+        n[key] = u.numel()
+    return rows, n
+
+
+def _without_engines(state: dict) -> dict:
+    """A fresh cell state without its engine states, freed on the card: an
+    engine's ``import_rows`` builds a state of its own, and Wide & Deep's
+    retrieval engines (67.7 GB) do not fit twice."""
+    out = {k: v for k, v in state.items() if not k.startswith("sparse")}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _keep(a, whole: bool):
+    """A copy with the same strides; tables over 2^28 elements are kept as
+    they are unless ``whole`` (the scatter writes into its table)."""
+    if not torch.is_tensor(a) or (a.numel() >= (1 << 28) and not whole):
+        return a
+    return torch.empty_strided(a.shape, a.stride(), dtype=a.dtype, device=a.device).copy_(a.detach())
+
+
+def _smoke_rows(rows: dict, rng, train: bool) -> dict:
+    """``_request_rows``' rows with every 7th id left out (a zero row at
+    serve, inserted in training); in training with moments drawn as the
+    dlrm smoke train's are."""
+    out = {}
+    for key, r in rows.items():
+        keep = torch.ones(r["ids"].numel(), dtype=torch.bool)
+        keep[::7] = False
+        emb = r["emb"][keep]
+        n, d = emb.shape
+        slots = ({"m": torch.from_numpy(rng.normal(scale=1e-3, size=(n, d)).astype(np.float32)),
+                  "v": torch.from_numpy((rng.random(size=(n, d)) * 1e-5).astype(np.float32))} if train
+                 else {k: torch.zeros_like(emb) for k in ("m", "v")})
+        out[key] = {"ids": r["ids"][keep], "emb": emb, "slots": slots, "last_use": torch.ones(n, dtype=torch.int32)}
+    return out
+
+
+def smoke_models_phase(rng) -> None:
+    """Phase 3 for the other recsys models: each smoke serve cell (three
+    requests over imported rows, every 7th id missing) and three train steps
+    from one state, then each arch's smoke retrieval cell (1,000
+    candidates), on the card against the same cells on the CPU: metrics and
+    IDMaps equal, floats within the dlrm smoke cells' tolerances."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.core import idmap as idmap_lib
+    from repro_torch.io.ragged import Ragged
+    from repro_torch.launch import recsys_cell
+
+    seeds = (0, 1, 2)
+    for arch_id, change in SMOKE_MODELS:
+        arch = _recsys_arch(arch_id, smoke=True, **change)
+        label = arch_id + ("" if not change else "-" + "-".join(f"{k}{v}" for k, v in change.items()))
+        result = {"phase": "smoke_recsys_card_vs_cpu", "arch": label, "batch": 32,
+                  "groups": None, "tolerance": {"logits_and_loss": MIXED_TOL, "emb_and_dense_atol": TRAIN_PARAM_ATOL,
+                                                "moments": f"{TRAIN_MOMENT_FRAC} of the largest magnitude"}}
+        for kind in ("serve", "train"):
+            name = "serve_p99" if kind == "serve" else "train_batch"
+            cells = {d: recsys_cell.build(arch, ShapeCell(name, kind, {"batch": 32}), device=d)
+                     for d in ("cpu", "cuda")}
+            eng = cells["cpu"].engine
+            result["groups"] = list(eng.groups)
+            ids = [cells["cpu"].ids_fn(cells["cpu"].make_batch(s)) for s in seeds]
+            rows, _ = _request_rows([eng] * len(ids), ids, "cpu", scale=1.0 if kind == "serve" else 0.1)
+            rows = _smoke_rows(rows, rng, kind == "train")
+            states = {}
+            for d, c in cells.items():
+                states[d] = c.init_state()
+                states[d]["sparse"] = c.engine.import_rows(rows)
+            states["cuda"]["dense"].load_state_dict(states["cpu"]["dense"].state_dict())
+            diffs = 0.0
+            for s in seeds:
+                outs = {}
+                for d, c in cells.items():
+                    if kind == "serve":
+                        outs[d] = c.step_fn(states[d], c.make_batch(s))
+                    else:
+                        states[d], outs[d] = c.step_fn(states[d], c.make_batch(s))
+                val = "logits" if kind == "serve" else "loss"
+                met = {d: {k: int(v) for k, v in o.items() if k != val} for d, o in outs.items()}
+                check(met["cuda"] == met["cpu"], f"{label} smoke {kind} metrics differ: {met}")
+                got, want = outs["cuda"][val].float().cpu(), outs["cpu"][val].float()
+                check(bool(torch.isfinite(got).all()) and torch.allclose(got, want, **MIXED_TOL),
+                      f"{label} smoke {kind} {val} differ by {(got - want).abs().max()}")
+                diffs = max(diffs, float((got - want).abs().max()))
+            result[f"{kind}_max_abs_{'logit' if kind == 'serve' else 'loss'}_diff"] = diffs
+            if kind == "train":
+                for key in eng.groups:
+                    for f in idmap_lib.TENSOR_FIELDS:
+                        got, want = (getattr(states[d]["sparse"][key]["idmap"], f).cpu() for d in ("cuda", "cpu"))
+                        check(torch.equal(got, want), f"{label} smoke train {key} IDMap field {f} differs")
+                    exp = {d: cells[d].engine.export_rows(states[d]["sparse"])[key] for d in states}
+                    check(np.array_equal(exp["cuda"]["ids"], exp["cpu"]["ids"]), f"{label} smoke train {key} ids")
+                    e = float(np.abs(exp["cuda"]["emb"] - exp["cpu"]["emb"]).max())
+                    check(e <= TRAIN_PARAM_ATOL, f"{label} smoke train {key} rows differ by {e}")
+                    for k in ("m", "v"):
+                        got, want = exp["cuda"]["slots"][k], exp["cpu"]["slots"][k]
+                        check(np.abs(got - want).max() <= TRAIN_MOMENT_FRAC * np.abs(want).max(),
+                              f"{label} smoke train {key} {k} differs")
+                    result[f"train_{key}_max_abs_emb_diff"] = e
+                dense = {d: states[d]["dense"].state_dict() for d in states}
+                e = max(float((dense["cuda"][k].cpu() - v).abs().max()) for k, v in dense["cpu"].items())
+                check(e <= TRAIN_PARAM_ATOL, f"{label} smoke train dense params differ by {e}")
+                result["train_max_abs_dense_diff"] = e
+            del cells, states
+        emit(result)
+    for arch_id in RETRIEVAL_ARCHS:
+        arch = _recsys_arch(arch_id, smoke=True)
+        shape = ShapeCell("retrieval_cand", "retrieval", {"batch": 1, "n_candidates": 1_000})
+        cells = {d: recsys_cell.build(arch, shape, device=d) for d in ("cpu", "cuda")}
+        c = cells["cpu"]
+        ids = [c.ids_fn(c.make_batch(2 * s, vocab=500)) for s in seeds]
+        rows, _ = _request_rows([c.engine_user, c.engine_cand] * len(ids),
+                                [x[p] for x in ids for p in ("user", "cand")], "cpu", scale=0.5)
+        states = {}
+        for d, cell in cells.items():
+            states[d] = cell.init_state()
+            states[d]["sparse_user"] = cell.engine_user.import_rows(rows)
+            states[d]["sparse_cand"] = cell.engine_cand.import_rows(rows)
+        states["cuda"]["dense"].load_state_dict(states["cpu"]["dense"].state_dict())
+        diff = 0.0
+        for s in seeds:
+            b = c.make_batch(2 * s, vocab=500)
+            on_card = {p: {k: Ragged(v.values.to(cells["cuda"].device), v.row_splits.to(cells["cuda"].device))
+                           for k, v in cols.items()} for p, cols in b.items()}
+            outs = {"cpu": c.step_fn(states["cpu"], b), "cuda": cells["cuda"].step_fn(states["cuda"], on_card)}
+            met = {d: {k: int(v) for k, v in o.items() if k != "scores"} for d, o in outs.items()}
+            check(met["cuda"] == met["cpu"], f"{arch_id} smoke retrieval metrics differ: {met}")
+            got, want = outs["cuda"]["scores"].cpu(), outs["cpu"]["scores"]
+            check(got.shape == (1_000,) and bool(torch.isfinite(got).all()) and torch.allclose(got, want, **MIXED_TOL),
+                  f"{arch_id} smoke retrieval scores differ by {(got - want).abs().max()}")
+            check(torch.unique(got).numel() > 100, f"{arch_id} smoke retrieval scores are degenerate")
+            diff = max(diff, float((got - want).abs().max()))
+        emit({"phase": "smoke_retrieval_card_vs_cpu", "arch": arch_id, "n_candidates": 1_000,
+              "requests": len(seeds), "metrics": met["cuda"], "max_abs_score_diff": diff, "tolerance": MIXED_TOL})
+        del cells, states
+
+
+def recsys_models_phase(counts, reset_counts, phase: dict, recorded: dict, recorder, by_name: dict, dev,
+                        device_info: dict) -> dict:
+    """Wide & Deep, SASRec and MIND at published widths: each model's
+    ``serve_p99`` (batch 512, 3 warm-up and 20 timed requests over rows
+    imported for the ids they touch) and ``train_batch`` (batch 65,536 from
+    a fresh state: 3 warm-up and 10 timed steps with exact launches a step,
+    zero overflow, finite losses, a torch.profiler trace of three steps, ten
+    steps on one repeated batch); then ``retrieval_cand`` (1,000,000
+    candidates, 2 warm-up and 10 timed requests) for the four recsys archs
+    and the serve_retrieval twin's ``main()``. The kernels are measured on
+    the inputs these paths gave them (the D-50 scalar path of the gather,
+    tile, untile and scatter; the grouped sum at D 32 and 8 and at D 64; the
+    gathers of the candidates' rows). Returns the launches over every
+    sub-path, each counted from 0."""
+    from repro_torch.examples import serve_retrieval
+    from repro_torch.kernels.fused_gather import ops as fg_ops, ref as fg_ref
+    from repro_torch.kernels.fused_scatter import ops as fs_ops, ref as fs_ref
+    from repro_torch.kernels.segment_reduce import ops as sr_ops, ref as sr_ref
+    from repro_torch.kernels.sequence_tile import ops as st_ops, ref as st_ref
+    from repro_torch.launch import recsys_cell
+
+    phase_t0 = time.perf_counter()
+    total = {k: 0 for k in counts()}
+
+    def add(launches: dict) -> None:
+        for k, v in launches.items():
+            total[k] += v
+
+    wrapped = ((fg_ops, "gather_rows", False, True), (fs_ops, "scatter_add_rows", True, False),
+               (fs_ops, "scatter_set_rows", True, False), (sr_ops, "segment_sum_csr_group", False, True),
+               (sr_ops, "segment_expand_csr_group", False, True), (st_ops, "sequence_tile", False, True),
+               (st_ops, "sequence_untile", False, True))
+    real = {name: recorder(mod, name, whole, every) for mod, name, whole, every in wrapped}
+    # what each model's probe step records, measured after its train run:
+    # (wrapper, call indices (None: all), plain version, kernel entry)
+    probes = {
+        "wide-deep": [("segment_sum_csr_group", None, sr_ref.segment_sum_csr_group, "segment_reduce.segment_sum_csr_group"),
+                      ("segment_expand_csr_group", None, sr_ref.segment_expand_csr_group,
+                       "segment_reduce.segment_expand_csr_group")],
+        "sasrec": [("gather_rows", (0,), fg_ref.gather_rows, "fused_gather.gather_rows"),
+                   ("scatter_add_rows", (0,), fs_ref.scatter_add_rows, "fused_scatter.scatter_add_rows"),
+                   ("scatter_set_rows", (0,), fs_ref.scatter_set_rows, "fused_scatter.scatter_set_rows"),
+                   ("sequence_tile", (0,), st_ref.sequence_tile, "sequence_tile.sequence_tile"),
+                   ("sequence_untile", (0,), st_ref.sequence_untile, "sequence_tile.sequence_untile")],
+        "mind": [("segment_sum_csr_group", None, sr_ref.segment_sum_csr_group, "segment_reduce.segment_sum_csr_group"),
+                 ("segment_expand_csr_group", None, sr_ref.segment_expand_csr_group,
+                  "segment_reduce.segment_expand_csr_group"),
+                 ("sequence_tile", None, st_ref.sequence_tile, "sequence_tile.sequence_tile"),
+                 ("sequence_untile", None, st_ref.sequence_untile, "sequence_tile.sequence_untile")]}
+
+    def measure(path: str, todo) -> dict:
+        """The recorded inputs of ``path``, each held to its plain version
+        and timed; added to the kernel entries' ``at``."""
+        out = {}
+        for kname, which, plain, entry in todo:
+            # an ``every`` wrapper's calls are keyed by index, another's first call is index 0
+            keys = sorted(k for k in recorded
+                          if k[:2] == (kname, path) and (which is None or (k[2:] or (0,))[0] in which))
+            check(keys, f"{path}: no recorded call of {kname}")
+            for key in keys:
+                args, kw = recorded.pop(key)
+                label = path if len(keys) == 1 else f"{path}_{key[2]}"
+                if kname.startswith("sequence"):
+                    m = _measure_mse_kernel(kname, real[kname], plain, args, iters=20)
+                else:
+                    m = _measure(kname, real[kname], plain, args, kw, 20, dev)
+                _add_path(by_name[entry], label, m)
+                out[f"{kname}@{label}"] = {k: m[k] for k in ("shape", "ms", "kernel_device_ms", "plain_ms",
+                                                             "library_ms", "bound_ms", "bound_by", "host_us")}
+                del args
+                torch.cuda.empty_cache()
+        for key in [k for k in recorded if k[1] == path]:  # calls that are not measured
+            del recorded[key]
+        return out
+
+    models = {}
+    try:
+        for arch_id in RECSYS_MODELS:
+            arch = _recsys_arch(arch_id)
+            mcfg, vocab = arch.model, _vocab(arch)
+            part_t0 = time.perf_counter()
+            # ------------------------------------------------ serve_p99
+            cell = recsys_cell.build(arch, arch.shape("serve_p99"), device=dev)
+            batches = [cell.make_batch(40_000 + s, vocab=vocab) for s in range(N_WARMUP + N_P99_REQUESTS)]
+            state = _without_engines(cell.init_state())  # import_rows builds the engine state
+            rows, n_rows = _request_rows([cell.engine] * len(batches), [cell.ids_fn(b) for b in batches], dev)
+            state["sparse"] = cell.engine.import_rows(rows)
+            del rows
+            state_bytes = sum(t.numel() * t.element_size() for t in _tensors(state["sparse"]))
+            torch.cuda.synchronize()
+            reset_counts()
+            lat = []
+            for s, b in enumerate(batches):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = cell.step_fn(state, b)
+                end.record()
+                end.synchronize()
+                if s >= N_WARMUP:
+                    lat.append(start.elapsed_time(end))
+                met = {k: int(v) for k, v in out.items() if k != "logits"}
+                check(out["logits"].shape == (512,) and bool(torch.isfinite(out["logits"]).all()),
+                      f"{arch_id} serve logits")
+                check(all(v == 0 for k, v in met.items() if "overflow" in k), f"{arch_id} serve overflow: {met}")
+                check(all(met[f"{k}/dev_rows_live"] == n for k, n in n_rows.items()), f"{arch_id} serve rows: {met}")
+            serve_launches = counts()
+            add(serve_launches)
+            want = {k: v * len(batches) for k, v in _per_step(cell.engine, False).items()}
+            check(all(serve_launches[k] == v for k, v in want.items()),
+                  f"{arch_id} serve launches {serve_launches}, expected {want}")
+            lat_a = np.array(lat)
+            serve = {"batch": 512, "requests": N_P99_REQUESTS, "warmup": N_WARMUP, "rows_imported": n_rows,
+                     "state_bytes": state_bytes, "latency_ms_p50": float(np.percentile(lat_a, 50)),
+                     "latency_ms_p99": float(np.percentile(lat_a, 99)), "latency_ms_mean": float(lat_a.mean()),
+                     "latency_ms": lat, "launches": serve_launches,
+                     "launches_per_request": {k: v / len(batches) for k, v in serve_launches.items()}}
+            del cell, state, batches, out
+            torch.cuda.empty_cache()
+
+            # ------------------------------------------------ train_batch
+            cell = recsys_cell.build(arch, arch.shape("train_batch"), device=dev)
+            n_steps = N_TRAIN_WARMUP + N_TRAIN_STEPS
+            tbatches = [cell.make_batch(50_000 + s, vocab=vocab) for s in range(n_steps + 3 + 1)]
+            ids_per_step = {k: int(v.numel()) for k, v in cell.engine.engine_ids(cell.ids_fn(tbatches[0])).items()}
+            tstate = cell.init_state()
+            tstate_bytes = sum(t.numel() * t.element_size() for t in _tensors(tstate["sparse"]))
+            torch.cuda.synchronize()
+            base_bytes = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            step_ms, losses, inserted, per_step = [], [], [], []
+            for s in range(n_steps):
+                phase["name"] = f"{arch_id.replace('-', '_')}_train" if s == N_TRAIN_WARMUP - 1 else None
+                before = counts()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                tstate, out = cell.step_fn(tstate, tbatches[s])
+                end.record()
+                end.synchronize()
+                phase["name"] = None
+                if s >= N_TRAIN_WARMUP:
+                    step_ms.append(start.elapsed_time(end))
+                met = {k: int(v) for k, v in out.items() if k != "loss"}
+                losses.append(float(out["loss"]))
+                ins = {k.split("/")[0]: v for k, v in met.items() if k.endswith("/idmap_inserted")}
+                inserted.append(ins)
+                delta = {k: v - before[k] for k, v in counts().items()}
+                want = _per_step(cell.engine, True, sum(v > 0 for v in ins.values()))
+                check(delta == want, f"{arch_id} train step {s + 1}: launches {delta}, expected {want}")
+                per_step.append(delta)
+                check(all(v == 0 for k, v in met.items() if "overflow" in k),
+                      f"{arch_id} train overflow at step {s + 1}: {met}")
+                check(np.isfinite(losses[-1]), f"{arch_id} train loss {losses[-1]} at step {s + 1}")
+                if s == N_TRAIN_WARMUP - 2:  # steps 1-2: before the probe step's recorded copies
+                    train_peak = torch.cuda.max_memory_allocated()
+            train_launches = counts()
+            add(train_launches)
+            check(sum(ins for step in inserted for ins in step.values()) > 0, f"{arch_id}: no row inserted")
+
+            def run_step(b):
+                nonlocal tstate
+                tstate, _ = cell.step_fn(tstate, b)
+
+            prof = profile_requests(f"{arch_id}_train_batch", run_step, tbatches[n_steps:n_steps + 3])
+            emit(prof)
+            repeat = []
+            for _ in range(N_REPEAT):
+                tstate, out = cell.step_fn(tstate, tbatches[-1])
+                repeat.append(float(out["loss"]))
+            check(all(np.isfinite(repeat)) and repeat[-1] < repeat[0], f"{arch_id} loss on one repeated batch: {repeat}")
+            st_a = np.array(step_ms)
+            models[arch_id] = {"serve_p99": serve, "train_batch": {
+                "batch": cell.shape["batch"], "warmup": N_TRAIN_WARMUP, "steps": N_TRAIN_STEPS,
+                "engine_ids_per_step": ids_per_step, "step_ms_p50": float(np.percentile(st_a, 50)),
+                "step_ms_p99": float(np.percentile(st_a, 99)), "step_ms_mean": float(st_a.mean()), "step_ms": step_ms,
+                "loss": losses, "idmap_inserted": inserted, "loss_on_one_repeated_batch": repeat,
+                "max_memory_allocated_bytes_steps_1_2": train_peak, "allocated_before_bytes": base_bytes,
+                "step_transient_bytes": train_peak - base_bytes, "state_bytes": tstate_bytes,
+                "launches": train_launches, "launches_per_step": per_step[-1],
+                "profile": {k: prof[k] for k in ("device_busy_ms_per_request", "device_idle_share",
+                                                 "top_device_ms_per_request")}}}
+            del cell, tstate, tbatches, out
+            torch.cuda.empty_cache()
+            models[arch_id]["kernels"] = measure(f"{arch_id.replace('-', '_')}_train", probes[arch_id])
+            emit({"phase": "recsys_model", **device_info, "arch": arch_id, "source": arch.source,
+                  "widths": dataclasses.asdict(mcfg), "reduced": {"devices": [256, 1]},
+                  **models[arch_id], "part_s": time.perf_counter() - part_t0})
+            torch.cuda.empty_cache()
+
+        # ---------------------------------------------------- retrieval_cand
+        retrieval = {}
+        for arch_id in RETRIEVAL_ARCHS:
+            part_t0 = time.perf_counter()
+            cut = {"vocab_per_feature": VOCAB} if arch_id == "dlrm-mlperf" else {}
+            arch = _recsys_arch(arch_id, **cut)
+            vocab = _vocab(arch)
+            cell = recsys_cell.build(arch, arch.shape("retrieval_cand"), device=dev)
+            nc = cell.shape["n_candidates"]
+            batches = [cell.make_batch(60_000 + 2 * s, vocab=vocab) for s in range(N_RETR_WARMUP + N_RETR)]
+            ids = [cell.ids_fn(b) for b in batches]
+            state = _without_engines(cell.init_state())
+            rows, n_rows = _request_rows([cell.engine_user, cell.engine_cand] * len(ids),
+                                         [x[p] for x in ids for p in ("user", "cand")], dev, scale=0.5)
+            state["sparse_user"] = cell.engine_user.import_rows(rows)
+            state["sparse_cand"] = cell.engine_cand.import_rows(rows)
+            del rows, ids
+            state_bytes = sum(t.numel() * t.element_size() for t in _tensors({
+                k: state[k] for k in ("sparse_user", "sparse_cand")}))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            lat, uniq = [], []
+            path = f"retrieval_{arch_id.replace('-', '_')}"
+            for s, b in enumerate(batches):
+                phase["name"] = path if s == N_RETR_WARMUP else None  # the first timed request
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = cell.step_fn(state, b)
+                end.record()
+                end.synchronize()
+                phase["name"] = None
+                if s >= N_RETR_WARMUP:
+                    lat.append(start.elapsed_time(end))
+                sc = out["scores"]
+                met = {k: int(v) for k, v in out.items() if k != "scores"}
+                check(sc.shape == (nc,) and sc.dtype == torch.float32 and bool(torch.isfinite(sc).all()),
+                      f"{arch_id} retrieval scores")
+                uniq.append(int(torch.unique(sc).numel()))
+                check(uniq[-1] > 100, f"{arch_id} retrieval scores are degenerate: {uniq[-1]} distinct")
+                check(all(v == 0 for k, v in met.items() if "overflow" in k), f"{arch_id} retrieval overflow: {met}")
+            peak = torch.cuda.max_memory_allocated()
+            launches = counts()
+            add(launches)
+            want = {k: (a + b) * len(batches) for (k, a), b in zip(
+                _per_step(cell.engine_user, False).items(), _per_step(cell.engine_cand, False).values())}
+            check(launches == want, f"{arch_id} retrieval launches {launches}, expected {want}")
+            lat_a = np.array(lat)
+            retrieval[arch_id] = {"n_candidates": nc, "vocab": vocab, "rows_imported": n_rows,
+                                  "engines_state_bytes": state_bytes, "max_memory_allocated_bytes": peak,
+                                  "latency_ms_p50": float(np.percentile(lat_a, 50)),
+                                  "latency_ms_p99": float(np.percentile(lat_a, 99)), "latency_ms": lat,
+                                  "distinct_scores": uniq, "launches": launches}
+            del cell, state, batches, out, sc
+            torch.cuda.empty_cache()
+            # the candidates' row gather: the first timed request's largest
+            big = max((k for k in recorded if len(k) == 3 and k[:2] == ("gather_rows", path)),
+                      key=lambda k: recorded[k][0][1].numel())
+            retrieval[arch_id]["kernels"] = measure(path, [("gather_rows", (big[2],), fg_ref.gather_rows,
+                                                            "fused_gather.gather_rows")])
+            emit({"phase": "recsys_retrieval", **device_info, "arch": arch_id, "source": arch.source,
+                  "reduced": {"devices": [256, 1], **({"vocab_per_feature": [4_000_000, vocab]} if cut else {})},
+                  **retrieval[arch_id], "part_s": time.perf_counter() - part_t0})
+    finally:
+        for mod, name, _, _ in wrapped:
+            setattr(mod, name, real[name])  # the wrappers record no more
+
+    # ------------------------------------------- the serve_retrieval twin's main()
+    workdir = ROOT / "build" / "serve_retrieval"
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        twin = serve_retrieval.main(["--device", "cuda", "--workdir", str(workdir)])
+    twin_launches = counts()
+    add(twin_launches)
+    check(np.isfinite(twin["scores"]).all() and np.unique(twin["scores"]).size > 100,
+          "serve_retrieval twin: scores not finite or degenerate")
+    check(twin_launches["fused_gather.gather_rows"] > 0 and twin_launches["fused_scatter.scatter_add_rows"] > 0,
+          f"serve_retrieval twin launches {twin_launches}")
+    emit({"phase": "serve_retrieval_main", **device_info, "entry": "repro_torch.examples.serve_retrieval.main",
+          "train_loss": twin["train_loss"], "train_overflow": twin["train_overflow"],
+          "distinct_scores": int(np.unique(twin["scores"]).size), "latency_ms": twin["latency_ms"], "launches": twin_launches, "main_s": time.perf_counter() - t0,
+          "printed_tail": printed.getvalue().strip().splitlines()[-3:]})
+    shutil.rmtree(workdir, ignore_errors=True)
+    check(all(total[k] > 0 for k in RECSYS_KERNELS), f"a kernel of the recsys paths never ran: {total}")
+    emit({"phase": "recsys_models", **device_info, "launches": total, "phase_s": time.perf_counter() - phase_t0})
+    torch.cuda.empty_cache()
+    return total
+
+
 KERNEL_NAMES = {"gather_rows": "gather_rows_kernel", "segment_sum_csr": "segment_sum_sorted_kernel",
                 "segment_expand_csr": "segment_expand_csr_kernel", "scatter_add_rows": "scatter_rows_kernel",
                 "scatter_set_rows": "scatter_rows_kernel", "segment_sum_csr_group": "segment_sum_group_kernel",
@@ -3103,8 +3622,10 @@ def _measure_group(kname: str, real, plain, args: list, iters: int, dev) -> dict
     to the per-feature kernel on each slice, the gradient bit-equal), then
     timed beside the plain version and one library call on segment ids
     prebuilt for the group's rows (feature f's segment s is row base_f + s
-    of one output; rows no segment covers go to a spare row), with the
-    card's bound and the kernel's device time with a cold L2."""
+    of one output): the forward's ``index_add_`` takes only the rows a
+    segment covers, gathered beforehand; the gradient's ``index_select``
+    reads a zero row for the rest. With the card's bound and the kernel's
+    device time with a cold L2."""
     from repro_torch.kernels.segment_reduce import ops as sr_ops
 
     fwd = kname == "segment_sum_csr_group"
@@ -3142,7 +3663,9 @@ def _measure_group(kname: str, real, plain, args: list, iters: int, dev) -> dict
     if fwd:
         n_bytes, n_ops = (live + spare) * D * 4 + splits_bytes, float(live * D)
         shape["live_rows"] = live
-        lib = lambda: torch.zeros((spare + 1, D), device=dev).index_add_(0, idx, vals)  # noqa: E731
+        covered = idx != spare
+        lib_vals, lib_idx = vals[covered], idx[covered]
+        lib = lambda: torch.zeros((spare, D), device=dev).index_add_(0, lib_idx, lib_vals)  # noqa: E731
     else:
         n_given = sum(s for s, g in zip(n_seg, grads) if g is not None)
         n_bytes, n_ops = (n_given + N) * D * 4 + splits_bytes, 0.0

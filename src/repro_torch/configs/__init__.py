@@ -7,6 +7,9 @@ from repro_torch.configs.base import ArchConfig
 
 _MODULES = {
     "dlrm-mlperf": "dlrm_mlperf",
+    "wide-deep": "wide_deep",
+    "sasrec": "sasrec",
+    "mind": "mind",
     "qwen2.5-3b": "qwen2_5_3b",
 }
 

@@ -1,24 +1,25 @@
 """Weights and state carried across from the JAX package's formats.
 
 Dense params: the reference keeps a nested dict of numpy-convertible arrays
-``{"bot": {"l0": {"w": (d_in, d_out), "b": (d_out,)}, ...}, "top": ...}``;
-``dense_from_numpy`` turns it into the port's ``DLRM`` state dict
-(``nn.Linear.weight`` is (d_out, d_in), so ``w`` is transposed). The AdamW
-moments ``{"m": tree, "v": tree}`` have the params' layout and convert the
-same way (``adamw_from_numpy``). The transformer's tree stacks every layer
-leaf on axis 0; ``transformer_from_numpy`` unstacks it into ``layers.{i}``.
-``mse_dense_from_numpy`` takes the MSE example's attention projections and
-DNN. ``linears_to_numpy`` gives any module of linears back in the
-reference's layout, and ``linears_from_numpy`` takes it in again.
+(``{"bot": {"l0": {"w": (d_in, d_out), "b": (d_out,)}, ...}, "top": ...}``
+for DLRM). ``params_from_tree(model, tree)`` turns it into a state dict for
+the port's module (``nn.Linear.weight`` is (d_out, d_in), so ``w`` is
+transposed; every other parameter, such as a LayerNorm's ``scale`` and
+``bias``, SASRec's ``pos_emb``, MIND's ``S`` or Wide & Deep's 0-d
+``bias``, keeps its name and layout), and ``params_to_tree`` gives it
+back. The AdamW moments ``{"m": tree, "v": tree}`` have the params' layout
+and convert the same way. The transformer's tree stacks every layer leaf
+on axis 0; ``transformer_from_numpy`` unstacks it into ``layers.{i}``.
 
 Engine rows need no converter: the dict the reference's
 ``EmbeddingEngine.export_rows`` returns is what the port's ``import_rows``
 takes. ``sparse_to_tree`` lays the engine state out as the reference's
 pytree flattens it (a Blocks as ``(emb, (slots by name))``, an IDMap as the
 tuple of its tensor fields), and ``train_state_to_tree`` a whole MSE or
-DLRM train state, so a checkpoint holds the reference's leaf names
-(``state/dense/attn_k/w``, ``state/sparse/dim8/idmap/2``, ...) and a
-checkpoint of either package restores in the other.
+recsys train state, so a checkpoint holds the reference's leaf names
+(``state/dense/attn_k/w``, ``state/dense/block0/ln1/scale``,
+``state/sparse/dim8/idmap/2``, ...) and a checkpoint of either package
+restores in the other.
 
 A tiered engine's state comes across two ways. The reference's union
 ``export_rows`` (both tiers, with per-id counts) is what a tiered engine's
@@ -35,34 +36,10 @@ from typing import Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.core import blocks as blocks_lib, idmap as idmap_lib
-from repro_torch.models.recsys.dlrm import DLRMConfig
 from repro_torch.models.transformer import TransformerConfig
-
-
-def dense_from_numpy(tree: Mapping, cfg: DLRMConfig) -> dict[str, torch.Tensor]:
-    """Reference dense param tree → state dict for ``DLRM(cfg)``."""
-    out = {}
-    for part, dims in (("bot", cfg.bot_dims()), ("top", cfg.top_dims())):
-        layers = tree[part]
-        if len(layers) != len(dims) - 1:
-            raise ValueError(f"{part}: {len(layers)} layers, config has {len(dims) - 1}")
-        for i in range(len(dims) - 1):
-            w = np.asarray(layers[f"l{i}"]["w"], dtype=np.float32)
-            b = np.asarray(layers[f"l{i}"]["b"], dtype=np.float32)
-            if w.shape != (dims[i], dims[i + 1]) or b.shape != (dims[i + 1],):
-                raise ValueError(f"{part}.l{i}: shapes {w.shape}, {b.shape} do not fit {dims}")
-            out[f"{part}.l{i}.weight"] = torch.tensor(w.T)
-            out[f"{part}.l{i}.bias"] = torch.tensor(b)
-    return out
-
-
-def adamw_from_numpy(opt: Mapping, cfg: DLRMConfig) -> dict:
-    """Reference AdamW state ``{"m": tree, "v": tree}`` → the port's
-    ``{"m": {param name: tensor}, "v": {...}}``, on the CPU like
-    ``dense_from_numpy``."""
-    return {k: dense_from_numpy(opt[k], cfg) for k in ("m", "v")}
 
 
 def _linear(p: Mapping, name: str, d_in: int, d_out: int, bias: bool) -> dict[str, torch.Tensor]:
@@ -76,54 +53,67 @@ def _linear(p: Mapping, name: str, d_in: int, d_out: int, bias: bool) -> dict[st
     return out
 
 
-def mse_dense_from_numpy(tree: Mapping, dim: int = 8,
-                         dnn_dims: tuple[int, ...] = (496, 64, 64, 32, 32, 1)) -> dict[str, torch.Tensor]:
-    """The MSE example's dense tree ``{"attn_q": dense, "attn_k": dense,
-    "dnn": mlp}`` (``examples/train_mse.py``) → state dict for the twin's
-    ``MSEDense`` (``repro_torch/examples/train_mse.py``)."""
+def _tree_paths(model: nn.Module) -> dict[str, tuple[tuple[str, ...], bool]]:
+    """Each parameter name of ``model`` → (its key path in the reference's
+    dense tree, whether it is stored transposed). An ``nn.Linear``'s
+    ``weight`` and ``bias`` are the reference's ``w`` (d_in, d_out) and
+    ``b``; every other parameter (a LayerNorm's ``scale`` and ``bias``,
+    ``pos_emb``, MIND's ``S``, Wide & Deep's 0-d ``bias``) keeps its name
+    and layout."""
+    linear = {n for n, m in model.named_modules() if isinstance(m, nn.Linear)}
     out = {}
-    for name in ("attn_q", "attn_k"):
-        out.update(_linear(tree[name], name, dim, dim, True))
-    out.update(mlp_from_numpy(tree["dnn"], dnn_dims, "dnn."))
-    return out
-
-
-def mlp_from_numpy(layers: Mapping, dims: tuple[int, ...], prefix: str = "") -> dict[str, torch.Tensor]:
-    """The reference's ``make_mlp`` tree ``{"l0": {"w", "b"}, ...}`` → state
-    dict for ``layers.MLP(dims)``, its keys under ``prefix``."""
-    if len(layers) != len(dims) - 1:
-        raise ValueError(f"{prefix or 'mlp'}: {len(layers)} layers, expected {len(dims) - 1}")
-    out = {}
-    for i in range(len(dims) - 1):
-        out.update(_linear(layers[f"l{i}"], f"{prefix}l{i}", dims[i], dims[i + 1], True))
-    return out
-
-
-def linears_to_numpy(sd: Mapping[str, torch.Tensor]) -> dict:
-    """A state dict of ``nn.Linear`` layers (or AdamW moments keyed alike)
-    → the reference's nested tree: ``a.b.weight`` becomes ``{"a": {"b":
-    {"w": (d_in, d_out)}}}`` and ``a.b.bias`` its ``"b"``. The tensors stay
-    where they are (``w`` is a transposed view)."""
-    out: dict = {}
-    for key, x in sd.items():
-        *path, leaf = key.split(".")
-        node = out
-        for part in path:
-            node = node.setdefault(part, {})
-        node[{"weight": "w", "bias": "b"}[leaf]] = x.t() if leaf == "weight" else x
-    return out
-
-
-def linears_from_numpy(tree: Mapping, prefix: str = "") -> dict[str, torch.Tensor]:
-    """The inverse of ``linears_to_numpy``: the reference's nested tree of
-    numpy leaves → a state dict on the CPU, ``w`` transposed."""
-    out = {}
-    for key, x in tree.items():
-        if isinstance(x, Mapping):
-            out.update(linears_from_numpy(x, f"{prefix}{key}."))
+    for name, _ in model.named_parameters():
+        mod, _, leaf = name.rpartition(".")
+        path = tuple(mod.split(".")) if mod else ()
+        if mod in linear:
+            out[name] = (path + ({"weight": "w", "bias": "b"}[leaf],), leaf == "weight")
         else:
-            a = np.asarray(x, dtype=np.float32)
-            out[prefix + {"w": "weight", "b": "bias"}[key]] = torch.tensor(a.T if key == "w" else a)
+            out[name] = (path + (leaf,), False)
+    return out
+
+
+def params_to_tree(model: nn.Module, named: Mapping[str, torch.Tensor]) -> dict:
+    """Tensors keyed by ``model``'s parameter names (its state dict, or
+    AdamW moments keyed alike) → the reference's nested tree. The tensors
+    stay where they are (``w`` is a transposed view)."""
+    paths = _tree_paths(model)
+    out: dict = {}
+    for name, x in named.items():
+        path, transposed = paths[name]
+        node = out
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = x.t() if transposed else x
+    return out
+
+
+def _leaf_paths(tree: Mapping, prefix: tuple[str, ...] = ()):
+    """The key path of each leaf of a nested mapping."""
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaf_paths(v, prefix + (k,))
+        else:
+            yield prefix + (k,)
+
+
+def params_from_tree(model: nn.Module, tree: Mapping) -> dict[str, torch.Tensor]:
+    """The inverse of ``params_to_tree``: the reference's nested tree of
+    numpy-convertible leaves → a state dict for ``model`` on the CPU, each
+    shape checked. A leaf of ``tree`` that no parameter takes is an error."""
+    params, paths = dict(model.named_parameters()), _tree_paths(model)
+    extra = sorted(set(_leaf_paths(tree)) - {path for path, _ in paths.values()})
+    if extra:
+        raise ValueError(f"leaves with no parameter of {type(model).__name__}: {['/'.join(p) for p in extra]}")
+    out = {}
+    for name, (path, transposed) in paths.items():
+        node = tree
+        for part in path:
+            node = node[part]
+        a = np.asarray(node, dtype=np.float32)
+        x = torch.tensor(a.T if transposed else a)
+        if x.shape != params[name].shape:
+            raise ValueError(f"{'/'.join(path)}: shape {a.shape} does not fit {name} {tuple(params[name].shape)}")
+        out[name] = x
     return out
 
 
@@ -166,13 +156,14 @@ def tiered_state_from_numpy(engine, sparse: Mapping, payload: Mapping[str, np.nd
 
 
 def train_state_to_tree(state: Mapping) -> dict:
-    """A train state ``{"step", "dense": module of linears, "opt": {"m",
-    "v"}, "sparse"}`` (the MSE example's twin, or the recsys cell's with its
-    engine state stacked [1, ...]) in the layout of the reference's state.
+    """A train state ``{"step", "dense": module, "opt": {"m", "v"},
+    "sparse"}`` (the MSE example's twin, or a recsys cell's with its engine
+    state stacked [1, ...]) in the layout of the reference's state.
     A state without ``sparse`` (a delta frame's dense part) gives a tree
     without it."""
-    tree = {"step": state["step"], "dense": linears_to_numpy(state["dense"].state_dict()),
-            "opt": {k: linears_to_numpy(state["opt"][k]) for k in ("m", "v")}}
+    model = state["dense"]
+    tree = {"step": state["step"], "dense": params_to_tree(model, model.state_dict()),
+            "opt": {k: params_to_tree(model, state["opt"][k]) for k in ("m", "v")}}
     if "sparse" in state:
         tree["sparse"] = sparse_to_tree(state["sparse"])
     return tree
@@ -185,10 +176,10 @@ def train_state_from_tree(state: Mapping, tree: Mapping) -> dict:
     ``load_state_tree``."""
     model = state["dense"]
     device = next(model.parameters()).device
-    model.load_state_dict(linears_from_numpy(tree["dense"]))
+    model.load_state_dict(params_from_tree(model, tree["dense"]))
     with torch.no_grad():
         for k in ("m", "v"):
-            for name, x in linears_from_numpy(tree["opt"][k]).items():
+            for name, x in params_from_tree(model, tree["opt"][k]).items():
                 dst = state["opt"][k][name]
                 if dst.shape != x.shape:
                     raise ValueError(f"opt/{k}/{name}: shape {tuple(x.shape)}, state has {tuple(dst.shape)}")

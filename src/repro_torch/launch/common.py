@@ -44,6 +44,8 @@ class Cell:
     state_tree: Callable[[Any], Any] | None = None
     load_state_tree: Callable[[Any, Any], Any] | None = None
     storage_hooks: Any = None           # a tiered train cell's StorageTrainerHooks
+    engine_user: Any = None             # a retrieval cell's engines: the user's columns,
+    engine_cand: Any = None             # and the candidates'
 
 
 def round_up(x: int, m: int) -> int:

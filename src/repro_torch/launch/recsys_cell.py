@@ -1,11 +1,15 @@
-"""Recsys-family cells (port of ``repro/launch/recsys_cell.py``), one device.
+"""Recsys-family cells (port of ``repro/launch/recsys_cell.py``), one device:
+dlrm-mlperf, wide-deep, sasrec and mind.
 
 One fused transform pass (Feature Engine), one exchange per embedding dim
 (Embedding Engine), then the dense model. The serve step is the forward
 prefix of the training step; the training step then takes the gradient of
 the loss in the dense params and the compact rows ``rows_r``, and applies
 AdamW and SparseAdam. Blocks are updated in place, through views of the
-stacked state; the IDMap is new each step.
+stacked state; the IDMap is new each step. A retrieval cell scores one
+user against ``n_candidates`` item rows: two engines, one for the user's
+columns (batch 1) and one for the candidates', each sized for the whole
+table.
 
 Batch convention: {column: Ragged}. The serve step takes it on the cell's
 device; the train step moves it there itself, so a loader's CPU batches
@@ -44,11 +48,12 @@ TIERED_MAP_FACTOR = 4
 
 
 def _model_mod(arch_id: str):
-    if arch_id != "dlrm-mlperf":
-        raise NotImplementedError(f"{arch_id}: only dlrm-mlperf is ported")
-    from repro_torch.models.recsys import dlrm
+    from repro_torch.models.recsys import dlrm, mind, sasrec, wide_deep
 
-    return dlrm
+    models = {"dlrm-mlperf": dlrm, "mind": mind, "sasrec": sasrec, "wide-deep": wide_deep}
+    if arch_id not in models:
+        raise NotImplementedError(f"{arch_id}: not a recsys arch; known: {list(models)}")
+    return models[arch_id]
 
 
 def _ids_per_row(s: FeatureSpec) -> int:
@@ -57,10 +62,31 @@ def _ids_per_row(s: FeatureSpec) -> int:
     return 1  # single-valued categorical
 
 
+def _cand_specs(arch_id: str, model_cfg) -> list[FeatureSpec]:
+    """Candidate columns for retrieval cells (they share the item tables)."""
+    if arch_id == "dlrm-mlperf":
+        return [FeatureSpec("cand_items", transform="hash", emb_dim=model_cfg.embed_dim,
+                            pooling="values", shared_table="cat_0")]
+    if arch_id == "wide-deep":
+        return [
+            FeatureSpec("cand_items", transform="hash", emb_dim=model_cfg.embed_dim,
+                        pooling="values", shared_table="cat_0"),
+            FeatureSpec("cand_wide", transform="hash", emb_dim=model_cfg.wide_dim,
+                        pooling="values", shared_table="wide_tbl_0"),
+        ]
+    return [FeatureSpec("cand_items", transform="hash", emb_dim=model_cfg.embed_dim,
+                        pooling="values", shared_table="items")]
+
+
 def _rows_per_dim(arch: ArchConfig) -> dict[int, int]:
     """Global row capacity per dim-group (table sizes from the arch)."""
     m = arch.model
-    return {m.embed_dim: m.n_sparse * m.vocab_per_feature}
+    if arch.arch_id == "dlrm-mlperf":
+        return {m.embed_dim: m.n_sparse * m.vocab_per_feature}
+    if arch.arch_id == "wide-deep":
+        return {m.embed_dim: m.n_sparse * m.vocab_per_feature,
+                m.wide_dim: m.n_sparse * m.vocab_per_feature}
+    return {m.embed_dim: m.vocab}  # sasrec, mind: one shared item table
 
 
 @dataclasses.dataclass
@@ -126,9 +152,17 @@ def _plumbing(arch: ArchConfig, b_loc: int, specs: list[FeatureSpec],
                      device=device)
 
 
+def _dense(batch: Mapping[str, Ragged], specs: list[FeatureSpec]) -> dict[str, torch.Tensor]:
+    """Raw numeric columns → dense (B, k) fp32 tensors."""
+    return {s.name: batch[s.name].values.reshape(-1, s.max_len or 1).to(torch.float32)
+            for s in specs if s.transform == "raw"}
+
+
 def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
           device=None) -> Cell:
     device = resolve_device(device)
+    if shape.kind == "retrieval":
+        return _build_retrieval(arch, shape, opts, device)
     if shape.kind not in ("serve", "train"):
         raise NotImplementedError(f"{shape.kind} cells are not ported yet")
     train = shape.kind == "train"
@@ -138,9 +172,7 @@ def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
     pl = _plumbing(arch, shape["batch"], specs, opts, device)
 
     def dense_fn(batch):
-        """Raw numeric columns → dense (B, k) fp32 tensors."""
-        return {s.name: batch[s.name].values.reshape(-1, s.max_len or 1).to(torch.float32)
-                for s in pl.specs if s.transform == "raw"}
+        return _dense(batch, pl.specs)
 
     def serve_step(state, batch):
         with torch.inference_mode():
@@ -201,3 +233,47 @@ def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
         cell.storage_hooks = StorageTrainerHooks(
             pl.engine, lambda batch: pl.prepared(on_device(batch))[0], state_key="sparse")
     return cell
+
+
+def _build_retrieval(arch: ArchConfig, shape: ShapeCell, opts: CellOptions,
+                     device: torch.device) -> Cell:
+    """One user (batch 1) × ``n_candidates`` candidate rows. The step
+    fetches the user's rows from ``engine_user`` and the candidates' from
+    ``engine_cand`` (serve fetches: missing ids read as zero rows) and
+    returns ``scores`` (n_candidates,) fp32 with both engines' metrics."""
+    model = _model_mod(arch.arch_id)
+    mcfg = arch.model
+    nc = shape["n_candidates"]  # one device: already a multiple of the mesh
+    user_specs = [s for s in model.feature_specs(mcfg) if s.name != "label"]
+    cand_specs = _cand_specs(arch.arch_id, mcfg)
+    pl_u = _plumbing(arch, 1, user_specs, opts, device)
+    pl_c = _plumbing(arch, nc, cand_specs, opts, device)
+
+    def step_fn(state, batch):
+        ub, cb = batch["user"], batch["cand"]
+        with torch.inference_mode():
+            ids_u, _ = pl_u.prepared(ub)
+            ids_c, _ = pl_c.prepared(cb)
+            _, rows_u, plans_u, met_u = pl_u.engine.fetch_local(
+                local_view(state["sparse_user"]), ids_u, state["step"], train=False)
+            _, rows_c, plans_c, met_c = pl_c.engine.fetch_local(
+                local_view(state["sparse_cand"]), ids_c, state["step"], train=False)
+            acts_u = pl_u.engine.activations(rows_u, plans_u, ids_u)
+            acts_c = pl_c.engine.activations(rows_c, plans_c, ids_c)
+            kwargs = {"cand_wide": acts_c["cand_wide"]} if arch.arch_id == "wide-deep" else {}
+            scores = model.score_candidates(state["dense"], mcfg, acts_u, _dense(ub, user_specs),
+                                            acts_c["cand_items"], prec=MIXED, **kwargs)
+        return {"scores": scores, **met_u, **met_c}
+
+    def init_fn():
+        return {"step": torch.zeros((), dtype=torch.int32, device=device),
+                "dense": model.init(mcfg, seed=0, device=device),
+                "sparse_user": pl_u.engine.init_state(), "sparse_cand": pl_c.engine.init_state()}
+
+    def make_batch(seed: int, vocab: int = 1 << 30):
+        return {"user": pl_u.make_batch(seed, vocab), "cand": pl_c.make_batch(seed + 1, vocab)}
+
+    return Cell(arch=arch, shape=shape, device=device, step_fn=step_fn, init_state=init_fn,
+                make_batch=make_batch, returns_state=False, engine_user=pl_u.engine, engine_cand=pl_c.engine,
+                ids_fn=lambda batch: {"user": pl_u.prepared(batch["user"])[0],
+                                      "cand": pl_c.prepared(batch["cand"])[0]})

@@ -94,3 +94,35 @@ class SwiGLU(nn.Module):
     def forward(self, x: torch.Tensor, prec: Precision = MIXED) -> torch.Tensor:
         g = F.silu(dense_apply(self.gate, x, prec))
         return dense_apply(self.down, g * dense_apply(self.up, x, prec), prec)
+
+
+class LayerNorm(nn.Module):
+    """``(x - mean) * rsqrt(var + eps) * scale + bias`` with fp32 statistics,
+    returned in x's type; ``scale`` starts at ones, ``bias`` at zeros (the
+    reference's ``make_layernorm`` / ``layernorm_apply``)."""
+
+    def __init__(self, dim: int, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+        return ((xf - mu) * torch.rsqrt(var + eps) * self.scale + self.bias).to(x.dtype)
+
+
+class Embedding(nn.Module):
+    """A small dense table (positions and the like, not the sparse engine):
+    ``table`` ~ N(0, 0.02²), drawn on the CPU from ``gen``; a lookup returns
+    the rows in the compute type (the reference's ``make_embedding`` /
+    ``embedding_apply``)."""
+
+    def __init__(self, n: int, dim: int, gen: torch.Generator, device=None):
+        super().__init__()
+        table = torch.randn((n, dim), generator=gen, dtype=torch.float32) * 0.02
+        self.table = nn.Parameter(table.to(device))
+
+    def forward(self, ids: torch.Tensor, prec: Precision = MIXED) -> torch.Tensor:
+        return prec.cast(self.table[ids])

@@ -85,3 +85,23 @@ def loss(model: DLRM, cfg: DLRMConfig, acts: dict, dense: dict,
          prec: Precision = MIXED) -> torch.Tensor:
     """Mean sigmoid cross-entropy of the logits against ``dense["label"]``."""
     return bce_with_logits(apply(model, cfg, acts, dense, prec), dense["label"][:, 0])
+
+
+def score_candidates(model: DLRM, cfg: DLRMConfig, acts: dict, dense: dict,
+                     cand_rows: torch.Tensor, prec: Precision = MIXED) -> torch.Tensor:
+    """Retrieval: one user (batch-1 features) × Nc candidate rows, fp32
+    scores (Nc,). The candidate row takes the place of feature cat_0; the
+    bottom MLP and the user-user dots are computed once and broadcast, and
+    the candidate-user dots come first in the interaction."""
+    if model.cfg != cfg:
+        raise ValueError("model was built for another DLRMConfig")
+    nc = cand_rows.shape[0]
+    bot = model.bot(prec.cast(dense["dense"]), prec, final_act=True)                 # (1, d)
+    user = torch.stack([acts[f"cat_{i}"] for i in range(1, cfg.n_sparse)], dim=1)
+    user = torch.cat([prec.cast(user), bot[:, None, :]], dim=1)[0]                   # (F_u, d)
+    f_u = user.shape[0]
+    iu, ju = torch.tril_indices(f_u, f_u, offset=-1, device=user.device)
+    uu = (user @ user.T)[iu, ju]
+    inter = torch.cat([prec.cast(cand_rows) @ user.T, uu[None].expand(nc, uu.shape[0])], dim=-1)
+    top_in = torch.cat([bot.expand(nc, bot.shape[-1]), inter], dim=-1)
+    return model.top(top_in, prec)[:, 0].to(torch.float32)

@@ -1076,3 +1076,142 @@ def test_delta_save_and_recover_card_matches_cpu(cuda, tmp_path):
         for k in ("m", "v"):
             np.testing.assert_array_equal(a["slots"][k][oa], b["slots"][k][ob], err_msg=k)
     assert (exports["cuda"][1]["ids"] < 0).any()
+
+
+# SASRec's item rows are D 50 (D % 4 != 0: the gather's, scatter's, tile's
+# and untile's scalar paths), at a cut of its train step's shapes: the
+# history's k 50 over rows of every length up to 50, ids with PAD and
+# out-of-range ids, SparseAdam's unique slots with 60% valid.
+@pytest.mark.cuda
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_d50_kernels_match_plain(cuda, id_dtype):
+    g = torch.Generator().manual_seed(50)
+    r_rows, d, k = 60_000, 50, 98_304
+    table = torch.randn((r_rows, d), generator=g).to(cuda)
+    ids = torch.randint(-2, r_rows + 2, (k,), generator=g).to(id_dtype).to(cuda)
+    before = t_fg.LAUNCHES
+    got = t_fg.gather_rows(table, ids)
+    torch.cuda.synchronize()
+    assert t_fg.LAUNCHES == before + 1
+    assert torch.equal(got, t_fg_ref.gather_rows(table, ids))
+
+    slots = torch.randperm(r_rows + 100, generator=g)[:40_000].to(id_dtype).to(cuda) - 50
+    rows = torch.randn((slots.numel(), d), generator=g).to(cuda)
+    valid = (torch.rand(slots.numel(), generator=g) < 0.6).to(cuda)
+    for op, fn, plain in (("add", t_fs.scatter_add_rows, t_fs_ref.scatter_add_rows),
+                          ("set", t_fs.scatter_set_rows, t_fs_ref.scatter_set_rows)):
+        mine, want = table.clone(), table.clone()
+        before = (t_fs.LAUNCHES_ADD, t_fs.LAUNCHES_SET)
+        fn(mine, slots, rows, valid)
+        plain(want, slots, rows, valid)
+        torch.cuda.synchronize()
+        assert (t_fs.LAUNCHES_ADD, t_fs.LAUNCHES_SET) == (before[0] + (op == "add"), before[1] + (op == "set"))
+        assert torch.equal(mine, want), op
+
+    r = np.random.default_rng(50)
+    lens = r.integers(0, 51, 2_048)
+    splits = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)]).astype(
+        np.int32 if id_dtype == torch.int32 else np.int64)).to(cuda)
+    vals = torch.randn((int(lens.sum()) + 7, d), generator=g).to(cuda)  # a padding tail
+    grad = torch.randn((2_048, 50, d), generator=g).to(cuda)
+    before = (t_st.LAUNCHES, t_st.BWD_LAUNCHES)
+    tiled = t_st.sequence_tile(vals, splits, 50)
+    untiled = t_st.sequence_untile(grad, splits, vals.shape[0])
+    torch.cuda.synchronize()
+    assert (t_st.LAUNCHES, t_st.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(tiled, t_st_ref.sequence_tile(vals, splits, 50))
+    assert torch.equal(untiled, t_st_ref.sequence_untile(grad, splits, vals.shape[0]))
+
+
+def _recsys_arch(arch_id: str, **change):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    arch = get_config(arch_id, smoke=True)
+    return dataclasses.replace(arch, model=dataclasses.replace(arch.model, **change))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id,change,per_step", [
+    # per train step: gathers, grouped sums each way, tiles each way, adds
+    ("wide-deep", {"embed_dim": 16}, (8, 2, 0, 6)),  # two dim groups: one grouped sum each way each
+    ("sasrec", {}, (4, 0, 3, 3)),                    # three item sequences, tiled
+    ("mind", {}, (4, 1, 2, 3)),                      # the target summed, history and negatives tiled
+])
+def test_smoke_recsys_models_train_card_matches_cpu(cuda, arch_id, change, per_step):
+    """Three train steps of the Wide & Deep (two dim groups), SASRec and
+    MIND smoke cells from one state on the same batches, card against CPU:
+    integers equal, the loss within 3e-2 and rows and params within
+    2 * lr * 3 (bf16 compute: tests/test_torch_recsys_cells.py), and each
+    kernel launched as often as the engine's groups say."""
+    from repro_torch.launch import recsys_cell
+
+    arch = _recsys_arch(arch_id, **change)
+    shape = ShapeCell("train_batch", "train", {"batch": 32})
+    cells = {d: recsys_cell.build(arch, shape, device=d) for d in ("cpu", "cuda")}
+    states = {d: c.init_state() for d, c in cells.items()}
+    states["cuda"]["dense"].load_state_dict(states["cpu"]["dense"].state_dict())
+
+    def now():
+        return (t_fg.LAUNCHES, t_sr.GROUP_LAUNCHES, t_sr.GROUP_LAUNCHES_BWD, t_st.LAUNCHES, t_st.BWD_LAUNCHES,
+                t_fs.LAUNCHES_ADD)
+
+    for s in range(3):
+        before = now()
+        outs = {}
+        for d, c in cells.items():
+            states[d], outs[d] = c.step_fn(states[d], c.make_batch(s))
+        torch.cuda.synchronize()
+        gathers, sums, tiles, adds = per_step
+        assert tuple(b - a for a, b in zip(before, now())) == (gathers, sums, sums, tiles, tiles, adds)
+        met = {d: {k: int(v) for k, v in o.items() if k != "loss"} for d, o in outs.items()}
+        assert met["cuda"] == met["cpu"]
+        np.testing.assert_allclose(float(outs["cuda"]["loss"]), float(outs["cpu"]["loss"]), rtol=0, atol=3e-2)
+    for key in cells["cpu"].engine.groups:
+        rows = {d: c.engine.export_rows(states[d]["sparse"])[key] for d, c in cells.items()}
+        np.testing.assert_array_equal(rows["cuda"]["ids"], rows["cpu"]["ids"])
+        np.testing.assert_allclose(rows["cuda"]["emb"], rows["cpu"]["emb"], rtol=0, atol=6e-3, err_msg=key)
+    for n, p in states["cpu"]["dense"].state_dict().items():
+        np.testing.assert_allclose(states["cuda"]["dense"].state_dict()[n].cpu().numpy(), p.numpy(),
+                                   rtol=0, atol=6e-3, err_msg=n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", ["dlrm-mlperf", "wide-deep", "sasrec", "mind"])
+def test_smoke_retrieval_card_matches_cpu(cuda, arch_id):
+    """The smoke retrieval cell (1,000 candidates) over the same imported
+    rows, card against CPU: metrics equal, scores within 3e-2 (bf16)."""
+    from repro_torch.launch import recsys_cell
+
+    arch = _recsys_arch(arch_id)
+    shape = ShapeCell("retrieval_cand", "retrieval", {"batch": 1, "n_candidates": 1_000})
+    cells = {d: recsys_cell.build(arch, shape, device=d) for d in ("cpu", "cuda")}
+    batch = cells["cpu"].make_batch(5, vocab=500)
+    ids = cells["cpu"].ids_fn(batch)
+    rows = {}
+    for part, engine in (("user", cells["cpu"].engine_user), ("cand", cells["cpu"].engine_cand)):
+        for key, v in engine.engine_ids(ids[part]).items():
+            rows.setdefault(key, []).append(v)
+    rng = np.random.default_rng(0)
+    for key, parts in rows.items():
+        u = torch.unique(torch.cat(parts))
+        u = u[u != -1].numpy()
+        d = int(key[3:])
+        rows[key] = {"ids": u, "emb": rng.normal(scale=0.5, size=(u.size, d)).astype(np.float32),
+                     "slots": {k: np.zeros((u.size, d), np.float32) for k in ("m", "v")},
+                     "last_use": np.ones(u.size, np.int32)}
+    states = {}
+    for d, c in cells.items():
+        states[d] = c.init_state()
+        states[d]["sparse_user"] = c.engine_user.import_rows(rows)
+        states[d]["sparse_cand"] = c.engine_cand.import_rows(rows)
+    states["cuda"]["dense"].load_state_dict(states["cpu"]["dense"].state_dict())
+    before = t_fg.LAUNCHES
+    out = {d: c.step_fn(states[d], {p: {k: Ragged(v.values.to(d), v.row_splits.to(d)) for k, v in cols.items()}
+                                    for p, cols in batch.items()}) for d, c in cells.items()}
+    torch.cuda.synchronize()
+    assert t_fg.LAUNCHES == before + len(cells["cuda"].engine_user.groups) + len(cells["cuda"].engine_cand.groups)
+    assert {k: int(v) for k, v in out["cuda"].items() if k != "scores"} == \
+           {k: int(v) for k, v in out["cpu"].items() if k != "scores"}
+    np.testing.assert_allclose(out["cuda"]["scores"].cpu().numpy(), out["cpu"]["scores"].numpy(), rtol=0, atol=3e-2)

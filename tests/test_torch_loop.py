@@ -57,7 +57,7 @@ def _t_cell():
     """The port's FP32 cell with the reference example's dense weights."""
     cell = t_mse.MSECell("cpu", prec=t_layers.FP32)
     state = cell.init_state()
-    state["dense"].load_state_dict(convert.mse_dense_from_numpy(_j_init_dense()))
+    state["dense"].load_state_dict(convert.params_from_tree(state["dense"], _j_init_dense()))
     return cell, state
 
 

@@ -15,7 +15,7 @@ import torch
 
 from repro.io.ragged import Ragged as JRagged
 from repro.models import layers as j_layers
-from repro_torch.convert import mse_dense_from_numpy
+from repro_torch.convert import params_from_tree
 from repro_torch.core import idmap as t_idmap
 from repro_torch.examples import train_mse as t_mse
 from repro_torch.models import layers as t_layers
@@ -71,7 +71,7 @@ def _run_steps() -> list[dict]:
     tcell = t_mse.MSECell("cpu", prec=t_layers.FP32 if j_mse.MIXED is j_layers.FP32 else t_layers.MIXED)
     jstate = jcell.init_state()
     tstate = tcell.init_state()
-    tstate["dense"].load_state_dict(mse_dense_from_numpy(jax.tree.map(np.asarray, jcell.init_dense)))
+    tstate["dense"].load_state_dict(params_from_tree(tstate["dense"], jax.tree.map(np.asarray, jcell.init_dense)))
     jstep = jax.jit(jcell.step_fn)
     out = []
     for s in range(STEPS):
@@ -87,7 +87,7 @@ def _run_steps() -> list[dict]:
             jrows={"emb": np.asarray(jsp["blocks"].emb), **{k: np.asarray(v) for k, v in jsp["blocks"].slots.items()}},
             trows={"emb": tsp["blocks"].emb.numpy().copy(),
                    **{k: v.numpy().copy() for k, v in tsp["blocks"].slots.items()}},
-            jdense=mse_dense_from_numpy(jax.tree.map(np.asarray, jstate["dense"])),
+            jdense=params_from_tree(tstate["dense"], jax.tree.map(np.asarray, jstate["dense"])),
             tdense={k: v.detach().clone() for k, v in tstate["dense"].state_dict().items()}))
     return out
 

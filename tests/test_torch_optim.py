@@ -10,9 +10,9 @@ import torch
 from repro.core import blocks as j_blocks
 from repro.optim import adamw as j_adamw
 from repro.optim import sparse_adam as j_sadam
-from repro_torch.convert import adamw_from_numpy
+from repro_torch.convert import params_from_tree
 from repro_torch.core import blocks as t_blocks
-from repro_torch.models.recsys.dlrm import DLRMConfig
+from repro_torch.models.recsys.dlrm import DLRM, DLRMConfig
 from repro_torch.optim import adamw as t_adamw
 from repro_torch.optim import sparse_adam as t_sadam
 
@@ -92,7 +92,8 @@ def test_adamw_init_and_state_conversion():
     r = np.random.default_rng(0)
     shapes = {"bot": [(3, 6), (6, 4)], "top": [(7, 5), (5, 1)]}
     opt = {"m": _tree(r, shapes), "v": _tree(r, shapes)}
-    got = adamw_from_numpy(opt, cfg)
+    model = DLRM(cfg)
+    got = {k: params_from_tree(model, opt[k]) for k in ("m", "v")}
     for k in ("m", "v"):
         assert set(got[k]) == set(_flat(opt[k]))
         for n, w in _flat(opt[k]).items():

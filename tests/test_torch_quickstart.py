@@ -53,7 +53,7 @@ def runs():
     finally:
         mp.undo()
     qs = t_qs.Quickstart("cpu", prec=t_layers.FP32)
-    qs.mlp.load_state_dict(convert.mlp_from_numpy(jax.tree.map(np.asarray, j_qs.mlp), t_qs.MLP_DIMS))
+    qs.mlp.load_state_dict(convert.params_from_tree(qs.mlp, jax.tree.map(np.asarray, j_qs.mlp)))
     t_out = []
     for step in range(1, STEPS + 1):
         loss, met = qs.train_step(t_qs.make_batch(step % 10, "cpu"), step)

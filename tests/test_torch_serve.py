@@ -20,7 +20,7 @@ from repro.launch.mesh import make_test_mesh
 from repro.models import layers as j_layers
 from repro.models.recsys import dlrm as j_dlrm
 from repro_torch.configs.base import ShapeCell as TShape
-from repro_torch.convert import dense_from_numpy
+from repro_torch.convert import params_from_tree
 from repro_torch.io.ragged import Ragged
 from repro_torch.launch import recsys_cell as t_recsys
 from repro_torch.launch.cells import build_cell as t_build_cell
@@ -67,7 +67,7 @@ def cells():
     tstate = tcell.init_state()
     tstate["sparse"] = tcell.engine.import_rows(rows)
     dense_np = jax.tree.map(np.asarray, jstate["dense"])
-    tstate["dense"].load_state_dict(dense_from_numpy(dense_np, tcell.arch.model))
+    tstate["dense"].load_state_dict(params_from_tree(tstate["dense"], dense_np))
     tout = [tcell.step_fn(tstate, tcell.make_batch(s)) for s in SEEDS]
     return dict(jcell=jcell, tcell=tcell, jstate=jstate, tstate=tstate, jout=jout, tout=tout,
                 mesh=mesh)

@@ -54,7 +54,7 @@ def _t_state(tcell, dense0):
     """A fresh port state with the reference's initial dense params (the
     engine rows start from the same id hash in both packages)."""
     st = tcell.init_state()
-    st["dense"].load_state_dict(convert.dense_from_numpy(dense0, tcell.arch.model))
+    st["dense"].load_state_dict(convert.params_from_tree(st["dense"], dense0))
     return st
 
 
@@ -258,7 +258,7 @@ def test_online_window_twin_agrees_with_the_example(monkeypatch):
 
     tcell = t_ow.Cell("cpu", prec=t_layers.FP32)
     tstate = tcell.init_state()
-    tstate["dense"].mlp.load_state_dict(convert.mlp_from_numpy(dense0, (2 * t_ow.DIM, 32, 1)))
+    tstate["dense"].mlp.load_state_dict(convert.params_from_tree(tstate["dense"].mlp, dense0))
     out = t_ow.main(n_windows=WINDOWS, steps_per_window=STEPS_PER_WINDOW, evict_age=EVICT_AGE, log_every=1,
                     cell=tcell, state=tstate, quiet=True)
     assert out["evictions"] == j_evictions

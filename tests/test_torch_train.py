@@ -19,7 +19,7 @@ from repro.launch.mesh import make_test_mesh
 from repro.models import layers as j_layers
 from repro.models.recsys import dlrm as j_dlrm
 from repro_torch.configs.base import ShapeCell as TShape
-from repro_torch.convert import adamw_from_numpy, dense_from_numpy
+from repro_torch.convert import params_from_tree
 from repro_torch.core import blocks as t_blocks
 from repro_torch.core import exchange as t_exchange
 from repro_torch.core import idmap as t_idmap
@@ -190,13 +190,13 @@ def test_fp32_dlrm_loss_and_gradients_agree():
     j_val, (j_gp, j_ga) = jax.value_and_grad(jloss, argnums=(0, 1))(
         params, {k: jnp.asarray(v) for k, v in acts.items()})
     model = t_dlrm.init(tcfg, device="cpu")
-    model.load_state_dict(dense_from_numpy(jax.tree.map(np.asarray, params), tcfg))
+    model.load_state_dict(params_from_tree(model, jax.tree.map(np.asarray, params)))
     t_acts = {k: _t(v).requires_grad_() for k, v in acts.items()}
     t_val = t_dlrm.loss(model, tcfg, t_acts, {k: _t(v) for k, v in dense.items()}, t_layers.FP32)
     names = [n for n, _ in model.named_parameters()]
     grads = torch.autograd.grad(t_val, [*model.parameters(), *t_acts.values()])
     np.testing.assert_allclose(t_val.item(), float(j_val), rtol=1e-5, atol=1e-5)
-    want = dense_from_numpy(jax.tree.map(np.asarray, j_gp), tcfg)
+    want = params_from_tree(model, jax.tree.map(np.asarray, j_gp))
     for n, g in zip(names, grads):
         np.testing.assert_allclose(g.numpy(), want[n].numpy(), rtol=1e-5, atol=1e-5, err_msg=n)
     for k, g in zip(t_acts, grads[len(names):]):
@@ -231,9 +231,9 @@ def _run_steps() -> list[dict]:
         jstate["sparse"] = jcell.engine.import_rows(rows)
         tstate = tcell.init_state()
         tstate["sparse"] = tcell.engine.import_rows(rows)
-        tstate["dense"].load_state_dict(
-            dense_from_numpy(jax.tree.map(np.asarray, jstate["dense"]), tcell.arch.model))
-        tstate["opt"] = adamw_from_numpy(jax.tree.map(np.asarray, jstate["opt"]), tcell.arch.model)
+        model = tstate["dense"]
+        model.load_state_dict(params_from_tree(model, jax.tree.map(np.asarray, jstate["dense"])))
+        tstate["opt"] = {k: params_from_tree(model, jax.tree.map(np.asarray, jstate["opt"][k])) for k in ("m", "v")}
         jstep = jax.jit(jcell.step_fn)
         out = []
         for s in range(STEPS):
@@ -245,9 +245,9 @@ def _run_steps() -> list[dict]:
                 tmap=tstate["sparse"]["dim16"]["idmap"],
                 jrows=jcell.engine.export_rows(jstate["sparse"])["dim16"],
                 trows=tcell.engine.export_rows(tstate["sparse"])["dim16"],
-                jdense=dense_from_numpy(jax.tree.map(np.asarray, jstate["dense"]), tcell.arch.model),
+                jdense=params_from_tree(model, jax.tree.map(np.asarray, jstate["dense"])),
                 tdense={k: v.detach().clone() for k, v in tstate["dense"].state_dict().items()},
-                jopt=adamw_from_numpy(jax.tree.map(np.asarray, jstate["opt"]), tcell.arch.model),
+                jopt={k: params_from_tree(model, jax.tree.map(np.asarray, jstate["opt"][k])) for k in ("m", "v")},
                 topt={k: {n: t.clone() for n, t in d.items()} for k, d in tstate["opt"].items()}))
     return out
 
