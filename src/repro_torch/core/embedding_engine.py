@@ -1,12 +1,17 @@
 """Embedding Engine — the RecIS sparse side (port of
-``repro/core/embedding_engine.py``), single device: serve and train.
+``repro/core/embedding_engine.py``): serve and train, on one device or
+sharded over the ranks of a ``torch.distributed`` group
+(``EngineConfig.group``).
 
   * Parameter aggregation: every feature with the same embedding dim is one
     merged dim-group table, kept conflict-free by salting
     (``hash_combine(raw_id, table_salt)``).
   * Request merging: one exchange per dim-group for all its features.
   * Two-tier storage per device: IDMap + Blocks, with a leading device axis
-    ``[D, ...]`` on every state tensor, as the reference lays it out.
+    ``[D, ...]`` on every state tensor, as the reference lays it out. Over a
+    group of D ranks each rank holds only its own shard, ``[1, ...]``
+    (shard_map's local view; ``state_sharding_spec``): ``export_rows``
+    exports it, ``import_rows`` keeps the rows this rank owns.
   * Pooling: every sum and mean feature of a dim group in one grouped
     segment-sum launch (its gradient one launch too); none and tile per
     feature through the sequence-tile kernel.
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import blocks as blocks_lib
+from repro_torch.core import comm
 from repro_torch.core import exchange
 from repro_torch.core import idmap as idmap_lib
 from repro_torch.core import write_log
@@ -74,6 +80,21 @@ class EngineConfig:
     # tiered storage: non-None turns the device tier into a row cache over a
     # host-DRAM tier; rows_per_shard then bounds the hot rows, not the live
     storage: StorageConfig | None = None
+    # the process group the tables are sharded over (n_devices ranks); None:
+    # every shard in this process
+    group: object = dataclasses.field(default=None, compare=False, repr=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """How the engine state is laid out over the group: every leaf is
+    sharded on its leading device axis ``dim`` (the reference's
+    ``P(mesh_axes)``), and this process holds the global shards ``shards``
+    in that order."""
+
+    dim: int
+    shards: tuple[int, ...]
+    group: object = dataclasses.field(default=None, compare=False, repr=False)
 
 
 def _stack(xs: list[torch.Tensor]) -> torch.Tensor:
@@ -96,6 +117,7 @@ class EmbeddingEngine:
                 u_budget=ov.get("u_budget", cfg.u_budget),
                 per_dest_cap=ov.get("per_dest_cap", cfg.per_dest_cap),
                 recv_budget=ov.get("recv_budget", cfg.recv_budget),
+                group=cfg.group,
             )
             g = GroupSpec(
                 dim=dim, features=tuple(feats),
@@ -105,7 +127,12 @@ class EmbeddingEngine:
             )
             self.groups[g.key] = g
         self.salts = {s.name: _stable_salt(s.table_key()) for s in emb_specs}
+        # the global shards this process holds: its own rank's over a group
+        self.shards = (comm.rank(cfg.group),) if cfg.group is not None else tuple(range(cfg.n_devices))
         self.storage: TieredEmbeddingStore | None = None
+        if cfg.storage is not None and cfg.group is not None:
+            raise NotImplementedError("tiered storage over several ranks is not ported yet "
+                                      "(the store holds every shard in one process; ROADMAP A6b)")
         if cfg.storage is not None:
             self.storage = TieredEmbeddingStore(
                 {k: (g.dim, g.rows_per_shard) for k, g in self.groups.items()},
@@ -113,15 +140,19 @@ class EmbeddingEngine:
 
     # ------------------------------------------------------------------ state
     def init_state(self) -> dict:
-        """Every state tensor carries a leading device axis [D, ...]."""
-        D = self.cfg.n_devices
+        """Every state tensor carries a leading device axis over the shards
+        this process holds: [D, ...], or [1, ...] on a rank of a group."""
         state = {}
         for key, g in self.groups.items():
             maps = [idmap_lib.create(g.map_capacity_per_shard, g.rows_per_shard, self.device)
-                    for _ in range(D)]
-            blks = [blocks_lib.create(g.rows_per_shard, g.dim, self.device) for _ in range(D)]
+                    for _ in self.shards]
+            blks = [blocks_lib.create(g.rows_per_shard, g.dim, self.device) for _ in self.shards]
             state[key] = {"idmap": _stack_maps(maps), "blocks": _stack_blocks(blks)}
         return state
+
+    def state_sharding_spec(self) -> ShardSpec:
+        """Every leaf sharded on its leading device axis over the group."""
+        return ShardSpec(dim=0, shards=self.shards, group=self.cfg.group)
 
     # -------------------------------------------------------------- engine ids
     def engine_ids(self, ids_by_feature: Mapping[str, Ragged]) -> dict[str, torch.Tensor]:
@@ -240,7 +271,8 @@ class EmbeddingEngine:
         """Build state for this engine's device count from exported rows
         (numpy arrays or tensors): re-shard by the exchange's owner function
         and insert per shard, each row keeping its own last_use step. Rows
-        are written into the fresh state in place.
+        are written into the fresh state in place. On a rank of a group only
+        the rows this rank owns are kept (an elastic N → M restore).
 
         With a tiered store, each shard's hottest rows (by last_use, then
         id) fill the device tier up to its capacity and the rest land in the
@@ -267,10 +299,10 @@ class EmbeddingEngine:
             slots = {k: torch.as_tensor(v, device=dev) for k, v in data["slots"].items()}
             cap = g.rows_per_shard - 1  # row 0 reserved
             maps = []
-            for d in range(D):
+            for i, d in enumerate(self.shards):
                 sel = torch.nonzero(owner == d).squeeze(1)
-                m = state[key]["idmap"].map(lambda x: x[d])
-                b = state[key]["blocks"].map(lambda x: x[d])  # views: written in place
+                m = state[key]["idmap"].map(lambda x: x[i])
+                b = state[key]["blocks"].map(lambda x: x[i])  # views: written in place
                 if self.storage is not None and sel.numel() > cap:
                     # the hottest rows stay on the device; the tail spills
                     sel_np, last_np = sel.cpu().numpy(), _numpy(data["last_use"])
@@ -331,8 +363,8 @@ class EmbeddingEngine:
         new_state, metrics = {}, {}
         for key in self.groups:
             maps, n_total = [], 0
-            for d in range(self.cfg.n_devices):
-                m = state[key]["idmap"].map(lambda x: x[d])
+            for i, d in enumerate(self.shards):
+                m = state[key]["idmap"].map(lambda x: x[i])
                 with write_log.shard_scope(key, d):
                     m, n = idmap_lib.evict(m, int(older_than))
                 maps.append(m)

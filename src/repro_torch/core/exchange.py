@@ -1,5 +1,23 @@
 """Embedding exchange — dedupe, owner bucketing, owner merge, IDMap probe or
-insert, and row routing (port of ``repro/core/exchange.py``), single device.
+insert, and row routing (port of ``repro/core/exchange.py``), on one device
+or over a ``torch.distributed`` group of D ranks (RecIS §2.2.2):
+
+  requester side                         owner side
+  --------------                         ----------
+  ids (this rank's batch slice)
+    → unique, bucket by owner  ──all_to_all──→ merge + unique received ids
+                                               → IDMap probe (or insert)
+                                               → Blocks row gather
+  rows for my requests       ←──all_to_all──   per-request rows
+    → back to unique order, expand to per-value rows
+
+Every table is sharded by a hash of the id over all ranks; each rank holds
+only its own shard. Both all_to_alls move equal (D, C) buckets
+(``core/comm.py``), so a rank with no live ids still sends its PAD
+buckets. The reply's all_to_all is an autograd function whose backward is
+the same all_to_all of the gradient: the paper's backward all-to-all, which
+the reference gets by autodiff. ``ExchangeSpec.group`` None is one device,
+where the reply buckets are the request buckets and no collective runs.
 
 Static budgets, as in the reference:
   L  ids per device per step (padded input)
@@ -22,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import blocks as blocks_lib
+from repro_torch.core import comm
 from repro_torch.core import idmap as idmap_lib
 from repro_torch.core.feature_engine import splitmix64, to_signed, umod
 
@@ -31,16 +50,21 @@ _OWNER_SALT = to_signed(0xA24BAED4963EE407)
 
 @dataclasses.dataclass(frozen=True)
 class ExchangeSpec:
-    """Static budgets of one embedding dim-group's exchange."""
+    """Static budgets and the process group of one embedding dim-group's
+    exchange (the group in place of the reference's mesh axes)."""
 
     n_devices: int         # D
     u_budget: int          # U
     per_dest_cap: int      # C
     recv_budget: int       # R  (≤ n_devices * C)
+    # the ranks the table is sharded over (all of them); None: one device
+    group: object = dataclasses.field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if self.recv_budget > self.n_devices * self.per_dest_cap:
             raise ValueError("recv_budget must not exceed n_devices * per_dest_cap")
+        if self.group is not None and comm.size(self.group) != self.n_devices:
+            raise ValueError(f"n_devices {self.n_devices} != the group's {comm.size(self.group)} ranks")
 
 
 class Plan(NamedTuple):
@@ -140,10 +164,12 @@ def fetch(
     the compact per-owner-unique row matrix, the only tensor the
     differentiable phase depends on.
     """
-    if spec.n_devices != 1:
-        raise NotImplementedError("the multi-rank all_to_all exchange is not ported yet")
+    if spec.group is None and spec.n_devices != 1:
+        raise ValueError(f"an exchange over {spec.n_devices} devices needs a process group")
     send, plan, met1 = build_send(ids, spec)
-    uniq_r, inv_r, ok_r, met2 = owner_merge(send, spec)  # one device: recv = send
+    # rank i's bucket j lands at rank j's row i; one device: recv = send
+    recv = send if spec.group is None else comm.all_to_all(send, spec.group)
+    uniq_r, inv_r, ok_r, met2 = owner_merge(recv, spec)
     if train:
         m, offsets_r, is_new, met3 = idmap_lib.lookup_or_insert(m, uniq_r, step)
         b = blocks_lib.init_rows(b, offsets_r, uniq_r, is_new)
@@ -161,7 +187,9 @@ def fetch(
 
 def route_rows(rows_r: torch.Tensor, plan: Plan, spec: ExchangeSpec) -> torch.Tensor:
     """Owner rows [R, dim] → per-value rows [L, dim], differentiable in
-    ``rows_r``. Out-of-range plan indices are clamped (the reference's
+    ``rows_r``. The per-request rows (D*C, dim) go back to their requesters
+    through the reply all_to_all, whose backward carries the gradient to
+    the owners. Out-of-range plan indices are clamped (the reference's
     gather semantics) and then zeroed by their masks. Masks are applied in
     place to keep the transients single; autograd allows it, since a mask
     product saves only the mask.
@@ -176,9 +204,11 @@ def route_rows(rows_r: torch.Tensor, plan: Plan, spec: ExchangeSpec) -> torch.Te
     per_req = F.embedding(plan.inv_r.clamp(max=R - 1).long(), rows_r)
     per_req.mul_(plan.ok_r[:, None])
     # one device: the reply buckets are the request buckets
-    flat_u = plan.owner_u.clamp(max=D - 1).long() * C + plan.pos_u.clamp(max=C - 1)
-    uniq_rows = F.embedding(flat_u, per_req)
+    back = per_req if spec.group is None else comm.AllToAll.apply(per_req, spec.group)
     del per_req
+    flat_u = plan.owner_u.clamp(max=D - 1).long() * C + plan.pos_u.clamp(max=C - 1)
+    uniq_rows = F.embedding(flat_u, back)
+    del back
     uniq_rows.mul_(plan.ok_u[:, None])
     vals = F.embedding(plan.inv_u.clamp(max=U - 1).long(), uniq_rows)
     del uniq_rows

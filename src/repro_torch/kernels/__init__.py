@@ -20,6 +20,7 @@ path reads no ``torch.cuda.Stream`` object and no device properties.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -77,11 +78,22 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile and link the kernels unless a build of these sources exists."""
+    """Compile and link the kernels unless a build of these sources exists.
+    Processes that build at once (the ranks of a group) take turns on a
+    lock beside the library; the first builds, the others find its build.
+    The lock is an ``flock``, released when its holder exits."""
     out = BUILD_ROOT / _digest() / "libkernels.so"
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.parent / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            _compile(out)
+    return out
+
+
+def _compile(out: Path) -> None:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         objs, procs = [], []
@@ -98,7 +110,6 @@ def build() -> Path:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))])
         (out.parent / "ptxas.log").write_text("".join(logs))
         os.replace(lib, out)  # atomic: a concurrent process never sees a partial file
-    return out
 
 
 def _wait(procs: list[tuple[str, subprocess.Popen]]) -> list[str]:

@@ -9,21 +9,26 @@ from repro_torch.launch.common import Cell, CellOptions
 
 def build_cell(arch_id: str, shape_name: str, opts: CellOptions = CellOptions(),
                smoke: bool = False, shape_override: ShapeCell | None = None,
-               device=None) -> Cell:
+               device=None, group=None) -> Cell:
     """Runs on ``cuda`` unless ``device`` names another device; raises when
-    no card is present and no device was named."""
+    no card is present and no device was named. ``group`` (a
+    ``torch.distributed`` process group, ``launch/mesh.py``) shards the cell
+    over its ranks, the reference's mesh; None is one device."""
     arch = get_config(arch_id, smoke=smoke)
-    return build_arch_cell(arch, shape_override or arch.shape(shape_name), opts, device)
+    return build_arch_cell(arch, shape_override or arch.shape(shape_name), opts, device, group)
 
 
 def build_arch_cell(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
-                    device=None) -> Cell:
+                    device=None, group=None) -> Cell:
     """``build_cell`` for a config the caller made (published widths, a cut
     vocab)."""
     if arch.family == "recsys":
         from repro_torch.launch import recsys_cell
 
-        return recsys_cell.build(arch, shape, opts, device)
+        return recsys_cell.build(arch, shape, opts, device, group)
+    if group is not None:
+        raise NotImplementedError(f"the {arch.family} family runs on one device only "
+                                  "(its multi-rank cells are ROADMAP A7)")
     if arch.family == "lm":
         from repro_torch.launch import lm_cell
 

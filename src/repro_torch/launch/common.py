@@ -46,6 +46,7 @@ class Cell:
     storage_hooks: Any = None           # a tiered train cell's StorageTrainerHooks
     engine_user: Any = None             # a retrieval cell's engines: the user's columns,
     engine_cand: Any = None             # and the candidates'
+    group: Any = None                   # the torch.distributed group of a multi-rank cell
 
 
 def round_up(x: int, m: int) -> int:

@@ -1,5 +1,6 @@
-"""Recsys-family cells (port of ``repro/launch/recsys_cell.py``), one device:
-dlrm-mlperf, wide-deep, sasrec and mind.
+"""Recsys-family cells (port of ``repro/launch/recsys_cell.py``): dlrm-mlperf,
+wide-deep, sasrec and mind, on one device or over a ``torch.distributed``
+group of D ranks.
 
 One fused transform pass (Feature Engine), one exchange per embedding dim
 (Embedding Engine), then the dense model. The serve step is the forward
@@ -19,6 +20,19 @@ reference's jitted step takes host arrays.
 With ``CellOptions.storage`` the engine is tiered: ``storage_device_rows``
 sizes the device tier, and the train cell's ``storage_hooks`` move rows
 between the tiers at the Trainer's step edges.
+
+Over a group (``build(..., group=...)``) each rank takes ``B // D`` rows of
+the global batch (``make_batch`` gives this rank's slice of the reference's
+global batch) and holds one shard of every table. The dense side is
+data-parallel, as under the reference's GSPMD: every rank's loss is its
+share of the global loss (a per-row mean over D, or SASRec's sum over the
+global count of valid positions), so the gradients reaching ``rows_r``
+through the reply all_to_all and the all-reduced dense gradients are the
+global loss's, and AdamW's global-norm clip sees the all-reduced ones. The
+step's metrics are summed over the group and the loss is the global one.
+The train state's ``state_tree`` then holds the dense side only; the rows
+are checkpointed through ``checkpoint/sharded.py``. Retrieval and tiered
+cells run on one device only.
 """
 from __future__ import annotations
 
@@ -30,6 +44,7 @@ import torch
 
 from repro_torch import convert
 from repro_torch.configs.base import ArchConfig, ShapeCell
+from repro_torch.core import comm
 from repro_torch.core.embedding_engine import EmbeddingEngine, EngineConfig
 from repro_torch.core.feature_engine import FeatureEngine, FeatureSpec
 from repro_torch.io.ragged import Ragged
@@ -98,10 +113,12 @@ class _Plumbing:
     b_loc: int
     D: int
     device: torch.device
+    rank: int = 0
 
     def make_batch(self, seed: int, vocab: int = 1 << 30) -> dict[str, Ragged]:
         """Synthetic batch (power-law ids): the reference's numpy stream, so
-        one seed gives the reference's batch."""
+        one seed gives the reference's global batch; over a group, this
+        rank's slice of it (its ``b_loc`` rows in CSR form)."""
         r = np.random.default_rng(seed)
         out = {}
         for s in self.specs:
@@ -113,7 +130,8 @@ class _Plumbing:
                     vals = (vals > 0).astype(np.float32)
             else:
                 vals = (r.zipf(1.2, size=(self.D * n,)) % vocab).astype(np.int64)
-            splits = np.tile(np.arange(self.b_loc + 1, dtype=np.int32) * k, self.D)
+            vals = vals[self.rank * n:(self.rank + 1) * n]  # every device's CSR is local
+            splits = np.arange(self.b_loc + 1, dtype=np.int32) * k
             out[s.name] = Ragged(torch.from_numpy(vals).to(self.device),
                                  torch.from_numpy(splits).to(self.device))
         return out
@@ -124,8 +142,8 @@ class _Plumbing:
 
 
 def _plumbing(arch: ArchConfig, b_loc: int, specs: list[FeatureSpec],
-              opts: CellOptions, device: torch.device) -> _Plumbing:
-    D = 1
+              opts: CellOptions, device: torch.device, group=None) -> _Plumbing:
+    D = comm.size(group)
     rows_global = _rows_per_dim(arch)
     by_dim: dict[int, int] = {}
     for s in specs:
@@ -145,11 +163,12 @@ def _plumbing(arch: ArchConfig, b_loc: int, specs: list[FeatureSpec],
             slots = TIERED_MAP_FACTOR * rows
         overrides[dim] = dict(u_budget=u, per_dest_cap=c, recv_budget=r,
                               rows_per_shard=rows, map_capacity_per_shard=slots)
-    eng = EmbeddingEngine(specs, EngineConfig(n_devices=D, overrides=overrides, storage=opts.storage), device)
+    eng = EmbeddingEngine(specs, EngineConfig(n_devices=D, overrides=overrides, storage=opts.storage,
+                                              group=group), device)
     fe = FeatureEngine(specs, device)
     nnz = {s.name: b_loc * _ids_per_row(s) for s in specs}
     return _Plumbing(engine=eng, fengine=fe, specs=specs, nnz_loc=nnz, b_loc=b_loc, D=D,
-                     device=device)
+                     device=device, rank=comm.rank(group))
 
 
 def _dense(batch: Mapping[str, Ragged], specs: list[FeatureSpec]) -> dict[str, torch.Tensor]:
@@ -158,18 +177,37 @@ def _dense(batch: Mapping[str, Ragged], specs: list[FeatureSpec]) -> dict[str, t
             for s in specs if s.transform == "raw"}
 
 
+def _loss_share(model, dense_model, mcfg, acts, dense, group) -> torch.Tensor:
+    """This rank's share of the global loss (the shares sum to it over the
+    group). A per-row mean over equal ``b_loc`` is the mean of the ranks'
+    means; SASRec divides by the count of valid positions over the whole
+    batch, an all-reduce of the detached local counts."""
+    D = comm.size(group)
+    if D == 1:
+        return model.loss(dense_model, mcfg, acts, dense, MIXED)
+    if hasattr(model, "loss_count"):
+        count = comm.all_reduce(model.loss_count(acts), group)
+        return model.loss(dense_model, mcfg, acts, dense, MIXED, denom=torch.clamp(count, min=1.0))
+    return model.loss(dense_model, mcfg, acts, dense, MIXED) / D
+
+
 def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
-          device=None) -> Cell:
+          device=None, group=None) -> Cell:
     device = resolve_device(device)
+    D = comm.size(group)
     if shape.kind == "retrieval":
+        if D > 1:
+            raise NotImplementedError("the retrieval cell over several ranks is not ported yet (ROADMAP A6b)")
         return _build_retrieval(arch, shape, opts, device)
     if shape.kind not in ("serve", "train"):
         raise NotImplementedError(f"{shape.kind} cells are not ported yet")
+    if shape["batch"] % D:
+        raise ValueError(f"batch {shape['batch']} is not a multiple of {D} ranks")
     train = shape.kind == "train"
     model = _model_mod(arch.arch_id)
     mcfg = arch.model
     specs = model.feature_specs(mcfg)
-    pl = _plumbing(arch, shape["batch"], specs, opts, device)
+    pl = _plumbing(arch, shape["batch"] // D, specs, opts, device, group)
 
     def dense_fn(batch):
         return _dense(batch, pl.specs)
@@ -179,6 +217,7 @@ def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
             ids, _ = pl.prepared(batch)
             _, rows_r, plans, met = pl.engine.fetch_local(
                 local_view(state["sparse"]), ids, state["step"], train=False)
+            met = comm.sum_metrics(met, group)
             acts = pl.engine.activations(rows_r, plans, ids)
             logits = model.apply(state["dense"], mcfg, acts, dense_fn(batch), MIXED)
         return {"logits": logits, **met}
@@ -197,13 +236,17 @@ def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
             ids, _ = pl.prepared(batch)
             local, rows_r, plans, met = pl.engine.fetch_local(
                 local_view(state["sparse"]), ids, step, train=True)
+            met = comm.sum_metrics(met, group)
         rows_r = {k: v.requires_grad_() for k, v in rows_r.items()}
         params = dict(state["dense"].named_parameters())
         acts = pl.engine.activations(rows_r, plans, ids)
-        loss = model.loss(state["dense"], mcfg, acts, dense_fn(batch), MIXED)
+        loss = _loss_share(model, state["dense"], mcfg, acts, dense_fn(batch), group)
         grads = torch.autograd.grad(loss, [*params.values(), *rows_r.values()])
         del acts
-        opt = adamw.update(acfg, params, dict(zip(params, grads)), state["opt"], step)
+        gdense = _sum_grads(grads[:len(params)], group)
+        if group is not None:
+            loss = comm.all_reduce(loss.detach().clone(), group)
+        opt = adamw.update(acfg, params, dict(zip(params, gdense)), state["opt"], step)
         with torch.no_grad():
             local = pl.engine.update_local(local, plans, dict(zip(rows_r, grads[len(params):])),
                                            sopt, step)
@@ -220,11 +263,13 @@ def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
         return st
 
     step_fn = train_step if train else serve_step
+    state_tree, load_state_tree = ((convert.train_state_to_tree, convert.train_state_from_tree)
+                                   if group is None else (_dense_state_tree, _load_dense_state_tree))
     cell = Cell(arch=arch, shape=shape, device=device, step_fn=step_fn, init_state=init_fn,
                 make_batch=pl.make_batch, ids_fn=lambda batch: pl.prepared(on_device(batch))[0],
                 engine=pl.engine, returns_state=train,
-                state_tree=convert.train_state_to_tree if train else None,
-                load_state_tree=convert.train_state_from_tree if train else None)
+                state_tree=state_tree if train else None,
+                load_state_tree=load_state_tree if train else None, group=group)
     if train and pl.engine.storage is not None:
         from repro_torch.storage.integration import StorageTrainerHooks
 
@@ -233,6 +278,26 @@ def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
         cell.storage_hooks = StorageTrainerHooks(
             pl.engine, lambda batch: pl.prepared(on_device(batch))[0], state_key="sparse")
     return cell
+
+
+def _sum_grads(grads, group) -> list[torch.Tensor]:
+    """The dense gradients summed over the group: one all-reduce of them
+    all, flattened in parameter order."""
+    if group is None:
+        return list(grads)
+    flat = comm.all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
+    return [x.view_as(g) for x, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+
+def _dense_state_tree(state) -> dict:
+    """A multi-rank train state's checkpoint tree: step, dense params and
+    AdamW moments (the same on every rank), in the reference's layout."""
+    return convert.train_state_to_tree({k: v for k, v in state.items() if k != "sparse"})
+
+
+def _load_dense_state_tree(state, tree) -> dict:
+    dense = convert.train_state_from_tree({k: v for k, v in state.items() if k != "sparse"}, tree)
+    return {**dense, "sparse": state["sparse"]}
 
 
 def _build_retrieval(arch: ArchConfig, shape: ShapeCell, opts: CellOptions,

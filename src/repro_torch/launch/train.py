@@ -32,9 +32,22 @@ frames on a manifest chain: a tiered cell marks its dirty rows through its
 engine, and a chaos schedule's frame, manifest and head events fire in the
 checkpointer's ``ChaosIO``.
 
+Over several ranks (a recsys arch on synthetic batches), under torchrun:
+each rank takes its slice of every global batch and holds one shard of
+every table (``launch/recsys_cell.py``); ``--dist-backend`` names the
+backend (``gloo``: the CPU with ``--device cpu``, or ranks sharing one
+card; ``nccl``: one card a rank). Rank 0 alone writes the telemetry, the
+checkpoints and the console; a checkpoint holds the dense state and the
+union of the ranks' exported rows, and on resume each rank imports the rows
+it owns (``checkpoint/sharded.py``). ``--data-dir``, ``--autoscale``,
+``--ckpt-mode delta`` and the LM archs are refused there, as the reference
+refuses ``--data-dir`` on more than one device.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf \\
       --steps 100 --batch 256 --ckpt-dir /tmp/ckpt [--resume] [--device cpu]
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+      -m repro_torch.launch.train --arch dlrm-mlperf --dist-backend gloo --device cpu
 """
 from __future__ import annotations
 
@@ -47,6 +60,7 @@ from repro_torch import obs
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import ShapeCell
 from repro_torch.ft.chaos import InjectedCrash
+from repro_torch.launch import mesh
 from repro_torch.launch.cells import build_arch_cell
 from repro_torch.launch.common import resolve_device
 from repro_torch.pipelines import TrainConfig, Trainer
@@ -95,6 +109,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; no CPU fallback)")
+    p.add_argument("--dist-backend", choices=mesh.BACKENDS, default=None,
+                   help="the process group's backend under torchrun (WORLD_SIZE > 1): "
+                        "gloo (the CPU, or ranks sharing one card) or nccl (one card a rank)")
     p.add_argument("--telemetry", default=None, metavar="PATH",
                    help="write a JSONL step-phase trace (DESIGN.md §9)")
     p.add_argument("--console-every", type=int, default=0,
@@ -183,17 +200,43 @@ def _make_loader(args, arch, cursor):
                        start_batch=cursor.get("batch", 0))
 
 
+def _refuse_multi_rank(args, arch) -> None:
+    """What the multi-rank driver does not run (ROADMAP A6b)."""
+    refused = {"--data-dir": args.data_dir, "--autoscale": args.autoscale,
+               "--ckpt-mode delta": args.ckpt_mode == "delta",
+               f"the {arch.family} family": arch.family != "recsys"}
+    bad = [k for k, v in refused.items() if v]
+    if bad:
+        raise ValueError(f"not run over several ranks: {', '.join(bad)}")
+    if args.dist_backend is None:
+        raise ValueError("WORLD_SIZE > 1: name the backend with --dist-backend (gloo or nccl)")
+
+
 def run(args: argparse.Namespace, arch):
     """Train ``arch`` (an ``ArchConfig``) as the flags say; returns the
     ``TrainResult`` and the ``PipelineController`` (None without
-    ``--autoscale``). An injected crash ends the process with CHAOS_EXIT."""
+    ``--autoscale``). An injected crash ends the process with CHAOS_EXIT.
+    Under torchrun with WORLD_SIZE > 1 it joins the process group first
+    and leaves it at the end."""
     if args.ckpt_mode == "delta" and not args.ckpt_dir:
         raise ValueError("--ckpt-mode delta requires --ckpt-dir")
     if args.data_dir and arch.family != "recsys":
         raise ValueError("--data-dir is a recsys-family data path")
-    device = resolve_device(args.device)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        _refuse_multi_rank(args, arch)
+        group = mesh.init_group(args.dist_backend)
+        try:
+            return _run(args, arch, group, mesh.rank_device(args.dist_backend, args.device))
+        finally:
+            mesh.close()
+    return _run(args, arch, None, resolve_device(args.device))
+
+
+def _run(args, arch, group, device):
+    lead = mesh.rank(group) == 0  # the rank that writes and prints
+    say = print if lead else (lambda *a, **k: None)
     shape = smoke_shape(arch, args.shape, args.batch, args.seq_len)
-    cell = build_arch_cell(arch, shape, device=device)
+    cell = build_arch_cell(arch, shape, device=device, group=group)
     if args.ckpt_dir and cell.state_tree is None:
         raise NotImplementedError(
             f"checkpoints of the {arch.family} train cell are not ported yet")
@@ -205,31 +248,37 @@ def run(args: argparse.Namespace, arch):
         step_chaos = StepChaos(sched)
         if args.ckpt_mode == "delta":  # io sites fire only in delta mode
             ft_io = ChaosIO(sched)
-        print(f"chaos schedule: {sched}")
+        say(f"chaos schedule: {sched}")
     if args.ckpt_mode == "delta":
         from repro_torch.ft import FTTrainerHooks
         hooks = cell.storage_hooks or FTTrainerHooks(cell.engine, cell.ids_fn, state_key="sparse")
+    if group is not None and args.ckpt_dir:
+        from repro_torch.checkpoint.sharded import ShardedRowsHooks
+        hooks = ShardedRowsHooks(cell.engine, group)
 
     tcfg = TrainConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
                        ckpt_every=args.ckpt_every, resume=args.resume,
+                       ckpt_writer=lead,
                        log_every=args.log_every,
-                       telemetry_path=args.telemetry,
-                       console_every=args.console_every,
+                       telemetry_path=args.telemetry if lead else None,
+                       console_every=args.console_every if lead else 0,
                        profile_spans=args.profile_spans,
                        worker=args.worker_id,
-                       snapshot_every=args.snapshot_every,
+                       snapshot_every=args.snapshot_every if lead else 0,
                        ft_mode=args.ckpt_mode, ft_io=ft_io)
     trainer = Trainer(cell, tcfg, hooks=hooks)
     exporter = None
-    if args.prometheus_port is not None:
+    if args.prometheus_port is not None and lead:
         exporter = obs.PrometheusExporter(trainer.registry,
                                           port=args.prometheus_port)
-        print(f"prometheus: serving /metrics on port {exporter.start()}")
+        say(f"prometheus: serving /metrics on port {exporter.start()}")
 
     state = cell.init_state()
     state, start, cursor = trainer.try_resume(state)
+    if hasattr(hooks, "track"):
+        hooks.track(state)
     if start:
-        print(f"resumed from step {start} (cursor={cursor})")
+        say(f"resumed from step {start} (cursor={cursor})")
 
     loader = controller = None
     if args.data_dir:
@@ -264,21 +313,21 @@ def run(args: argparse.Namespace, arch):
     except InjectedCrash as e:
         # stands in for SIGKILL: nothing that would normally run on the
         # way out (final save, GC, loader drain) may run after it
-        print(f"CHAOS: {e}", flush=True)
+        say(f"CHAOS: {e}", flush=True)
         os._exit(CHAOS_EXIT)
     if loader is not None:
         loader.stop()
     if exporter is not None:
         exporter.stop()
     for m in res.metrics_history[-5:]:
-        print({k: round(v, 5) if isinstance(v, float) else v for k, v in m.items()})
-    print(f"ran {res.steps_run} steps"
+        say({k: round(v, 5) if isinstance(v, float) else v for k, v in m.items()})
+    say(f"ran {res.steps_run} steps"
           + (f", resumed from {res.resumed_from}" if res.resumed_from else "")
           + (", PREEMPTED" if res.preempted else ""))
     if res.straggler_events:
-        print(f"straggler events: {len(res.straggler_events)}")
+        say(f"straggler events: {len(res.straggler_events)}")
         for ev in res.straggler_events[-3:]:
-            print(f"  step {ev.step}: {ev.wall_s*1e3:.1f}ms "
+            say(f"  step {ev.step}: {ev.wall_s*1e3:.1f}ms "
                   f"(thresh {ev.threshold*1e3:.1f}ms, phase={ev.phase})")
     # phase timeline summary from the unified registry (DESIGN.md §9)
     snap = res.registry.snapshot()
@@ -286,15 +335,15 @@ def run(args: argparse.Namespace, arch):
         if name.startswith("trace/") and isinstance(snap[name], dict) \
                 and snap[name].get("count"):
             s = snap[name]
-            print(f"{name:28s} p50={s['p50']*1e3:8.3f}ms "
+            say(f"{name:28s} p50={s['p50']*1e3:8.3f}ms "
                   f"p99={s['p99']*1e3:8.3f}ms total={s['sum']:.3f}s")
     if controller is not None:
-        print(f"autoscale: {len(controller.actions_log)} actions, "
+        say(f"autoscale: {len(controller.actions_log)} actions, "
               f"final readers={loader.n_readers}")
         for s, act in controller.actions_log:
-            print(f"  step {s}: {act}")
+            say(f"  step {s}: {act}")
     if args.telemetry:
-        print(f"telemetry trace: {args.telemetry}")
+        say(f"telemetry trace: {args.telemetry}")
     return res, controller
 
 

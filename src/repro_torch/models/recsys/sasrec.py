@@ -104,7 +104,7 @@ class SASRec(nn.Module):
         tgt = acts["pos_items"][:, 0, :].to(torch.float32)
         return (u * tgt).sum(-1)
 
-    def loss(self, acts: dict, prec: Precision = MIXED) -> torch.Tensor:
+    def loss(self, acts: dict, prec: Precision = MIXED, denom: torch.Tensor | None = None) -> torch.Tensor:
         hist = acts["hist_items"]                               # (B, T, d)
         mask = torch.any(hist != 0.0, dim=-1)
         h = self.encode(hist, mask, prec)                       # (B, T, d)
@@ -116,7 +116,8 @@ class SASRec(nn.Module):
         m = mask.to(torch.float32)
         lp = F.logsigmoid(pos_logit) * m
         ln = F.logsigmoid(-neg_logit) * m[..., None]
-        denom = torch.clamp(m.sum(), min=1.0)
+        if denom is None:
+            denom = torch.clamp(m.sum(), min=1.0)
         return -(lp.sum() + ln.sum() / self.cfg.n_neg) / denom
 
 
@@ -137,10 +138,17 @@ def apply(model: SASRec, cfg: SASRecConfig, acts: dict, dense: dict,
 
 
 def loss(model: SASRec, cfg: SASRecConfig, acts: dict, dense: dict,
-         prec: Precision = MIXED) -> torch.Tensor:
-    """Per-position BCE over (positive, negative), over the valid positions."""
+         prec: Precision = MIXED, denom: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-position BCE over (positive, negative), over the valid positions:
+    divided by their count, or by ``denom`` where the caller gives it (the
+    count over a whole batch split between ranks, clamped to at least 1)."""
     _check(model, cfg)
-    return model.loss(acts, prec)
+    return model.loss(acts, prec, denom)
+
+
+def loss_count(acts: dict) -> torch.Tensor:
+    """The valid positions that ``loss`` divides by (fp32, no gradient)."""
+    return torch.any(acts["hist_items"].detach() != 0.0, dim=-1).sum(dtype=torch.float32)
 
 
 def score_candidates(model: SASRec, cfg: SASRecConfig, acts: dict, dense: dict,

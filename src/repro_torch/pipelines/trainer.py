@@ -47,6 +47,10 @@ class TrainConfig:
     keep_last: int = 3
     n_ckpt_shards: int = 4
     resume: bool = True
+    # False: a rank of a process group other than the writer; it takes part
+    # in every save's collectives (the cell's state_tree, the hooks'
+    # ckpt_extra) and writes nothing
+    ckpt_writer: bool = True
     # straggler watchdog
     watchdog: bool = True
     watchdog_k: float = 4.0          # flag steps slower than EMA + k·σ
@@ -252,7 +256,7 @@ class Trainer:
             self._init_delta_ckpt()
         elif cfg.ft_mode != "full":
             raise ValueError(f"unknown ft_mode {cfg.ft_mode!r}")
-        elif cfg.ckpt_dir:
+        elif cfg.ckpt_dir and cfg.ckpt_writer:
             self.saver = saver_lib.AsyncSaver(cfg.ckpt_dir, cfg.n_ckpt_shards,
                                               cfg.keep_last,
                                               registry=self.registry)
@@ -317,7 +321,7 @@ class Trainer:
             with self.tracer.span("checkpoint"):
                 self.ft.save(state, step, cursor=cursor)
             return
-        if self.saver is None:
+        if not self.cfg.ckpt_dir:
             return
         with self.tracer.span("checkpoint"):
             payload = {"state": self._state_tree(state),
@@ -326,6 +330,8 @@ class Trainer:
             extra = (self.hooks.ckpt_extra()
                      if self.hooks is not None and hasattr(self.hooks, "ckpt_extra")
                      else None)
+            if self.saver is None:  # not the writing rank
+                return
             self.saver.save(payload, step, extra_tensors=extra)
             if blocking:
                 self.saver.wait()

@@ -1215,3 +1215,35 @@ def test_smoke_retrieval_card_matches_cpu(cuda, arch_id):
     assert {k: int(v) for k, v in out["cuda"].items() if k != "scores"} == \
            {k: int(v) for k, v in out["cpu"].items() if k != "scores"}
     np.testing.assert_allclose(out["cuda"]["scores"].cpu().numpy(), out["cpu"]["scores"].numpy(), rtol=0, atol=3e-2)
+
+
+@pytest.mark.cuda
+def test_two_rank_smoke_train_on_one_card_matches_one_rank(cuda, tmp_path):
+    """Two gloo ranks share the card (host-staged all_to_alls): each step
+    launches the train path's kernels on every rank, the losses follow the
+    one-rank cell's on the same global batches, and the ranks' exports
+    split the one-rank export by owner."""
+    from repro_torch import kernels
+    from repro_torch.core import exchange
+    from torch_ranks import run_ranks
+
+    kernels.build()  # once, before the ranks load it
+    batch, steps = 32, 3
+    one = build_cell("dlrm-mlperf", "train_batch", smoke=True, device=cuda,
+                     shape_override=ShapeCell("train_batch", "train", {"batch": batch}))
+    state, want = one.init_state(), []
+    for s in range(steps):
+        state, o = one.step_fn(state, one.make_batch(s))
+        want.append(float(o["loss"]))
+    want_ids = np.sort(one.engine.export_rows(state["sparse"])["dim16"]["ids"])
+    del state
+    torch.cuda.empty_cache()
+    ranks = run_ranks("torch_rank_work:cuda_train_ranks", 2, str(tmp_path / "store"), batch, steps)
+    for r, got in enumerate(ranks):
+        np.testing.assert_allclose(got["losses"], want, rtol=2e-2, atol=2e-2)
+        for n in got["launches"]:
+            assert n["gather"] == 4 and n["group_sum"] == 1 and n["group_sum_bwd"] == 1 and n["scatter_add"] == 3
+        assert got["transport"] == "gloo, host-staged" and got["staged_bytes"] > 0
+        ids = got["rows"]["dim16"]["ids"]
+        assert (exchange._owner_of(torch.from_numpy(ids), 2).numpy() == r).all()
+    np.testing.assert_array_equal(np.sort(np.concatenate([g["rows"]["dim16"]["ids"] for g in ranks])), want_ids)
