@@ -158,10 +158,13 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 table; the all_to_alls staged through pinned host memory):
                 the one-rank cell first, in this process, on the same
                 global batches, then 3 warm-up and 5 timed steps on the
-                ranks: losses, the summed counters, the launches of every
-                step on every rank, the ranks' exports against the one-rank
-                export (ids bit-equal, each on its owner; rows, moments and
-                dense params within tolerance), two serve_p99 requests over
+                ranks, all in FP32: losses, the summed counters, the
+                launches of every step on every rank, the ranks' exports
+                against the one-rank export (ids bit-equal, each on its
+                owner; the rows' updates and moments and the dense update
+                within 1e-2 of the one-rank run's, relative), every kernel
+                of the path on each rank's inputs against its plain
+                version, two serve_p99 requests over
                 both ranks against the one-rank logits, compressed_psum and
                 the ZeRO-1 update on CUDA tensors against the CPU; step
                 p50, the bytes of each all_to_all, peak memory a rank; over
@@ -365,12 +368,27 @@ WINDOW_LOSS_TOL, MIXED_WINDOW_LOSS_TOL = 1e-5, 8e-4
 # The multi-rank phase: dlrm-mlperf train_batch (batch 65,536) at published
 # widths over two gloo ranks sharing the one card (host-staged all_to_alls),
 # each holding half the table, against the one-rank cell on the same global
-# batches; then two serve_p99 requests (batch 512) over both ranks. Rows,
-# dense params and losses as the card-against-CPU checks hold them (bf16
-# dense compute, summed in another order): within 2 * lr * steps
+# batches, with two serve_p99 requests (batch 512) over both ranks after
+# the first step. Both runs in FP32 (the cells' MIXED set to FP32, TF32
+# off). What a fault would move is held after the first step, where the
+# runs differ only by summation order: each rank's rows' update from their
+# initial values, their Adam moments and the dense params' update, each as
+# the norm of its difference from the one-rank run's over the norm of the
+# one-rank run's (a rank that skipped its sparse update, or summed its row
+# gradients at another scale, is off by 1 or more), and the dense params
+# bit-equal across the ranks (a rank that stepped with its unsummed local
+# gradient would differ); losses and logits as the FP32 cell tests hold
+# them. After the last step only the ids, owners and last uses are held:
+# Adam on these noise-dominated gradients (random labels) grows any
+# rounding step by step, so the values' drift is reported beside that of
+# the one-rank run with its dense params perturbed by MR_PERTURB (about an
+# FP32 rounding) after its first step
 MR_RANKS, MR_WARMUP, MR_STEPS, MR_SERVE, MR_NCCL_STEPS = 2, 3, 5, 2, 3
 MR_SEED = 40_000
-MR_ROW_ATOL = 2 * 1e-3 * (MR_WARMUP + MR_STEPS)
+MR_REL_TOL = 1e-4
+MR_PERTURB = 1e-7
+MR_FP32_TOL = dict(rtol=0.0, atol=1e-5)
+MR_TIMEOUT_S = 900.0
 MR_PER_STEP = {"fused_gather.gather_rows": 4, "segment_reduce.segment_sum_csr_group": 1,
                "segment_reduce.segment_expand_csr_group": 1, "fused_scatter.scatter_add_rows": 3}
 DRIVER_PER_STEP = {  # launches a step on the dlrm-mlperf train path
@@ -1949,7 +1967,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # --------- 4 the multi-rank exchange: two gloo ranks sharing the card
-    mr_launches = multi_rank_phase(arch, dev, device_info)
+    mr_launches = multi_rank_phase(arch, dev, device_info, {e["name"]: e for e in entries})
     for e in entries:
         e["launches_by_path"]["multi_rank"] = mr_launches[e["name"]]
     torch.cuda.empty_cache()
@@ -4055,8 +4073,7 @@ def _mr_rank(rank: int, world: int, backend: str, store: str, arch, q, n_warmup:
         mesh.close()
 
 
-def _mr_spawn(backend: str, store: Path, arch, n_warmup: int, n_steps: int, full: bool,
-              timeout: float = 900.0) -> list:
+def _mr_spawn(backend: str, store: Path, arch, n_warmup: int, n_steps: int, full: bool) -> list:
     """Run ``_mr_rank`` on MR_RANKS spawned processes; stop them all, and
     fail with the first failing rank's traceback."""
     ctx = mp.get_context("spawn")
@@ -4066,7 +4083,7 @@ def _mr_spawn(backend: str, store: Path, arch, n_warmup: int, n_steps: int, full
     for p in procs:
         p.start()
     results, errors = {}, []
-    deadline = time.monotonic() + timeout
+    deadline = time.monotonic() + MR_TIMEOUT_S
     try:
         while len(results) < MR_RANKS and not errors:
             try:
@@ -4074,7 +4091,7 @@ def _mr_spawn(backend: str, store: Path, arch, n_warmup: int, n_steps: int, full
             except queue.Empty:  # a rank that died without a word, or the time is up
                 dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
                 if dead or time.monotonic() > deadline:
-                    errors.append(f"ranks exited {dead}" if dead else f"no result in {timeout} s")
+                    errors.append(f"ranks exited {dead}" if dead else f"no result in {MR_TIMEOUT_S} s")
                 continue
             if ok:
                 results[rank] = val
@@ -4090,18 +4107,107 @@ def _mr_spawn(backend: str, store: Path, arch, n_warmup: int, n_steps: int, full
     return [results[r] for r in range(MR_RANKS)]
 
 
+def _to_host(a, whole: bool):
+    """A host copy of a recorded argument (lists element by element); a
+    table over 2^28 elements stays where it is unless ``whole``."""
+    if isinstance(a, (list, tuple)):
+        return type(a)(_to_host(x, whole) for x in a)
+    if not torch.is_tensor(a) or (a.numel() >= (1 << 28) and not whole):
+        return a
+    return a.detach().cpu()
+
+
+def _to_dev(a, dev):
+    if isinstance(a, (list, tuple)):
+        return type(a)(_to_dev(x, dev) for x in a)
+    return a.to(dev) if torch.is_tensor(a) else a
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor, base: torch.Tensor) -> float:
+    """|got - want| / |want - base| in float64 (Frobenius norms)."""
+    return float(torch.linalg.vector_norm((got - want).double())
+                 / torch.linalg.vector_norm((want - base).double()).clamp_min(1e-300))
+
+
+def _mr_save(engine, state, out_dir: Path, tag: str) -> int:
+    """The one-rank run's export (sorted by id) and dense params under
+    ``tag``, for the ranks to compare with; returns the rows' count."""
+    rows = engine.export_rows(state["sparse"])["dim128"]
+    order = np.argsort(rows["ids"])
+    for k, v in (("ids", rows["ids"]), ("emb", rows["emb"]), ("m", rows["slots"]["m"]),
+                 ("v", rows["slots"]["v"]), ("last_use", rows["last_use"])):
+        np.save(out_dir / f"{tag}_{k}.npy", v[order])
+    np.savez(out_dir / f"{tag}_dense.npz", **{k: v.detach().cpu().numpy() for k, v in state["dense"].state_dict().items()})
+    return int(rows["ids"].size)
+
+
+def _mr_compare(engine, state, dev, out_dir: Path, tag: str, rank: int | None) -> dict:
+    """This process's export and dense params against the one-rank run's
+    saved under ``tag``: the ids (the ones ``_owner_of`` gives ``rank``;
+    all with no rank) bit-equal, each on its owner, and their last uses
+    equal; the rows' update from their initial values, their moments and
+    the dense params' update as |got − want| / |want − initial| with the
+    largest differences; a hash of the dense params."""
+    import hashlib
+
+    from repro_torch.core import blocks, exchange
+
+    rows = engine.export_rows(state["sparse"])["dim128"]
+    order = np.argsort(rows["ids"])
+    ids = rows["ids"][order]
+    ids_all = np.load(out_dir / f"{tag}_ids.npy")
+    want = ids_all if rank is None else ids_all[exchange._owner_of(torch.from_numpy(ids_all), MR_RANKS).numpy() == rank]
+    out = {"n": int(ids.size), "ids_equal": bool(np.array_equal(ids, want)),
+           "on_owner": rank is None or bool((exchange._owner_of(torch.from_numpy(ids), MR_RANKS).numpy() == rank).all())}
+    if out["ids_equal"]:
+        pos = np.searchsorted(ids_all, ids)
+        out["last_use_equal"] = bool(np.array_equal(rows["last_use"][order], np.load(out_dir / f"{tag}_last_use.npy")[pos]))
+        ids_dev = torch.from_numpy(ids).to(dev)
+        for k in ("emb", "m", "v"):
+            ref = torch.from_numpy(np.load(out_dir / f"{tag}_{k}.npy", mmap_mode="r")[pos]).to(dev)
+            got = torch.from_numpy((rows["emb"] if k == "emb" else rows["slots"][k])[order]).to(dev)
+            # the update from the rows' initial values (the moments start at 0)
+            base = (blocks._hash_uniform(ids_dev, got.shape[1]) * float(np.float32(1.0 / np.sqrt(got.shape[1])))
+                    if k == "emb" else torch.zeros_like(ref))
+            out[f"{k}_rel_err"] = _rel(got, ref, base)
+            out[f"{k}_max_abs_err"] = float((got - ref).abs().max())
+            out[f"{k}_max_abs_update"] = float((ref - base).abs().max())
+            del ref, got, base
+    dense, dense0 = np.load(out_dir / f"{tag}_dense.npz"), np.load(out_dir / "one_rank_dense0.npz")
+    mine = {k: v.detach().cpu().numpy() for k, v in state["dense"].state_dict().items()}
+    flat = lambda d: torch.from_numpy(np.concatenate([d[k].ravel() for k in sorted(mine)]))  # noqa: E731
+    out["dense_rel_err"] = _rel(flat(mine), flat(dense), flat(dense0))
+    out["dense_max_abs_err"] = max(float(np.abs(v - dense[k]).max()) for k, v in mine.items())
+    out["dense_sha256"] = hashlib.sha256(b"".join(mine[k].tobytes() for k in sorted(mine))).hexdigest()
+    return out
+
+
+def _mr_rows_ok(c: dict) -> bool:
+    return c["ids_equal"] and c["on_owner"] and c["last_use_equal"]
+
+
 def _mr_run(rank: int, group, dev, arch, n_warmup: int, n_steps: int, full: bool) -> dict:
     """This rank's train_batch steps on its slice of every global batch
-    (step times, losses, launches a step, staged bytes), then, when
-    ``full``: its rows and dense params against the one-rank run's, two
-    serve_p99 requests, and compressed_psum and the ZeRO-1 update on CUDA
-    tensors against the CPU."""
-    from repro_torch.core import comm, exchange
+    (step times, losses, launches a step, staged bytes); when ``full``,
+    also after the first step its rows and dense params against the
+    one-rank run's and two serve_p99 requests, after the last its rows and
+    dense params again, each kernel of the path held to its plain version
+    and timed on the inputs the last warm-up step gave it (the ranks in
+    turn), and compressed_psum and the ZeRO-1 update on CUDA tensors
+    against the CPU."""
+    import torch.distributed as dist
+
+    from repro_torch.core import comm
+    from repro_torch.kernels.fused_gather import ops as fg_ops, ref as fg_ref
+    from repro_torch.kernels.fused_scatter import ops as fs_ops, ref as fs_ref
+    from repro_torch.kernels.segment_reduce import ops as sr_ops, ref as sr_ref
     from repro_torch.launch import recsys_cell
+    from repro_torch.models import layers
     from repro_torch.optim import adamw
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    recsys_cell.MIXED = layers.FP32  # this process runs this phase only
     out_dir = ROOT / "build" / "multi_rank"
     cell = recsys_cell.build(arch, arch.shape("train_batch"), device=dev, group=group)
     spec = cell.engine.groups["dim128"].exchange
@@ -4110,6 +4216,27 @@ def _mr_run(rank: int, group, dev, arch, n_warmup: int, n_steps: int, full: bool
     state_bytes = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_kernel_counts()
+
+    # the first call of each kernel from the last warm-up step on (the set:
+    # from the first step after it that inserts rows), kept on the host so
+    # that the timed steps and the peak are those of the path alone
+    kernels = (("gather_rows", fg_ops, fg_ref, False), ("segment_sum_csr_group", sr_ops, sr_ref, False),
+               ("segment_expand_csr_group", sr_ops, sr_ref, False), ("scatter_add_rows", fs_ops, fs_ref, True),
+               ("scatter_set_rows", fs_ops, fs_ref, True))
+    probe, recorded, real = {"on": False}, {}, {}
+
+    def keep_first(mod, name: str, whole: bool):
+        fn = real[name] = getattr(mod, name)
+
+        def wrapper(*args, **kw):
+            if probe["on"] and name not in recorded:
+                recorded[name] = ([_to_host(a, whole) for a in args], kw)
+            return fn(*args, **kw)
+        setattr(mod, name, wrapper)
+
+    if full:
+        for name, mod, _, whole in kernels:
+            keep_first(mod, name, whole)
     plain_a2a, a2a_s = comm.all_to_all, [0.0]
 
     def timed_a2a(x, grp):  # the host time of each all_to_all, the copies to and from the host included
@@ -4125,6 +4252,7 @@ def _mr_run(rank: int, group, dev, arch, n_warmup: int, n_steps: int, full: bool
     for s in range(n_warmup + n_steps):
         batch = cell.make_batch(MR_SEED + s, vocab=VOCAB)
         before, st0, a2a_s[0] = kernel_counts(), comm.STAGED_BYTES, 0.0
+        probe["on"] = full and s >= n_warmup - 1
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, o = cell.step_fn(state, batch)
@@ -4137,8 +4265,25 @@ def _mr_run(rank: int, group, dev, arch, n_warmup: int, n_steps: int, full: bool
         a2a_ms.append(a2a_s[0] * 1e3)
         losses.append(float(o["loss"]))
         mets.append({k: int(v) for k, v in o.items() if k != "loss"})
+        if full and s == 0:  # a warm-up step: held before Adam's sign noise builds up
+            step1 = _mr_compare(cell.engine, state, dev, out_dir, "one_step1", rank)
+            serve = recsys_cell.build(arch, arch.shape("serve_p99"), device=dev, group=group)
+            serve_logits, serve_ms, serve_met = [], [], []
+            for i in range(MR_SERVE):
+                sbatch = serve.make_batch(MR_SEED + 100 + i, vocab=VOCAB)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                so = serve.step_fn(state, sbatch)
+                torch.cuda.synchronize()
+                serve_ms.append((time.perf_counter() - t0) * 1e3)
+                serve_logits.append(so["logits"].cpu().numpy().tolist())
+                serve_met.append({k: int(v) for k, v in so.items() if k != "logits"})
+            del serve, so
     peak = torch.cuda.max_memory_allocated()
     comm.all_to_all = plain_a2a
+    for name, mod, _, _ in kernels:  # no more records
+        if name in real:
+            setattr(mod, name, real[name])
     res = {"rank": rank, "transport": comm.transport(group, dev), "step_ms": step_ms, "loss": losses,
            "metrics": mets, "launches_per_step": per_step, "staged_bytes_per_step": staged,
            "a2a_ms_per_step": a2a_ms,
@@ -4151,44 +4296,23 @@ def _mr_run(rank: int, group, dev, arch, n_warmup: int, n_steps: int, full: bool
     if not full:
         return res
 
-    # the rows this rank owns, and the dense params, against the one-rank run
-    rows = cell.engine.export_rows(state["sparse"])["dim128"]
-    order = np.argsort(rows["ids"])
-    ids_all = np.load(out_dir / "one_rank_ids.npy")
-    owner = exchange._owner_of(torch.from_numpy(ids_all), MR_RANKS).numpy()
-    want = ids_all[owner == rank]
-    res["rows"] = {"n": int(rows["ids"].size), "ids_equal": bool(np.array_equal(rows["ids"][order], want)),
-                   "on_owner": bool((exchange._owner_of(torch.from_numpy(rows["ids"]), MR_RANKS).numpy()
-                                     == rank).all())}
-    if res["rows"]["ids_equal"]:
-        pos = np.searchsorted(ids_all, rows["ids"][order])
-        for k in ("emb", "m", "v"):
-            ref = np.load(out_dir / f"one_rank_{k}.npy", mmap_mode="r")[pos]
-            got = (rows["emb"] if k == "emb" else rows["slots"][k])[order]
-            res["rows"][f"{k}_max_abs_err"] = float(np.abs(got - ref).max())
-            res["rows"][f"{k}_max_abs"] = float(np.abs(ref).max())
-        res["rows"]["last_use_equal"] = bool(np.array_equal(
-            rows["last_use"][order], np.load(out_dir / "one_rank_last_use.npy")[pos]))
-    dense = np.load(out_dir / "one_rank_dense.npz")
-    res["dense_max_abs_err"] = max(float(np.abs(v.detach().cpu().numpy() - dense[k]).max())
-                                   for k, v in state["dense"].state_dict().items())
-    del rows, ids_all, owner, want
+    res.update(step1=step1, serve_logits=serve_logits, serve_ms=serve_ms, serve_metrics=serve_met,
+               final=_mr_compare(cell.engine, state, dev, out_dir, "one_final", rank),
+               launches=kernel_counts())  # the train steps and the serve requests
 
-    # two serve_p99 requests over both ranks, from the trained state
-    serve = recsys_cell.build(arch, arch.shape("serve_p99"), device=dev, group=group)
-    sstate = {"step": state["step"], "dense": state["dense"], "sparse": state["sparse"]}
-    res["serve_logits"], res["serve_ms"] = [], []
-    for i in range(MR_SERVE):
-        batch = serve.make_batch(MR_SEED + 100 + i, vocab=VOCAB)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        o = serve.step_fn(sstate, batch)
-        torch.cuda.synchronize()
-        res["serve_ms"].append((time.perf_counter() - t0) * 1e3)
-        res["serve_logits"].append(o["logits"].cpu().numpy().tolist())
-        res.setdefault("serve_metrics", []).append({k: int(v) for k, v in o.items() if k != "logits"})
-    res["launches"] = kernel_counts()  # the train steps and the serve requests
-    del serve, sstate
+    # each kernel on this rank's recorded inputs, held to its plain version
+    # and timed while the other rank waits
+    res["kernels"] = {}
+    for turn in range(comm.size(group)):
+        if turn == rank:
+            for name, _, ref_mod, _ in kernels:
+                check(name in recorded, f"rank {rank}: no {name} call from step {n_warmup} on")
+                args, kw = recorded.pop(name)
+                res["kernels"][name] = _measure(name, real[name], getattr(ref_mod, name), _to_dev(args, dev),
+                                                kw, 20, dev)
+                del args
+                torch.cuda.empty_cache()
+        dist.barrier(group)
 
     # compressed_psum and ZeRO-1 on CUDA tensors against the CPU
     gen = torch.Generator().manual_seed(SEED + 7 + rank)
@@ -4219,18 +4343,25 @@ def _mr_run(rank: int, group, dev, arch, n_warmup: int, n_steps: int, full: bool
     return res
 
 
-def multi_rank_phase(arch, dev, device_info: dict) -> dict:
+def multi_rank_phase(arch, dev, device_info: dict, by_name: dict) -> dict:
     """dlrm-mlperf train_batch at published widths (vocab cut to VOCAB a
     feature) on one rank in this process, then over two gloo ranks sharing
     the card, each holding half of every table, on the same global
-    batches: losses, the ranks' exports against the one-rank export (ids
-    bit-equal, each on its owner; rows and moments within tolerance), dense
-    params, the summed counters, the launches of every step on every rank;
-    two serve_p99 requests over both ranks against the one-rank logits;
+    batches, in FP32: losses, the summed counters, the launches of every
+    step on every rank; after the first step the ranks' exports against the
+    one-rank export (ids bit-equal, each on its owner; the rows' updates and
+    moments and the dense params' update within MR_REL_TOL of the one-rank
+    run's, the dense params bit-equal across the ranks) and two serve_p99
+    requests over both ranks against the one-rank logits; after the last
+    step the ids, owners and last uses again, and the drift of the values
+    beside that of the one-rank run with its dense params perturbed by
+    MR_PERTURB after its first step; each kernel of the path on each rank's recorded
+    inputs (added to the kernel entries' ``at`` as ``multi_rank_r<rank>``);
     compressed_psum and the ZeRO-1 update on CUDA tensors against the CPU.
     Over NCCL (one card a rank) only where the machine has two cards.
     Returns the launches of the two ranks' train and serve runs, summed."""
     from repro_torch.launch import recsys_cell
+    from repro_torch.models import layers
 
     phase_t0 = time.perf_counter()
     out_dir = ROOT / "build" / "multi_rank"
@@ -4238,9 +4369,13 @@ def multi_rank_phase(arch, dev, device_info: dict) -> dict:
     out_dir.mkdir(parents=True)
     n_all = MR_WARMUP + MR_STEPS
 
-    # (a) one rank, in this process, on the same global batches
+    # (a) one rank, in this process, on the same global batches, in FP32
+    recsys_cell.MIXED = layers.FP32
     one = recsys_cell.build(arch, arch.shape("train_batch"), device=dev)
     state = one.init_state()
+    np.savez(out_dir / "one_rank_dense0.npz",
+             **{k: v.detach().cpu().numpy() for k, v in state["dense"].state_dict().items()})
+    serve = recsys_cell.build(arch, arch.shape("serve_p99"), device=dev)
     one_ms, one_loss, one_met = [], [], []
     for s in range(n_all):
         batch = one.make_batch(MR_SEED + s, vocab=VOCAB)
@@ -4253,20 +4388,27 @@ def multi_rank_phase(arch, dev, device_info: dict) -> dict:
         one_loss.append(float(o["loss"]))
         one_met.append({k: int(v) for k, v in o.items() if k != "loss"})
         check(all(v == 0 for k, v in one_met[-1].items() if "overflow" in k), f"one-rank overflow: {one_met[-1]}")
-    rows = one.engine.export_rows(state["sparse"])["dim128"]
-    order = np.argsort(rows["ids"])
-    for k, v in (("ids", rows["ids"]), ("emb", rows["emb"]), ("m", rows["slots"]["m"]),
-                 ("v", rows["slots"]["v"]), ("last_use", rows["last_use"])):
-        np.save(out_dir / f"one_rank_{k}.npy", v[order])
-    n_rows = int(rows["ids"].size)
-    del rows, order
-    np.savez(out_dir / "one_rank_dense.npz",
-             **{k: v.detach().cpu().numpy() for k, v in state["dense"].state_dict().items()})
-    serve = recsys_cell.build(arch, arch.shape("serve_p99"), device=dev)
-    one_logits = [serve.step_fn({"step": state["step"], "dense": state["dense"], "sparse": state["sparse"]},
-                                serve.make_batch(MR_SEED + 100 + i, vocab=VOCAB))["logits"].cpu().numpy()
-                  for i in range(MR_SERVE)]
-    del one, serve, state, batch, o
+        if s == 0:
+            _mr_save(one.engine, state, out_dir, "one_step1")
+            one_logits = [serve.step_fn(state, serve.make_batch(MR_SEED + 100 + i, vocab=VOCAB))["logits"].cpu().numpy()
+                          for i in range(MR_SERVE)]
+    n_rows = _mr_save(one.engine, state, out_dir, "one_final")
+    del state, batch, o
+    torch.cuda.empty_cache()
+
+    # (a') the drift a rounding alone makes: the same one-rank run with its
+    # dense params scaled by 1 + MR_PERTURB * N(0, 1) after its first step
+    state = one.init_state()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for s in range(n_all):
+        state, _ = one.step_fn(state, one.make_batch(MR_SEED + s, vocab=VOCAB))
+        if s == 0:
+            with torch.no_grad():
+                for p in state["dense"].parameters():
+                    p.mul_(1 + MR_PERTURB * torch.randn(p.shape, generator=gen, device=dev))
+    perturbed = _mr_compare(one.engine, state, dev, out_dir, "one_final", None)
+    recsys_cell.MIXED = layers.MIXED
+    del one, serve, state
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
@@ -4279,8 +4421,13 @@ def multi_rank_phase(arch, dev, device_info: dict) -> dict:
     ranks_s = time.perf_counter() - t0
     for r in ranks:
         check(r["transport"] == "gloo, host-staged", f"rank {r['rank']}: transport {r['transport']}")
-        check(np.allclose(r["loss"], one_loss, **MIXED_TOL), f"rank {r['rank']} losses {r['loss']} vs {one_loss}")
-        check(r["loss"] == ranks[0]["loss"], "the ranks report different global losses")
+        check(np.allclose(r["loss"], one_loss, **MR_FP32_TOL), f"rank {r['rank']} losses {r['loss']} vs {one_loss}")
+        for at in ("step1", "final"):
+            check(r[at]["dense_sha256"] == ranks[0][at]["dense_sha256"], f"the ranks' dense params differ ({at})")
+            check(_mr_rows_ok(r[at]), f"rank {r['rank']} rows ({at}) {r[at]}")
+        c = r["step1"]
+        check(all(c[f"{k}_rel_err"] <= MR_REL_TOL for k in ("emb", "m", "v", "dense")),
+              f"rank {r['rank']} after the first step {c}")
         for s, (m, m1) in enumerate(zip(r["metrics"], one_met)):
             check(all(v == 0 for k, v in m.items() if "overflow" in k), f"rank {r['rank']} overflow at {s + 1}: {m}")
             check(m["dim128/idmap_inserted"] == m1["dim128/idmap_inserted"]
@@ -4293,28 +4440,22 @@ def multi_rank_phase(arch, dev, device_info: dict) -> dict:
                   f"rank {r['rank']} step {s + 1} launches {n}")
         check(sum(n.get("fused_scatter.scatter_set_rows", 0) for n in r["launches_per_step"]) > 0,
               f"rank {r['rank']}: no row was initialised")
-        rw = r["rows"]
-        check(rw["ids_equal"] and rw["on_owner"] and rw["last_use_equal"], f"rank {r['rank']} rows {rw}")
-        # the rows and dense params as tests/test_torch_recsys_cells.py holds
-        # them in MIXED; their moments are reported, not held: each bf16
-        # rounding of an occurrence's gradient (the batch split changes the
-        # GEMMs' tiling) adds up over a frequent id's occurrences, whose
-        # gradients nearly cancel (in FP32 the moments agree within 1e-5 of
-        # their largest, tests/test_torch_sharded_cells.py on the CPU)
-        check(rw["emb_max_abs_err"] <= MR_ROW_ATOL, f"rank {r['rank']} rows {rw}")
-        check(r["dense_max_abs_err"] <= MR_ROW_ATOL, f"rank {r['rank']} dense params {r['dense_max_abs_err']}")
+        for name, m in r["kernels"].items():
+            _add_path(by_name[next(e for e in DLRM_TRAIN_KERNELS if e.endswith("." + name))],
+                      f"multi_rank_r{r['rank']}", m)
         for m in r["serve_metrics"]:
             check(all(v == 0 for k, v in m.items() if "overflow" in k), f"serve overflow {m}")
         check(r["compressed_psum"]["sum_bit_equal"] and r["compressed_psum"]["error_bit_equal"],
               f"compressed_psum on the card differs from the CPU's: {r['compressed_psum']}")
         check(r["zero1"]["bit_equal_to_unsharded"] and r["zero1"]["max_abs_err_vs_cpu"] <= 1e-6
               and r["zero1"]["moment_bytes"] < r["zero1"]["unsharded_moment_bytes"], f"zero1 {r['zero1']}")
-    check(sum(r["rows"]["n"] for r in ranks) == n_rows, "the ranks' exports do not add up to the one-rank export")
+    check(sum(r["final"]["n"] for r in ranks) == n_rows, "the ranks' exports do not add up to the one-rank export")
+    check(_mr_rows_ok(perturbed), f"the perturbed one-rank run's rows {perturbed}")
     logit_err = 0.0
     for i in range(MR_SERVE):
         got = np.concatenate([np.asarray(r["serve_logits"][i], np.float32) for r in ranks])
         check(got.shape == one_logits[i].shape and np.all(np.isfinite(got)), f"serve logits {got.shape}")
-        check(np.allclose(got, one_logits[i], **MIXED_TOL), f"serve request {i}: logits off the one-rank run's")
+        check(np.allclose(got, one_logits[i], **MR_FP32_TOL), f"serve request {i}: logits off the one-rank run's")
         logit_err = max(logit_err, float(np.abs(got - one_logits[i]).max()))
     launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
 
@@ -4322,7 +4463,7 @@ def multi_rank_phase(arch, dev, device_info: dict) -> dict:
     n_cards = torch.cuda.device_count()
     if n_cards >= MR_RANKS:
         nccl = _mr_spawn("nccl", out_dir / "store_nccl", arch, 0, MR_NCCL_STEPS, False)
-        check(all(np.allclose(r["loss"], one_loss[:MR_NCCL_STEPS], **MIXED_TOL) for r in nccl),
+        check(all(np.allclose(r["loss"], one_loss[:MR_NCCL_STEPS], **MR_FP32_TOL) for r in nccl),
               f"NCCL losses {[r['loss'] for r in nccl]}")
         nccl_out = {"run": True, "steps": MR_NCCL_STEPS, "loss": nccl[0]["loss"],
                     "step_ms": [r["step_ms"] for r in nccl], "transport": nccl[0]["transport"]}
@@ -4332,6 +4473,7 @@ def multi_rank_phase(arch, dev, device_info: dict) -> dict:
     a2a = ranks[0]["a2a_bytes_per_step"]
     emit({"phase": "multi_rank", **device_info, "arch": arch.arch_id, "batch": arch.shape("train_batch")["batch"],
           "ranks": MR_RANKS, "transport": "gloo, one card, host-staged (not NCCL, not NVLink)",
+          "precision": "fp32 (the cells' MIXED set to FP32, TF32 off), both runs",
           "reduced": {"vocab_per_feature": [4_000_000, VOCAB], "devices": [256, MR_RANKS]},
           "warmup": MR_WARMUP, "steps": MR_STEPS, "rows_per_shard": ranks[0]["rows_per_shard"],
           "per_dest_cap": ranks[0]["per_dest_cap"],
@@ -4344,8 +4486,12 @@ def multi_rank_phase(arch, dev, device_info: dict) -> dict:
           "a2a_ms_per_step_by_rank": [r["a2a_ms_per_step"] for r in ranks],
           "max_memory_allocated_bytes_by_rank": [r["max_memory_allocated_bytes"] for r in ranks],
           "state_bytes_by_rank": [r["state_bytes"] for r in ranks],
-          "rows_by_rank": [r["rows"] for r in ranks], "one_rank_rows": n_rows,
-          "dense_max_abs_err_by_rank": [r["dense_max_abs_err"] for r in ranks],
+          "after_step1_by_rank": [r["step1"] for r in ranks], "rel_tol": MR_REL_TOL,
+          "after_last_step_by_rank": [r["final"] for r in ranks], "one_rank_rows": n_rows,
+          "one_rank_perturbed_after_last_step": {"perturbation": MR_PERTURB, **perturbed},
+          "kernels_by_rank": [{k: {f: m[f] for f in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+                                                     "bound_ms", "bound_by", "kernel_device_ms")}
+                               for k, m in r["kernels"].items()} for r in ranks],
           "serve_p99_ms_by_rank": [r["serve_ms"] for r in ranks], "serve_logits_max_abs_err": logit_err,
           "launches_per_step_by_rank": [r["launches_per_step"] for r in ranks], "launches": launches,
           "compressed_psum": [r["compressed_psum"] for r in ranks], "zero1": [r["zero1"] for r in ranks],

@@ -5,7 +5,10 @@ every rank exports its shard, rank 0 gathers the union and writes it
 through the saver's extra-tensor file (its shapes are self-describing, as
 the union's size changes from save to save). On restore every rank reads
 the union and imports the rows it owns, so a checkpoint written at N ranks
-restores at any M (DESIGN.md §8 elasticity).
+restores at any M (DESIGN.md §8 elasticity), one device included. A
+one-device checkpoint holds its rows in its state tree instead (the
+reference's layout); ``rows_of_tree`` exports them from there, so ranks
+resume it too.
 
 ``ShardedRowsHooks`` puts this on the Trainer's step-edge hook protocol
 (``pipelines/trainer.py``): ``ckpt_extra`` gathers (a collective: every
@@ -14,14 +17,35 @@ rank's Trainer calls it at every save, the writing rank and the others),
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Callable, Mapping
 
 import numpy as np
 import torch.distributed as dist
 
+from repro_torch.checkpoint import saver
 from repro_torch.core import comm
 
 PREFIX = "rows"
+
+
+def layout(ckpt_dir) -> str | None:
+    """Where the newest checkpoint in ``ckpt_dir`` holds its engine rows:
+    ``"tree"``, in its state tree (as one device writes it), or ``"rows"``,
+    in its extra file (as ranks write it); None when there is none."""
+    step = saver.latest_step(ckpt_dir) if ckpt_dir is not None else None
+    if step is None:
+        return None
+    return "tree" if any(n.startswith("state/sparse/") for n in saver.leaf_names(ckpt_dir, step)) else "rows"
+
+
+def rows_of_tree(cell, ckpt_dir) -> dict:
+    """The engine rows of the newest one-device checkpoint in ``ckpt_dir``:
+    its state tree restored into ``cell`` (a one-device train cell of the
+    shapes that wrote it), then exported. This process holds the whole
+    table once, for the time of the call."""
+    init = cell.init_state()
+    tree = saver.restore(ckpt_dir, {"state": cell.state_tree(init)})["state"]
+    return cell.engine.export_rows(cell.load_state_tree(init, tree)["sparse"])
 
 
 def union(parts: list[Mapping]) -> dict:
@@ -74,12 +98,14 @@ def from_flat(flat: Mapping[str, np.ndarray]) -> dict:
 class ShardedRowsHooks:
     """Trainer hooks of a multi-rank cell: the engine rows in every
     checkpoint, gathered to rank 0, and imported by every rank on restore.
-    ``state_key`` locates the engine state inside the trainer state."""
+    The engine state is the trainer state's ``sparse``. ``tree_rows`` gives
+    the rows of a checkpoint that holds none in its extra file (one written
+    on one device)."""
 
-    def __init__(self, engine, group, state_key: str = "sparse"):
+    def __init__(self, engine, group, tree_rows: Callable[[], dict] | None = None):
         self.engine = engine
         self.group = group
-        self.state_key = state_key
+        self.tree_rows = tree_rows
         self._state = None
 
     def track(self, state):
@@ -96,10 +122,13 @@ class ShardedRowsHooks:
     def ckpt_extra(self) -> dict[str, np.ndarray]:
         if self._state is None:
             raise RuntimeError("ShardedRowsHooks: no state to save (call track(state) first)")
-        rows = gather_rows(self.engine, self._state[self.state_key], self.group)
+        rows = gather_rows(self.engine, self._state["sparse"], self.group)
         return to_flat(rows) if rows is not None else {}
 
     def on_restore(self, state, extra: Mapping[str, np.ndarray] | None):
-        if not extra:
+        rows = from_flat(extra or {})
+        if not rows and self.tree_rows is not None:
+            rows = self.tree_rows()
+        if not rows:
             raise ValueError("the checkpoint holds no engine rows")
-        return self.track({**state, self.state_key: self.engine.import_rows(from_flat(extra))})
+        return self.track({**state, "sparse": self.engine.import_rows(rows)})

@@ -88,11 +88,9 @@ class EngineConfig:
 @dataclasses.dataclass(frozen=True)
 class ShardSpec:
     """How the engine state is laid out over the group: every leaf is
-    sharded on its leading device axis ``dim`` (the reference's
-    ``P(mesh_axes)``), and this process holds the global shards ``shards``
-    in that order."""
+    sharded on its leading device axis (the reference's ``P(mesh_axes)``),
+    and this process holds the global shards ``shards`` in that order."""
 
-    dim: int
     shards: tuple[int, ...]
     group: object = dataclasses.field(default=None, compare=False, repr=False)
 
@@ -152,7 +150,7 @@ class EmbeddingEngine:
 
     def state_sharding_spec(self) -> ShardSpec:
         """Every leaf sharded on its leading device axis over the group."""
-        return ShardSpec(dim=0, shards=self.shards, group=self.cfg.group)
+        return ShardSpec(shards=self.shards, group=self.cfg.group)
 
     # -------------------------------------------------------------- engine ids
     def engine_ids(self, ids_by_feature: Mapping[str, Ragged]) -> dict[str, torch.Tensor]:

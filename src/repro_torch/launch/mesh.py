@@ -29,10 +29,11 @@ import torch.distributed as dist
 from repro_torch.core import comm
 
 BACKENDS = ("gloo", "nccl")
+TIMEOUT = datetime.timedelta(seconds=600)  # of every collective
 
 
 def init_group(backend: str, *, rank: int | None = None, world_size: int | None = None,
-               store_path: str | os.PathLike | None = None, timeout_s: float = 600.0):
+               store_path: str | os.PathLike | None = None):
     """Create the default process group and return it (the reference's
     mesh over every device). With ``rank`` and ``world_size`` the ranks
     meet through a ``FileStore`` at ``store_path``; without them, through
@@ -41,17 +42,16 @@ def init_group(backend: str, *, rank: int | None = None, world_size: int | None 
         raise ValueError(f"backend must be one of {BACKENDS}, not {backend!r}")
     if dist.is_initialized():
         raise RuntimeError("a default process group exists already")
-    timeout = datetime.timedelta(seconds=timeout_s)
     if rank is None:
         if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
             raise RuntimeError("no RANK/WORLD_SIZE in the environment: run under torchrun, "
                                "or pass rank, world_size and store_path")
-        dist.init_process_group(backend, init_method="env://", timeout=timeout)
+        dist.init_process_group(backend, init_method="env://", timeout=TIMEOUT)
     else:
         if world_size is None or store_path is None:
             raise ValueError("an explicit rank needs world_size and store_path")
         store = dist.FileStore(str(store_path), world_size)
-        dist.init_process_group(backend, store=store, rank=rank, world_size=world_size, timeout=timeout)
+        dist.init_process_group(backend, store=store, rank=rank, world_size=world_size, timeout=TIMEOUT)
     return dist.group.WORLD
 
 
@@ -74,10 +74,6 @@ def close() -> None:
 def n_devices(group) -> int:
     """Ranks in the group (the reference's mesh size); 1 for no group."""
     return comm.size(group)
-
-
-def rank(group) -> int:
-    return comm.rank(group)
 
 
 def dp_group(group):

@@ -31,7 +31,8 @@ through the reply all_to_all and the all-reduced dense gradients are the
 global loss's, and AdamW's global-norm clip sees the all-reduced ones. The
 step's metrics are summed over the group and the loss is the global one.
 The train state's ``state_tree`` then holds the dense side only; the rows
-are checkpointed through ``checkpoint/sharded.py``. Retrieval and tiered
+are checkpointed through ``checkpoint/sharded.py`` (a one-device run that
+resumes such a checkpoint takes this layout too, ``launch/train.py``). Retrieval and tiered
 cells run on one device only.
 """
 from __future__ import annotations
@@ -264,7 +265,7 @@ def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
 
     step_fn = train_step if train else serve_step
     state_tree, load_state_tree = ((convert.train_state_to_tree, convert.train_state_from_tree)
-                                   if group is None else (_dense_state_tree, _load_dense_state_tree))
+                                   if group is None else (dense_state_tree, load_dense_state_tree))
     cell = Cell(arch=arch, shape=shape, device=device, step_fn=step_fn, init_state=init_fn,
                 make_batch=pl.make_batch, ids_fn=lambda batch: pl.prepared(on_device(batch))[0],
                 engine=pl.engine, returns_state=train,
@@ -289,13 +290,14 @@ def _sum_grads(grads, group) -> list[torch.Tensor]:
     return [x.view_as(g) for x, g in zip(flat.split([g.numel() for g in grads]), grads)]
 
 
-def _dense_state_tree(state) -> dict:
+def dense_state_tree(state) -> dict:
     """A multi-rank train state's checkpoint tree: step, dense params and
-    AdamW moments (the same on every rank), in the reference's layout."""
+    AdamW moments (the same on every rank), in the reference's layout; the
+    rows go in the checkpoint's extra file (``checkpoint/sharded.py``)."""
     return convert.train_state_to_tree({k: v for k, v in state.items() if k != "sparse"})
 
 
-def _load_dense_state_tree(state, tree) -> dict:
+def load_dense_state_tree(state, tree) -> dict:
     dense = convert.train_state_from_tree({k: v for k, v in state.items() if k != "sparse"}, tree)
     return {**dense, "sparse": state["sparse"]}
 

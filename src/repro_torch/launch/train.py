@@ -39,7 +39,11 @@ backend (``gloo``: the CPU with ``--device cpu``, or ranks sharing one
 card; ``nccl``: one card a rank). Rank 0 alone writes the telemetry, the
 checkpoints and the console; a checkpoint holds the dense state and the
 union of the ranks' exported rows, and on resume each rank imports the rows
-it owns (``checkpoint/sharded.py``). ``--data-dir``, ``--autoscale``,
+it owns (``checkpoint/sharded.py``). Either layout resumes at any number of
+ranks: one device resuming a checkpoint that ranks wrote imports every row
+and goes on in that layout; ranks resuming a one-device checkpoint export
+its rows from its state tree (each rank holds the whole table once for
+that). ``--data-dir``, ``--autoscale``,
 ``--ckpt-mode delta`` and the LM archs are refused there, as the reference
 refuses ``--data-dir`` on more than one device.
 
@@ -59,6 +63,7 @@ import sys
 from repro_torch import obs
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import ShapeCell
+from repro_torch.core import comm
 from repro_torch.ft.chaos import InjectedCrash
 from repro_torch.launch import mesh
 from repro_torch.launch.cells import build_arch_cell
@@ -212,6 +217,25 @@ def _refuse_multi_rank(args, arch) -> None:
         raise ValueError("WORLD_SIZE > 1: name the backend with --dist-backend (gloo or nccl)")
 
 
+def _rows_hooks(args, arch, shape, cell, group, device):
+    """The checkpoint hooks of the layout ranks write (the dense state in
+    the tree, every rank's rows gathered into the extra file), or None for
+    the one-device layout (the rows in the tree). Ranks always take it, and
+    so does one device resuming a checkpoint that ranks wrote. Ranks
+    resuming a one-device checkpoint read its rows from its tree."""
+    from repro_torch.checkpoint import sharded
+    from repro_torch.launch import recsys_cell
+
+    found = sharded.layout(args.ckpt_dir) if args.resume else None
+    if group is None and found != "rows":
+        return None
+    cell.state_tree, cell.load_state_tree = recsys_cell.dense_state_tree, recsys_cell.load_dense_state_tree
+    one_device = None
+    if found == "tree":
+        one_device = lambda: sharded.rows_of_tree(build_arch_cell(arch, shape, device=device), args.ckpt_dir)  # noqa: E731
+    return sharded.ShardedRowsHooks(cell.engine, group, one_device)
+
+
 def run(args: argparse.Namespace, arch):
     """Train ``arch`` (an ``ArchConfig``) as the flags say; returns the
     ``TrainResult`` and the ``PipelineController`` (None without
@@ -233,7 +257,7 @@ def run(args: argparse.Namespace, arch):
 
 
 def _run(args, arch, group, device):
-    lead = mesh.rank(group) == 0  # the rank that writes and prints
+    lead = comm.rank(group) == 0  # the rank that writes and prints
     say = print if lead else (lambda *a, **k: None)
     shape = smoke_shape(arch, args.shape, args.batch, args.seq_len)
     cell = build_arch_cell(arch, shape, device=device, group=group)
@@ -252,9 +276,8 @@ def _run(args, arch, group, device):
     if args.ckpt_mode == "delta":
         from repro_torch.ft import FTTrainerHooks
         hooks = cell.storage_hooks or FTTrainerHooks(cell.engine, cell.ids_fn, state_key="sparse")
-    if group is not None and args.ckpt_dir:
-        from repro_torch.checkpoint.sharded import ShardedRowsHooks
-        hooks = ShardedRowsHooks(cell.engine, group)
+    if args.ckpt_dir and args.ckpt_mode != "delta" and arch.family == "recsys":
+        hooks = _rows_hooks(args, arch, shape, cell, group, device)
 
     tcfg = TrainConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
                        ckpt_every=args.ckpt_every, resume=args.resume,

@@ -10,9 +10,12 @@ within 1e-5, every shard's IDMap and the summed counters bit-equal, rows
 and dense params within the tolerances of tests/test_torch_recsys_cells.py.
 Wide & Deep with two dim groups serves two requests over imported rows.
 The driver (``python -m torch.distributed.run --nproc-per-node 2``) gives
-the losses of the port's 2-rank cell and resumes from a 2-rank checkpoint.
+the losses of the port's 2-rank cell and resumes from a 2-rank checkpoint;
+a 2-rank checkpoint resumes on one device, and a one-device checkpoint
+over 2 ranks.
 """
 import os
+import shutil
 import subprocess
 import sys
 
@@ -20,6 +23,7 @@ import numpy as np
 import pytest
 
 import torch_rank_work as work
+from repro_torch.checkpoint import sharded
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs.base import ShapeCell as TShape
 from repro_torch.core import idmap as t_idmap
@@ -30,6 +34,8 @@ from torch_ranks import SRC, finish, run_ranks, start_jax
 D, B, STEPS, LR = 2, work.CELL_BATCH, work.CELL_STEPS, 1e-3
 # Adam near its eps (the reasons are in tests/test_torch_recsys_cells.py)
 ADAM_EPS_ATOL = STEPS * LR * 1e-10 / (4 * 1e-8)
+# one device against 2 ranks: the same global loss, summed in another order
+LOSS_ATOL = 1e-5
 
 JAX_BODY = """
 import dataclasses
@@ -254,7 +260,7 @@ def test_wide_deep_two_groups_serve_agrees(runs):
 
 def test_each_rank_holds_only_its_own_shard(runs):
     for r in range(D):
-        assert runs["ranks"][r]["shard_spec"] == (0, (r,), 1)
+        assert runs["ranks"][r]["shard_spec"] == ((r,), 1)
 
 
 def test_multi_rank_refusals(runs):
@@ -262,11 +268,15 @@ def test_multi_rank_refusals(runs):
         assert runs["ranks"][r]["refused"] == {"retrieval": True, "tiered": True, "lm": True}
 
 
-def _driver(tmp_path, tag: str, *flags: str) -> dict:
+def _driver(tmp_path, tag: str, *flags: str, ranks: int = D) -> dict:
+    """The driver's per-step losses: under torchrun over ``ranks`` gloo
+    ranks, or as one process on one device."""
     tel = tmp_path / f"{tag}.jsonl"
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(D),
-           "-m", "repro_torch.launch.train", "--arch", "dlrm-mlperf", "--dist-backend", "gloo",
-           "--device", "cpu", "--batch", str(B), "--log-every", "1", "--telemetry", str(tel), *flags]
+    launch = (["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(ranks)]
+              if ranks > 1 else [])
+    cmd = [sys.executable, *launch, "-m", "repro_torch.launch.train", "--arch", "dlrm-mlperf",
+           "--dist-backend", "gloo", "--device", "cpu", "--batch", str(B), "--log-every", "1",
+           "--telemetry", str(tel), *flags]
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env)
     assert out.returncode == 0, f"STDOUT:\n{out.stdout}\nSTDERR:\n{out.stderr[-4000:]}"
@@ -274,15 +284,48 @@ def _driver(tmp_path, tag: str, *flags: str) -> dict:
             if r.get("type") == "step" and "metrics" in r}
 
 
-def test_driver_gives_the_two_rank_cells_losses_and_resumes(runs, tmp_path):
+@pytest.fixture(scope="module")
+def two_rank_ckpt(tmp_path_factory):
+    """Two driver steps over 2 ranks with a checkpoint after each: the
+    checkpoints' directory and the losses."""
+    d = tmp_path_factory.mktemp("driver")
+    losses = _driver(d, "a", "--steps", "2", "--ckpt-dir", str(d / "ckpt"), "--ckpt-every", "1")
+    return d / "ckpt", losses
+
+
+def test_driver_gives_the_two_rank_cells_losses_and_resumes(runs, two_rank_ckpt, tmp_path):
     want = runs["ranks"][0]["driver_losses"]
     ckpt = str(tmp_path / "ckpt")
-    first = _driver(tmp_path, "a", "--steps", "2", "--ckpt-dir", ckpt, "--ckpt-every", "1")
+    shutil.copytree(two_rank_ckpt[0], ckpt)
+    first = two_rank_ckpt[1]
     resumed = _driver(tmp_path, "b", "--steps", str(STEPS), "--ckpt-dir", ckpt, "--resume")
     assert sorted(first) == [1, 2] and sorted(resumed) == [3]
     got = [first[1], first[2], resumed[3]]
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
     assert (tmp_path / "ckpt" / "step_0000000002" / "extra.safetensors").exists()
+
+
+def test_driver_resumes_a_two_rank_checkpoint_on_one_device(runs, two_rank_ckpt, tmp_path):
+    want = runs["ranks"][0]["driver_losses"]
+    ckpt = tmp_path / "ckpt"
+    shutil.copytree(two_rank_ckpt[0], ckpt)
+    assert sharded.layout(ckpt) == "rows"
+    resumed = _driver(tmp_path, "c", "--steps", str(STEPS), "--ckpt-dir", str(ckpt), "--resume", ranks=1)
+    assert sorted(resumed) == [3]
+    np.testing.assert_allclose(resumed[3], want[2], rtol=0, atol=LOSS_ATOL)
+    assert sharded.layout(ckpt) == "rows"  # the run goes on in the layout it resumed
+    assert (ckpt / "step_0000000003" / "extra.safetensors").exists()
+
+
+def test_driver_resumes_a_one_device_checkpoint_over_two_ranks(runs, tmp_path):
+    want = runs["ranks"][0]["driver_losses"]
+    ckpt = tmp_path / "ckpt"
+    first = _driver(tmp_path, "d", "--steps", "2", "--ckpt-dir", str(ckpt), "--ckpt-every", "1", ranks=1)
+    assert sharded.layout(ckpt) == "tree"
+    resumed = _driver(tmp_path, "e", "--steps", str(STEPS), "--ckpt-dir", str(ckpt), "--resume")
+    assert sorted(first) == [1, 2] and sorted(resumed) == [3]
+    np.testing.assert_allclose([first[1], first[2], resumed[3]], want, rtol=0, atol=LOSS_ATOL)
+    assert sharded.layout(ckpt) == "rows"
 
 
 def test_driver_refuses_what_it_does_not_run_over_ranks():

@@ -270,7 +270,7 @@ def cells_ranks(rank: int, group, d: str) -> dict:
                     "tree": t_saver._flatten(cell.state_tree(state))})
             res[key] = steps
             spec = cell.engine.state_sharding_spec()
-            res["shard_spec"] = (spec.dim, spec.shards, state["sparse"]["dim16"]["idmap"].keys.shape[0])
+            res["shard_spec"] = (spec.shards, state["sparse"]["dim16"]["idmap"].keys.shape[0])
 
         cell = build_arch_cell(wide_deep_arch(), ShapeCell("serve_p99", "serve", {"batch": CELL_BATCH}),
                                device="cpu", group=group)
