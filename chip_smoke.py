@@ -4,8 +4,9 @@ a tiered store, and over two ranks that share the card), training the MSE
 ranking model of examples/train_mse.py (its step at full size, its main() with checkpoints
 and a resume), running the online-window example, serving and training
 Wide & Deep, SASRec and MIND, scoring 1,000,000 retrieval candidates for
-the four recsys archs, and serving the qwen2.5-3b prefill and training
-qwen2.5-3b, on one NVIDIA card, through its own CUDA kernels.
+the four recsys archs, training GIN (gin-tu) in its four shape cells (one
+of them edge-parallel over two ranks), and serving the qwen2.5-3b prefill
+and training qwen2.5-3b, on one NVIDIA card, through its own CUDA kernels.
 
     python3 chip_smoke.py [--save-inputs DIR]
 
@@ -121,7 +122,7 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 driver's sizes (published widths, vocab 50,000, batch
                 8,192): a row for each of the 1.3 M ids imported, the
                 Trainer with ft_mode="delta" and FTTrainerHooks from step
-                1,000 for 20 steps, a save every 2 (a base, 8 deltas, a
+                1,000 for 12 steps, a save every 2 (a base, 4 deltas, a
                 compaction base, the final save), one evict_to_host discard
                 of about 5% of the rows, half of them negative ids, a digest
                 of the sorted export at every save; every delta at <= 10%
@@ -170,6 +171,23 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 p50, the bytes of each all_to_all, peak memory a rank; over
                 NCCL (3 steps, one card a rank) only where there are two
                 cards;
+     gnn      — gin-tu: (a) the smoke model in the four shape cells
+                (minibatch_lg and ogb_products at cut scale) and molecule
+                with compress_grads, three steps on the card against the
+                CPU, FP32 and MIXED; (b) ogb_products (2,449,029 nodes,
+                61,859,140 edges), minibatch_lg, molecule and full_graph_sm
+                at published widths, 3 warm-up and 5 timed steps on one
+                repeated batch: p50, p99, peak memory, exactly 5 segment
+                sums and 5 gathers a step (10 and 10 in the graph task), the
+                loss falling; a torch.profiler trace of an ogb_products
+                step; (c) the segment sum and its gradient (the row gather)
+                on ogb_products' recorded inputs against their plain
+                versions, timed (path gnn_ogb); (d) ogb_products
+                edge-parallel over two gloo ranks sharing the card, FP32,
+                after step 1 against the one-rank run, all-reduce bytes and
+                ms a step, and molecule with compress_grads over the ranks
+                against one rank on the same global batch; (e) the train
+                driver with --arch gin-tu, checkpointed and resumed;
      lm train — full-width qwen2.5-3b train_4k (T 4,096, batch cut to 1)
                 from a fresh state on an emptied card: 2 warm-up and 5
                 timed steps with the kernels' launch counts, state and
@@ -187,7 +205,8 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
      and at D 128; the per-feature segment-sum pair, which no path calls
      since each dim group pools at once, on feature 0's slice of the
      group's inputs, and driven once at its op entry, counted as path
-     ``csr_op``), against its plain version, timed beside the plain
+     ``csr_op``; and its id form on the GIN aggregation's inputs, path
+     ``gnn_ogb``), against its plain version, timed beside the plain
      version, one PyTorch library call and the card's bound, by profiler
      events with a cold L2, and by the host clock around 200 calls with no
      synchronise (``host_us``: the wrapper's cost to its caller); the row
@@ -352,14 +371,14 @@ DRIVER_CRASH_STEPS, DRIVER_CRASH_AT = 12, 6
 TIER_ROWS, TIER_STEPS, TIER_MID_STEP, TIER_EVICT_AT = 524_288, 12, 6, 10
 # The delta checkpoints (delta_ckpt) at the train driver's sizes: a row for
 # each of the 26 x 50,000 ids the vocab gives (1.3 M rows: emb, m and v,
-# 2.0 GB), the Trainer from step 1,000 with a save every 2 steps over 20
-# steps (a base, 8 deltas, a compaction base at depth 8, the run's final
+# 2.0 GB), the Trainer from step 1,000 with a save every 2 steps over 12
+# steps (a base, 4 deltas, a compaction base past depth 4, the run's final
 # save), imported last uses in [0, 1,000) and one discard of the rows idle
 # since before step 64 after step 1,010; a crash at each persistence site
 # (4 frames a save: the 3rd frame of the 2nd save, a torn 3rd frame of the
 # 3rd, the 4th manifest, the 5th HEAD), each recovery landing on the save
 # before; a tiered engine of 262,144 device rows for 4 more steps
-DELTA_START, DELTA_STEPS, DELTA_EVERY, DELTA_EVICT_AT, DELTA_CUTOFF, DELTA_MAX_DEPTH = 1_000, 20, 2, 10, 64, 8
+DELTA_START, DELTA_STEPS, DELTA_EVERY, DELTA_EVICT_AT, DELTA_CUTOFF, DELTA_MAX_DEPTH = 1_000, 12, 2, 10, 64, 4
 DELTA_CHAOS = "crash@frame:7,torn@frame:14,crash@manifest:4,crash@head:5"
 DELTA_RECOVERED = [1_002, 1_004, 1_006, 1_008]
 DELTA_TIER_ROWS, DELTA_TIER_STEPS = 262_144, 4
@@ -1972,6 +1991,13 @@ def main() -> None:
         e["launches_by_path"]["multi_rank"] = mr_launches[e["name"]]
     torch.cuda.empty_cache()
 
+    # ------------ 4 the GNN family (gin-tu): smoke, published widths, two ranks
+    gnn_launches = gnn_phase(counts, reset_counts, phase, recorded, recorder, {e["name"]: e for e in entries}, dev,
+                             device_info)
+    for e in entries:
+        e["launches_by_path"]["gnn"] = gnn_launches[e["name"]]
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------ 4 full-width LM train
     torch.cuda.synchronize()
     start_bytes = torch.cuda.memory_allocated()  # what earlier phases still hold: near zero
@@ -2123,6 +2149,7 @@ def main() -> None:
         e["launches_by_path"]["lm_train"] = lm_launches[e["name"]]
         e["launches"] = sum(e["launches_by_path"].values())
     fwd_by_path = {"csr_op": csr_launches["flash_attention.flash_fwd"],
+                   "gnn": gnn_launches["flash_attention.flash_fwd"],
                    "delta_ckpt": delta_launches["flash_attention.flash_fwd"],
                    "recsys_models": recsys_launches["flash_attention.flash_fwd"],
                    "multi_rank": mr_launches["flash_attention.flash_fwd"],
@@ -2147,6 +2174,7 @@ def main() -> None:
         "library_call": "F.scaled_dot_product_attention(is_causal=True), kv expanded", "at": flash_at,
         "bf16_route": "tensor cores (wgmma, TMA)", **flash_build["flash_attention.flash_fwd"]})
     bwd_by_path = {"csr_op": csr_launches["flash_attention.flash_bwd"],
+                   "gnn": gnn_launches["flash_attention.flash_bwd"],
                    "delta_ckpt": delta_launches["flash_attention.flash_bwd"],
                    "recsys_models": recsys_launches["flash_attention.flash_bwd"],
                    "multi_rank": mr_launches["flash_attention.flash_bwd"],
@@ -2736,10 +2764,11 @@ def delta_ckpt_phase(counts, reset_counts, phase: dict, recorded: dict, recorder
                      batch: int, device_info: dict, tier_rows: int = DELTA_TIER_ROWS) -> dict:
     """Incremental checkpoints and crash recovery on the card at the train
     driver's sizes (dlrm-mlperf at published widths, ``arch``'s vocab):
-    (a) the Trainer with ``ft_mode="delta"`` and ``FTTrainerHooks`` over 20
-    steps from a state that holds a row for every id the vocab gives, a
-    save every 2 steps, a staleness discard through ``evict_to_host``
-    between steps 10 and 11, a digest of the sorted export at every save;
+    (a) the Trainer with ``ft_mode="delta"`` and ``FTTrainerHooks`` over
+    DELTA_STEPS steps from a state that holds a row for every id the vocab
+    gives, a save every 2 steps, a chain at most DELTA_MAX_DEPTH deltas
+    deep, a staleness discard through ``evict_to_host`` between steps 10
+    and 11, a digest of the sorted export at every save;
     (a') the same state 4 steps further on the device with no checkpoint;
     (b) the writer under one ``ChaosIO`` schedule that fires once at each
     persistence site, restarted from the chain after each crash; (c) (a)'s
@@ -2816,8 +2845,8 @@ def delta_ckpt_phase(counts, reset_counts, phase: dict, recorded: dict, recorder
 
     def trainer_for(c, directory, hooks, total, io=None):
         cfg = TrainConfig(total_steps=total, ckpt_dir=str(directory), ckpt_every=DELTA_EVERY, ft_mode="delta",
-                          log_every=1, watchdog=False, anomaly=False, evict_every=evict_at,
-                          evict_age_steps=evict_at - DELTA_CUTOFF, ft_io=io)
+                          ft_max_chain_depth=DELTA_MAX_DEPTH, log_every=1, watchdog=False, anomaly=False,
+                          evict_every=evict_at, evict_age_steps=evict_at - DELTA_CUTOFF, ft_io=io)
         return Trainer(c, cfg, hooks=hooks, evict_fn=evict_fn(c), registry=t_obs.MetricsRegistry())
 
     # a save's parts: the row read and the GC (which re-hashes the chain's frames)
@@ -3200,8 +3229,10 @@ def _without_engines(state: dict) -> dict:
 def _keep(a, whole: bool):
     """A copy with the same strides; tables over 2^28 elements are kept as
     they are unless ``whole`` (the scatter writes into its table)."""
-    if not torch.is_tensor(a) or (a.numel() >= (1 << 28) and not whole):
+    if not torch.is_tensor(a):
         return a
+    if a.numel() >= (1 << 28) and not whole:
+        return a.detach()
     return torch.empty_strided(a.shape, a.stride(), dtype=a.dtype, device=a.device).copy_(a.detach())
 
 
@@ -3604,6 +3635,7 @@ def recsys_models_phase(counts, reset_counts, phase: dict, recorded: dict, recor
 
 
 KERNEL_NAMES = {"gather_rows": "gather_rows_kernel", "segment_sum_csr": "segment_sum_sorted_kernel",
+                "segment_sum": "segment_sum_sorted_kernel",
                 "segment_expand_csr": "segment_expand_csr_kernel", "scatter_add_rows": "scatter_rows_kernel",
                 "scatter_set_rows": "scatter_rows_kernel", "segment_sum_csr_group": "segment_sum_group_kernel",
                 "segment_expand_csr_group": "segment_expand_group_kernel"}
@@ -3643,7 +3675,7 @@ def _measure(kname: str, real, plain, args: list, kw: dict, iters: int, dev) -> 
     else:
         got, want = real(*args, **kw), plain(*args)
         torch.cuda.synchronize()
-        if kname == "segment_sum_csr":
+        if kname in ("segment_sum_csr", "segment_sum"):
             ok = torch.allclose(got, want, rtol=1e-5, atol=1e-5)
             err = float((got - want).abs().max()) if got.numel() else 0.0
         else:  # copies: bit-equal, no difference tensor at these sizes
@@ -3659,6 +3691,17 @@ def _measure(kname: str, real, plain, args: list, kw: dict, iters: int, dev) -> 
             n_bytes = (n_distinct + K) * D * 4 + K * ids.element_size()
             shape = {"R": tab.shape[0], "D": D, "K": K, "ids": str(ids.dtype), "distinct_rows": n_distinct}
             lib = lambda: torch.index_select(tab, 0, idx)
+        elif kname == "segment_sum":  # the id form: (N, D) values, ascending int32 ids, S segments
+            vals, ids, S = args
+            N, D = vals.shape
+            ok_ids = (ids >= 0) & (ids < S)
+            live = int(ok_ids.sum())
+            n_bytes = (live * D + S * D) * 4 + N * ids.element_size()
+            n_ops = float(live * D)
+            shape = {"N": N, "live_rows": live, "D": D, "S": S, "ids": str(ids.dtype), "sorted": True}
+            idx = torch.where(ok_ids, ids, S).long()
+            del ok_ids
+            lib = lambda: torch.zeros((S + 1, D), device=dev).index_add_(0, idx, vals)  # noqa: E731
         elif kname == "segment_sum_csr":
             vals, splits = args
             N, D = vals.shape
@@ -4054,8 +4097,8 @@ def profile_requests(cell_name: str, run, batches) -> dict:
 # 4 the multi-rank exchange (two ranks on one card over gloo; NCCL where the
 # machine has two cards)
 # ---------------------------------------------------------------------------
-def _mr_rank(rank: int, world: int, backend: str, store: str, arch, q, n_warmup: int, n_steps: int,
-             full: bool) -> None:
+def _mr_rank(rank: int, world: int, backend: str, store: str, arch, n_warmup: int, n_steps: int,
+             full: bool, q) -> None:
     """One rank of the multi-rank phase (a spawned process): joins the
     group, runs ``_mr_run`` and reports its result, or its traceback."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -4076,35 +4119,8 @@ def _mr_rank(rank: int, world: int, backend: str, store: str, arch, q, n_warmup:
 def _mr_spawn(backend: str, store: Path, arch, n_warmup: int, n_steps: int, full: bool) -> list:
     """Run ``_mr_rank`` on MR_RANKS spawned processes; stop them all, and
     fail with the first failing rank's traceback."""
-    ctx = mp.get_context("spawn")
-    q = ctx.Queue()
-    procs = [ctx.Process(target=_mr_rank, args=(r, MR_RANKS, backend, str(store), arch, q, n_warmup,
-                                                n_steps, full)) for r in range(MR_RANKS)]
-    for p in procs:
-        p.start()
-    results, errors = {}, []
-    deadline = time.monotonic() + MR_TIMEOUT_S
-    try:
-        while len(results) < MR_RANKS and not errors:
-            try:
-                rank, ok, val = q.get(timeout=5)
-            except queue.Empty:  # a rank that died without a word, or the time is up
-                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
-                if dead or time.monotonic() > deadline:
-                    errors.append(f"ranks exited {dead}" if dead else f"no result in {MR_TIMEOUT_S} s")
-                continue
-            if ok:
-                results[rank] = val
-            else:
-                errors.append(f"rank {rank}:\n{val}")
-    finally:
-        for p in procs:
-            p.join(timeout=10 if errors else 120)
-            if p.is_alive():
-                p.kill()
-                p.join()
-    check(not errors and len(results) == MR_RANKS, "multi-rank: " + ("\n".join(errors) or "a rank never reported"))
-    return [results[r] for r in range(MR_RANKS)]
+    return _spawn_ranks(_mr_rank, MR_RANKS, (backend, str(store), arch, n_warmup, n_steps, full), MR_TIMEOUT_S,
+                        "multi-rank")
 
 
 def _to_host(a, whole: bool):
@@ -4112,9 +4128,47 @@ def _to_host(a, whole: bool):
     table over 2^28 elements stays where it is unless ``whole``."""
     if isinstance(a, (list, tuple)):
         return type(a)(_to_host(x, whole) for x in a)
-    if not torch.is_tensor(a) or (a.numel() >= (1 << 28) and not whole):
+    if not torch.is_tensor(a):
         return a
-    return a.detach().cpu()
+    return a.detach() if a.numel() >= (1 << 28) and not whole else a.detach().cpu()
+
+
+def _record_first(mod, name: str, whole: bool, on, recorded: dict, real: dict) -> None:
+    """Wraps ``mod.name`` (in a rank's process) so that, while ``on()``, it
+    keeps ``_to_host`` copies of its first call's inputs in
+    ``recorded[name]``; the function it wrapped goes into ``real[name]``."""
+    fn = real[name] = getattr(mod, name)
+
+    def wrapper(*args, **kw):
+        if on() and name not in recorded:
+            recorded[name] = ([_to_host(a, whole) for a in args], kw)
+        return fn(*args, **kw)
+    setattr(mod, name, wrapper)
+
+
+def _measure_in_turns(rank: int, group, plains: dict, recorded: dict, real: dict, iters: int, dev) -> dict:
+    """Each kernel of ``plains`` (name -> plain version) on this rank's
+    recorded inputs, held to its plain version and timed (``_measure``)
+    while the other ranks wait, the ranks in turn."""
+    import torch.distributed as dist
+
+    from repro_torch.core import comm
+
+    # a process's first profiler trace takes 11-13 s on the card: every
+    # rank takes its own at once, not in its turn
+    kernel_device_ms(lambda: None, "", iters=1, tries=1)
+    dist.barrier(group)
+    out = {}
+    for turn in range(comm.size(group)):
+        if turn == rank:
+            for name, plain in plains.items():
+                check(name in recorded, f"rank {rank}: no recorded {name} call")
+                args, kw = recorded.pop(name)
+                out[name] = _measure(name, real[name], plain, _to_dev(args, dev), kw, iters, dev)
+                del args
+                torch.cuda.empty_cache()
+        dist.barrier(group)
+    return out
 
 
 def _to_dev(a, dev):
@@ -4195,8 +4249,6 @@ def _mr_run(rank: int, group, dev, arch, n_warmup: int, n_steps: int, full: bool
     and timed on the inputs the last warm-up step gave it (the ranks in
     turn), and compressed_psum and the ZeRO-1 update on CUDA tensors
     against the CPU."""
-    import torch.distributed as dist
-
     from repro_torch.core import comm
     from repro_torch.kernels.fused_gather import ops as fg_ops, ref as fg_ref
     from repro_torch.kernels.fused_scatter import ops as fs_ops, ref as fs_ref
@@ -4224,19 +4276,9 @@ def _mr_run(rank: int, group, dev, arch, n_warmup: int, n_steps: int, full: bool
                ("segment_expand_csr_group", sr_ops, sr_ref, False), ("scatter_add_rows", fs_ops, fs_ref, True),
                ("scatter_set_rows", fs_ops, fs_ref, True))
     probe, recorded, real = {"on": False}, {}, {}
-
-    def keep_first(mod, name: str, whole: bool):
-        fn = real[name] = getattr(mod, name)
-
-        def wrapper(*args, **kw):
-            if probe["on"] and name not in recorded:
-                recorded[name] = ([_to_host(a, whole) for a in args], kw)
-            return fn(*args, **kw)
-        setattr(mod, name, wrapper)
-
     if full:
         for name, mod, _, whole in kernels:
-            keep_first(mod, name, whole)
+            _record_first(mod, name, whole, lambda: probe["on"], recorded, real)
     plain_a2a, a2a_s = comm.all_to_all, [0.0]
 
     def timed_a2a(x, grp):  # the host time of each all_to_all, the copies to and from the host included
@@ -4302,17 +4344,8 @@ def _mr_run(rank: int, group, dev, arch, n_warmup: int, n_steps: int, full: bool
 
     # each kernel on this rank's recorded inputs, held to its plain version
     # and timed while the other rank waits
-    res["kernels"] = {}
-    for turn in range(comm.size(group)):
-        if turn == rank:
-            for name, _, ref_mod, _ in kernels:
-                check(name in recorded, f"rank {rank}: no {name} call from step {n_warmup} on")
-                args, kw = recorded.pop(name)
-                res["kernels"][name] = _measure(name, real[name], getattr(ref_mod, name), _to_dev(args, dev),
-                                                kw, 20, dev)
-                del args
-                torch.cuda.empty_cache()
-        dist.barrier(group)
+    res["kernels"] = _measure_in_turns(rank, group, {name: getattr(ref_mod, name) for name, _, ref_mod, _ in kernels},
+                                       recorded, real, 20, dev)
 
     # compressed_psum and ZeRO-1 on CUDA tensors against the CPU
     gen = torch.Generator().manual_seed(SEED + 7 + rank)
@@ -4501,6 +4534,574 @@ def multi_rank_phase(arch, dev, device_info: dict, by_name: dict) -> dict:
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# 4 the GNN family (gin-tu): smoke cells card against CPU, the four shape
+# cells at published widths, the kernels at ogb_products' shapes, two gloo
+# ranks sharing the card, the train driver
+# ---------------------------------------------------------------------------
+# the scale of minibatch_lg and ogb_products cut, their widths kept (as
+# tests/test_torch_gnn.py); full_graph_sm and molecule as published
+GNN_SMOKE_SHAPES = {"full_graph_sm": {}, "minibatch_lg": {"batch_nodes": 16},
+                    "ogb_products": {"n_nodes": 4_000, "n_edges": 30_001}, "molecule": {}}
+GNN_SHAPE_NAMES = ("ogb_products", "minibatch_lg", "molecule", "full_graph_sm")
+GNN_WARMUP, GNN_STEPS, GNN_RANK_STEPS, GNN_SMOKE_STEPS = 3, 5, 2, 3
+GNN_LR = 1e-3
+GNN_MIXED_LOSS_ATOL = 1e-2  # about one bf16 ulp of a loss near 1.6 (tests/test_torch_gnn.py)
+# MIXED: the params' update after step 1 against the CPU's as a relative
+# norm (tests/test_torch_gnn.py::MIXED_UPDATE_RTOL: a skipped update is off
+# by 1, one of the wrong sign by 2)
+GNN_MIXED_UPDATE_RTOL = 0.5
+GNN_REL_TOL = 1e-4          # the ranks' update, m and v against the one-rank run's, after step 1
+GNN_TIMEOUT_S = 600.0
+GNN_RANKS = 2
+
+
+def _gnn_per_step(task: str) -> dict:
+    """Launches a GIN train step makes (5 layers): a segment sum a layer and
+    its gradient (the row gather), and in the graph task as many again for
+    the readout pooling."""
+    n = 5 * (2 if task == "graph" else 1)
+    return {"segment_reduce.segment_sum": n, "fused_gather.gather_rows": n}
+
+
+def _gnn_shape(arch, name: str, change: dict | None = None):
+    from repro_torch.configs.base import ShapeCell
+
+    s = arch.shape(name)
+    return ShapeCell(name, s.kind, {**s.params, **(change or {})})
+
+
+def _adam_atol(v: torch.Tensor, steps: int) -> torch.Tensor:
+    """Adam's per-element sensitivity to a gradient that moves by 1e-6 of
+    the leaf's largest (tests/test_torch_gnn.py::_adam_atol)."""
+    vhat = v.double() / (1 - 0.999 ** steps)
+    dg = 1e-6 * float(vhat.max().sqrt())
+    return torch.clamp(steps * GNN_LR * dg / (vhat.sqrt() + 1e-8), max=2 * GNN_LR * steps)
+
+
+def _gnn_state(st) -> dict:
+    """Host copies of a GIN train state's params and AdamW moments."""
+    return {"p": {k: v.detach().cpu().clone() for k, v in st["dense"].named_parameters()},
+            "m": {k: v.detach().cpu().clone() for k, v in st["opt"]["m"].items()},
+            "v": {k: v.detach().cpu().clone() for k, v in st["opt"]["v"].items()}}
+
+
+def _gnn_sha(params: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(k.encode())
+        h.update(params[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _gnn_smoke(dev) -> dict:
+    """(a) The smoke model (2 layers, d 16) in the four shape cells, and the
+    molecule cell with compress_grads, three steps on the card against the
+    CPU from the same params and batches: losses every step, params and
+    moments after the first step; FP32 within 1e-5 (params plus Adam's
+    sensitivity), MIXED within GNN_MIXED_LOSS_ATOL (losses), the params'
+    update within GNN_MIXED_UPDATE_RTOL as a relative norm and the moments
+    within 5e-2 of their largest magnitude."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import gnn_cell
+    from repro_torch.launch.cells import build_arch_cell
+    from repro_torch.launch.common import CellOptions
+    from repro_torch.models import layers
+
+    arch = get_config("gin-tu", smoke=True)
+    out = {}
+    for name, change in GNN_SMOKE_SHAPES.items():
+        for prec in ("fp32", "mixed"):
+            for compress in ((False, True) if name == "molecule" else (False,)):
+                gnn_cell.MIXED = layers.FP32 if prec == "fp32" else layers.MIXED
+                runs = []
+                try:
+                    for where in (dev, torch.device("cpu")):
+                        cell = build_arch_cell(arch, _gnn_shape(arch, name, change),
+                                               CellOptions(compress_grads=compress), device=where)
+                        st, losses = cell.init_state(), []
+                        p0 = _gnn_state(st)["p"]
+                        for s in range(GNN_SMOKE_STEPS):
+                            st, o = cell.step_fn(st, cell.make_batch(s))
+                            losses.append(float(o["loss"]))
+                            if s == 0:
+                                first = _gnn_state(st)
+                        runs.append((losses, first))
+                finally:
+                    gnn_cell.MIXED = layers.MIXED
+                (lc, fc), (lh, fh) = runs  # the card's, the CPU's
+                loss_err = max(abs(a - b) for a, b in zip(lc, lh))
+                excess = -float("inf")
+                for part in ("p", "m", "v") if prec == "fp32" else ("m", "v"):
+                    scale = max(float(t.abs().max()) for t in fh[part].values())
+                    for k, want in fh[part].items():
+                        if prec == "fp32":
+                            atol = 1e-5 * scale + (_adam_atol(fh["v"][k], 1) if part == "p" else 0.0)
+                        else:
+                            atol = 5e-2 * scale
+                        excess = max(excess, float(((fc[part][k] - want).abs().double() - atol).max()))
+                upd = _rel(torch.cat([fc["p"][k].reshape(-1) for k in sorted(p0)]),
+                           torch.cat([fh["p"][k].reshape(-1) for k in sorted(p0)]),
+                           torch.cat([p0[k].reshape(-1) for k in sorted(p0)]))
+                key = f"{name}-{prec}" + ("-compressed" if compress else "")
+                out[key] = {"loss_card": lc, "loss_cpu": lh, "loss_max_abs_err": loss_err,
+                            "state_step1_excess_over_tol": excess, "update_step1_rel_err": upd}
+                check(all(np.isfinite(lc)) and loss_err <= (1e-5 if prec == "fp32" else GNN_MIXED_LOSS_ATOL),
+                      f"gnn smoke {key}: losses card {lc} vs CPU {lh}")
+                check(excess <= 0.0 and (prec == "fp32" or upd <= GNN_MIXED_UPDATE_RTOL),
+                      f"gnn smoke {key}: state after step 1 off the CPU's by {excess} over its tolerance, "
+                      f"update {upd} relative")
+    return out
+
+
+def _gnn_train(arch, name: str, dev, counts, reset_counts, phase: dict | None = None,
+               profile: bool = False) -> tuple[dict, object, object]:
+    """(b) One shape cell at published widths from a fresh state (MIXED), on
+    one batch repeated (make_batch at these sizes is seconds of numpy):
+    GNN_WARMUP + GNN_STEPS steps, the launches of each held to the path's,
+    finite losses falling over the run, step p50 and p99 by the host clock
+    (synced), max_memory_allocated; with ``profile`` a torch.profiler trace
+    of one more step; with ``phase`` (main()'s) one more step run as phase
+    ``gnn_ogb``, whose recorders keep their first call's inputs. Returns
+    the line, the state and the batch."""
+    from repro_torch.launch.cells import build_arch_cell
+
+    t0 = time.perf_counter()
+    shape = arch.shape(name)
+    cell = build_arch_cell(arch, shape, device=dev)
+    st = cell.init_state()
+    batch = cell.make_batch(SEED)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    task = "graph" if shape.kind == "graph_batch" else "node"
+    want = _gnn_per_step(task)
+    losses, ms, per_step = [], [], []
+    for s in range(GNN_WARMUP + GNN_STEPS):
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st, o = cell.step_fn(st, batch)
+        torch.cuda.synchronize()
+        if s >= GNN_WARMUP:
+            ms.append((time.perf_counter() - t1) * 1e3)
+        per_step.append({k: v for k, v in counts().items() if v})
+        losses.append(float(o["loss"]))
+    launches = {k: sum(n.get(k, 0) for n in per_step) for k in counts()}
+    peak = torch.cuda.max_memory_allocated()
+    check(all(n == want for n in per_step), f"gnn {name}: launches a step {per_step}, expected {want}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"gnn {name}: losses {losses}")
+    line = {"phase": f"gnn_train_{name}", "arch": arch.arch_id, "shape": dict(shape.params), "task": task,
+            "precision": "mixed (bf16 MLPs, fp32 sums)", "warmup": GNN_WARMUP, "steps": GNN_STEPS,
+            "step_ms_p50": float(np.percentile(ms, 50)), "step_ms_p99": float(np.percentile(ms, 99)),
+            "step_ms": ms, "loss": losses, "batch_make_s": batch_s, "launches_per_step": per_step[-1],
+            "max_memory_allocated_bytes": peak, "state_and_batch_bytes": held}
+    if profile:
+        def run(b):
+            nonlocal st
+            st, _ = cell.step_fn(st, b)
+        reset_counts()
+        line["profile"] = profile_requests(f"gnn_{name}_train", run, [batch])
+        launches = {k: launches[k] + v for k, v in counts().items()}  # the trace's warm-up call and traced step
+    if phase is not None:
+        reset_counts()
+        phase["name"] = "gnn_ogb"
+        try:
+            st, _ = cell.step_fn(st, batch)
+            torch.cuda.synchronize()
+        finally:
+            phase["name"] = None
+        launches = {k: launches[k] + v for k, v in counts().items()}
+    line["launches"] = {k: v for k, v in launches.items() if v}
+    line["phase_s"] = time.perf_counter() - t0
+    return line, launches, (st, batch)
+
+
+def _gnn_rank(rank: int, world: int, store: str, q) -> None:
+    """One rank of the GNN phase's two-rank run (a spawned process): joins
+    the gloo group, runs ``_gnn_rank_run`` and reports its result, or its
+    traceback."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import mesh
+
+    try:
+        group = mesh.init_group("gloo", rank=rank, world_size=world, store_path=store)
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        q.put((rank, True, _gnn_rank_run(rank, group, dev)))
+    except BaseException:
+        q.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        mesh.close()
+
+
+def _gnn_rank_run(rank: int, group, dev) -> dict:
+    """This rank's part of ogb_products edge-parallel (its half of the
+    edges), FP32: the state after the first step, and the first segment sum
+    and gather of that step held to their plain versions and timed on their
+    inputs (the ranks in turn); then GNN_RANK_STEPS timed steps (the host
+    clock, synced) with each step's all-reduce bytes and ms (each
+    collective timed between two synchronises), launches and peak memory;
+    then the molecule cell with compress_grads for three steps, its local
+    batches kept for the one-rank run."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import comm
+    from repro_torch.kernels.fused_gather import ops as fg_ops, ref as fg_ref
+    from repro_torch.kernels.segment_reduce import ops as sr_ops, ref as sr_ref
+    from repro_torch.launch import gnn_cell
+    from repro_torch.launch.cells import build_arch_cell
+    from repro_torch.launch.common import CellOptions
+    from repro_torch.models import layers
+
+    arch = get_config("gin-tu")
+    gnn_cell.MIXED = layers.FP32
+    real_all_reduce, ar = comm.all_reduce, {"ms": 0.0, "calls": 0, "bytes": 0}
+
+    def timed_all_reduce(x, group, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_all_reduce(x, group, *a, **kw)
+        torch.cuda.synchronize()
+        ar["ms"] += (time.perf_counter() - t0) * 1e3
+        ar["calls"] += 1
+        ar["bytes"] += x.numel() * x.element_size()
+        return out
+
+    comm.all_reduce = timed_all_reduce
+    probe, recorded, real = {"on": True}, {}, {}
+    _record_first(sr_ops, "segment_sum", False, lambda: probe["on"], recorded, real)
+    _record_first(fg_ops, "gather_rows", False, lambda: probe["on"], recorded, real)
+    try:
+        cell = build_arch_cell(arch, arch.shape("ogb_products"), device=dev, group=group)
+        st = cell.init_state()
+        p0 = {k: v.detach().cpu().clone() for k, v in st["dense"].named_parameters()}
+        batch = cell.make_batch(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, per_step, ar_ms, ar_bytes, ar_calls, staged_bytes = [], [], [], [], [], [], []
+        for s in range(1 + GNN_RANK_STEPS):
+            reset_kernel_counts()
+            ar.update(ms=0.0, calls=0, bytes=0)
+            staged = comm.STAGED_BYTES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, o = cell.step_fn(st, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(o["loss"]))
+            per_step.append({k: v for k, v in kernel_counts().items() if v})
+            ar_ms.append(ar["ms"])
+            ar_calls.append(ar["calls"])
+            ar_bytes.append(ar["bytes"])
+            staged_bytes.append(comm.STAGED_BYTES - staged)  # to the host and back
+            if s == 0:
+                step1 = _gnn_state(st)
+                sha1 = _gnn_sha(st["dense"].state_dict())
+                probe["on"] = False
+                kernels = _measure_in_turns(rank, group, {"segment_sum": sr_ref.segment_sum,
+                                                          "gather_rows": fg_ref.gather_rows}, recorded, real, 5, dev)
+                torch.cuda.reset_peak_memory_stats()  # the timed steps' peak
+        out = {"rank": rank, "transport": comm.transport(group, dev), "loss": losses, "step_ms": ms[1:],
+               "step1": {part: {k: v.numpy() for k, v in d.items()} for part, d in step1.items()},
+               "p0": {k: v.numpy() for k, v in p0.items()}, "dense_sha256_step1": sha1,
+               "dense_sha256_final": _gnn_sha(st["dense"].state_dict()), "launches_per_step": per_step,
+               "all_reduce_ms_per_step": ar_ms[1:], "all_reduce_bytes_per_step": ar_bytes[1:],
+               "all_reduce_calls_per_step": ar_calls[1:], "staged_bytes_per_step": staged_bytes[1:],
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(), "kernels": kernels}
+        del st, batch, cell
+        torch.cuda.empty_cache()
+
+        cell = build_arch_cell(arch, arch.shape("molecule"), CellOptions(compress_grads=True), device=dev,
+                               group=group)
+        st, mol_loss, mol_batches = cell.init_state(), [], []
+        for s in range(GNN_SMOKE_STEPS):
+            b = cell.make_batch(SEED + s)
+            mol_batches.append({f: x.cpu().numpy() for f, x in b._asdict().items()})
+            st, o = cell.step_fn(st, b)
+            mol_loss.append(float(o["loss"]))
+        tree = cell.state_tree(st)
+        out.update(molecule_loss=mol_loss, molecule_batches=mol_batches,
+                   molecule_ef_shape=list(tree["ef"]["encoder"]["w"].shape),
+                   molecule_ef_max_abs=max(float(v.abs().max()) for v in st["ef"].values()),
+                   molecule_dense_sha256=_gnn_sha(st["dense"].state_dict()))
+        return out
+    finally:
+        comm.all_reduce = real_all_reduce
+        sr_ops.segment_sum, fg_ops.gather_rows = real["segment_sum"], real["gather_rows"]
+        gnn_cell.MIXED = layers.MIXED
+
+
+def _spawn_ranks(target, n: int, args: tuple, timeout: float, what: str) -> list:
+    """Run ``target(rank, n, *args, q)`` on n spawned processes; stop them
+    all, and fail with the first failing rank's traceback."""
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, n, *args, q)) for r in range(n)]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    deadline = time.monotonic() + timeout
+    try:
+        while len(results) < n and not errors:
+            try:
+                rank, ok, val = q.get(timeout=5)
+            except queue.Empty:  # a rank that died without a word, or the time is up
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if dead or time.monotonic() > deadline:
+                    errors.append(f"ranks exited {dead}" if dead else f"no result in {timeout} s")
+                continue
+            if ok:
+                results[rank] = val
+            else:
+                errors.append(f"rank {rank}:\n{val}")
+    finally:
+        for p in procs:
+            p.join(timeout=10 if errors else 120)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(not errors and len(results) == n, f"{what}: " + ("\n".join(errors) or "a rank never reported"))
+    return [results[r] for r in range(n)]
+
+
+def _gnn_driver(counts, reset_counts) -> tuple[dict, dict]:
+    """(e) The train driver (repro_torch.launch.train.run) with --arch gin-tu
+    at published widths (its molecule shape): 6 steps saving every 3, then
+    3 steps in a second directory and a resume there to 6; the resumed
+    steps' losses within 1e-5 of the uninterrupted run's (the scatter-add
+    backward of the message gather sums in any order), the checkpoint under
+    the reference's state names."""
+    from repro_torch.checkpoint import saver
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as t_train
+
+    out_dir = ROOT / "build" / "gnn_driver"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    arch = get_config("gin-tu")
+    p = t_train.build_parser()
+    base = ["--arch", "gin-tu", "--batch", "128", "--log-every", "1", "--ckpt-every", "3"]
+    t0 = time.perf_counter()
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        t_train.run(p.parse_args(base + ["--steps", "6", "--ckpt-dir", str(out_dir / "a"),
+                                         "--telemetry", str(out_dir / "a.jsonl")]), arch)
+        t_train.run(p.parse_args(base + ["--steps", "3", "--ckpt-dir", str(out_dir / "b")]), arch)
+        res, _ = t_train.run(p.parse_args(base + ["--steps", "6", "--ckpt-dir", str(out_dir / "b"), "--resume",
+                                                  "--telemetry", str(out_dir / "r.jsonl")]), arch)
+    torch.cuda.synchronize()
+    launches = counts()
+    a, r = _step_records(out_dir / "a.jsonl"), _step_records(out_dir / "r.jsonl")
+    la = [a[s]["metrics"]["loss"] for s in sorted(a)]
+    lr = [r[s]["metrics"]["loss"] for s in sorted(r)]
+    names = saver.leaf_names(out_dir / "a", 6)
+    check(sorted(a) == list(range(1, 7)) and sorted(r) == [4, 5, 6] and res.resumed_from == 3,
+          f"gnn driver steps {sorted(a)}, resumed {sorted(r)} from {res.resumed_from}")
+    check(all(np.isfinite(la)) and max(abs(x - y) for x, y in zip(lr, la[3:])) <= 1e-5,
+          f"gnn driver: resumed losses {lr} vs {la[3:]}")
+    check({"state/dense/layer4/eps", "state/opt/m/encoder/w", "state/dense/readout4/b"} <= names,
+          f"gnn driver checkpoint names {sorted(names)[:8]}")
+    per_step = _gnn_per_step("graph")
+    check(all(launches[k] == per_step[k] * 12 for k in per_step), f"gnn driver launches {launches}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"phase": "gnn_driver", "loss": la, "resumed_loss": lr,
+            "resumed_max_abs_err": max(abs(x - y) for x, y in zip(lr, la[3:])),
+            "launches": {k: v for k, v in launches.items() if v}, "phase_s": time.perf_counter() - t0}, launches
+
+
+def gnn_phase(counts, reset_counts, phase: dict, recorded: dict, recorder, by_name: dict, dev,
+              device_info: dict) -> dict:
+    """The GNN family on the card: (a) ``_gnn_smoke``; (b) the four shape
+    cells at published widths (``_gnn_train``; ogb_products with a profile
+    and its inputs recorded); (c) the segment sum and its gradient (the row
+    gather) on ogb_products' recorded inputs against their plain versions,
+    timed (path ``gnn_ogb``); (d) ogb_products edge-parallel over two gloo
+    ranks sharing the card in FP32, after step 1 against the one-rank run
+    (loss within 1e-5; the update, m and v within GNN_REL_TOL relative;
+    params bit-equal across the ranks), each rank's first segment sum and
+    gather of that step held to their plain versions and timed (paths
+    ``gnn_r0``, ``gnn_r1``), and the molecule cell with compress_grads on
+    the ranks against one rank on the same global batch; (e)
+    ``_gnn_driver``. Returns the launches of the phase (its ranks'
+    included)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.fused_gather import ops as fg_ops, ref as fg_ref
+    from repro_torch.kernels.segment_reduce import ops as sr_ops, ref as sr_ref
+    from repro_torch.launch import gnn_cell
+    from repro_torch.launch.cells import build_arch_cell
+    from repro_torch.launch.common import CellOptions
+    from repro_torch.models import layers
+    from repro_torch.models.gnn import GraphBatch
+
+    phase_t0 = time.perf_counter()
+    launches = dict.fromkeys(counts(), 0)
+    entry = {"segment_sum": "segment_reduce.segment_sum", "gather_rows": "fused_gather.gather_rows"}
+
+    def add(d):
+        for k, v in d.items():
+            launches[k] = launches.get(k, 0) + v
+
+    reset_counts()
+    smoke = _gnn_smoke(dev)
+    add(counts())
+    emit({"phase": "gnn_smoke", **device_info, "steps": GNN_SMOKE_STEPS, "cells": smoke,
+          "shapes": GNN_SMOKE_SHAPES, "phase_s": time.perf_counter() - phase_t0})
+
+    arch = get_config("gin-tu")
+    real = {"segment_sum": recorder(sr_ops, "segment_sum"), "gather_rows": recorder(fg_ops, "gather_rows")}
+    line, n, (st, ogb_batch) = _gnn_train(arch, "ogb_products", dev, counts, reset_counts, phase=phase,
+                                          profile=True)
+    sr_ops.segment_sum, fg_ops.gather_rows = real["segment_sum"], real["gather_rows"]  # no more records
+    add(n)
+    emit({**line, **device_info})
+    del st
+    torch.cuda.empty_cache()
+
+    # (c) the two kernels on ogb_products' recorded inputs
+    t0 = time.perf_counter()
+    at = {}
+    args, kw = recorded.pop(("segment_sum", "gnn_ogb"))
+    vals, ids, _ = args
+    check(vals.shape == (arch.shape("ogb_products")["n_edges"], arch.model.d_hidden) and ids.dtype == torch.int32
+          and kw == {"sorted_ids": True} and bool((ids[1:] >= ids[:-1]).all()),
+          f"gnn: recorded segment sum {tuple(vals.shape)} {ids.dtype} {kw}")
+    del vals, ids
+    at[entry["segment_sum"]] = _measure("segment_sum", real["segment_sum"], sr_ref.segment_sum, args, kw, 5, dev)
+    del args
+    torch.cuda.empty_cache()
+    args, kw = recorded.pop(("gather_rows", "gnn_ogb"))
+    at[entry["gather_rows"]] = _measure("gather_rows", real["gather_rows"], fg_ref.gather_rows, args, kw, 5, dev)
+    del args
+    torch.cuda.empty_cache()
+    for k, m in at.items():
+        _add_path(by_name[k], "gnn_ogb", m)
+    seg = by_name["segment_reduce.segment_sum"]  # on a path again: the GIN aggregation
+    seg["main_path"] = "gnn"
+    seg.pop("main_path_note", None)
+    m = at["segment_reduce.segment_sum"]
+    seg.update(ms=m["ms"], kernel_ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+               bound_by=m["bound_by"], kernel_device_ms=m["kernel_device_ms"], host_us=m["host_us"],
+               library_ms=m["library_ms"], library_call="zeros.index_add_")
+    kernels_s = time.perf_counter() - t0
+    for name in GNN_SHAPE_NAMES[1:]:
+        line, n, _ = _gnn_train(arch, name, dev, counts, reset_counts)
+        add(n)
+        emit({**line, **device_info})
+        torch.cuda.empty_cache()
+
+    # (d) one rank in this process, then two gloo ranks sharing the card, FP32
+    t0 = time.perf_counter()
+    gnn_cell.MIXED = layers.FP32
+    try:
+        one = build_arch_cell(arch, arch.shape("ogb_products"), device=dev)
+        st = one.init_state()
+        p0 = {k: v.detach().cpu().clone() for k, v in st["dense"].named_parameters()}
+        reset_counts()
+        st, o = one.step_fn(st, ogb_batch)
+        torch.cuda.synchronize()
+        add(counts())
+        one_loss, one1 = float(o["loss"]), _gnn_state(st)
+        del st, ogb_batch, one
+        torch.cuda.empty_cache()
+        mol = build_arch_cell(arch, arch.shape("molecule"), CellOptions(compress_grads=True), device=dev)
+    finally:
+        gnn_cell.MIXED = layers.MIXED
+    held = torch.cuda.memory_allocated()
+    check(held < (1 << 30), f"{held} bytes still allocated before the GNN ranks start")
+    out_dir = ROOT / "build" / "gnn_ranks"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    ranks = _spawn_ranks(_gnn_rank, GNN_RANKS, (str(out_dir / "store"),), GNN_TIMEOUT_S, "gnn ranks")
+    ranks_s = time.perf_counter() - t0
+
+    def rel(part: str, r: dict) -> float:
+        got = torch.cat([torch.from_numpy(r["step1"][part][k]).reshape(-1) for k in sorted(one1[part])])
+        want = torch.cat([one1[part][k].reshape(-1) for k in sorted(one1[part])])
+        return _rel(got, want, torch.cat([p0[k].reshape(-1) for k in sorted(p0)]) if part == "p" else 0.0)
+
+    after1 = []
+    for r in ranks:
+        check(r["transport"] == "gloo, host-staged", f"gnn rank {r['rank']}: transport {r['transport']}")
+        check(all(torch.equal(torch.from_numpy(r["p0"][k]), p0[k]) for k in p0),
+              f"gnn rank {r['rank']}: another initial state")
+        c = {"loss_abs_err": abs(r["loss"][0] - one_loss), "update_rel_err": rel("p", r),
+             "m_rel_err": rel("m", r), "v_rel_err": rel("v", r)}
+        after1.append(c)
+        check(c["loss_abs_err"] <= 1e-5 and all(c[k] <= GNN_REL_TOL for k in ("update_rel_err", "m_rel_err", "v_rel_err")),
+              f"gnn rank {r['rank']} after step 1 against one rank: {c}")
+        check(r["dense_sha256_step1"] == ranks[0]["dense_sha256_step1"]
+              and r["dense_sha256_final"] == ranks[0]["dense_sha256_final"]
+              and r["molecule_dense_sha256"] == ranks[0]["molecule_dense_sha256"], "the GNN ranks' params differ")
+        check(all(n == _gnn_per_step("node") for n in r["launches_per_step"]),
+              f"gnn rank {r['rank']}: launches a step {r['launches_per_step']}")
+        check(all(np.isfinite(r["loss"])) and r["molecule_ef_shape"][0] == GNN_RANKS
+              and r["molecule_ef_max_abs"] > 0, f"gnn rank {r['rank']}: {r['loss']}, ef {r['molecule_ef_shape']}")
+        add({k: sum(n.get(k, 0) for n in r["launches_per_step"]) for k in r["launches_per_step"][0]})
+        for k, m in r["kernels"].items():
+            _add_path(by_name[entry[k]], f"gnn_r{r['rank']}", m)
+
+    # the molecule cell with compress_grads on one rank, on the ranks' global
+    # batches (rank 1's node and graph ids shifted past rank 0's)
+    n_loc = ranks[0]["molecule_batches"][0]["feats"].shape[0]
+    g_loc = ranks[0]["molecule_batches"][0]["labels"].shape[0]
+    gnn_cell.MIXED = layers.FP32
+    mol_loss = []
+    try:
+        st = mol.init_state()
+        for s in range(GNN_SMOKE_STEPS):
+            parts = [r["molecule_batches"][s] for r in ranks]
+            shift = {"edge_src": n_loc, "edge_dst": n_loc, "node_graph": g_loc}
+            merged = GraphBatch(**{f: torch.from_numpy(np.concatenate(
+                [p[f] + i * shift[f] if f in shift else p[f] for i, p in enumerate(parts)])).to(dev)
+                for f in GraphBatch._fields})
+            reset_counts()
+            st, o = mol.step_fn(st, merged)
+            add(counts())
+            mol_loss.append(float(o["loss"]))
+    finally:
+        gnn_cell.MIXED = layers.MIXED
+    del st, mol
+    for r in ranks:
+        check(abs(r["molecule_loss"][0] - mol_loss[0]) <= 1e-5
+              and max(abs(a - b) for a, b in zip(r["molecule_loss"], mol_loss)) <= GNN_MIXED_LOSS_ATOL,
+              f"gnn rank {r['rank']} molecule compressed losses {r['molecule_loss']} vs one rank {mol_loss}")
+    emit({"phase": "gnn_ranks", **device_info, "ranks": GNN_RANKS,
+          "transport": "gloo, one card, host-staged (not NCCL, not NVLink)",
+          "precision": "fp32 (the cells' MIXED set to FP32, TF32 off), both runs",
+          "shape": "ogb_products", "reduced": {"devices": [256, GNN_RANKS]}, "one_rank_loss": one_loss,
+          "loss_by_rank": [r["loss"] for r in ranks], "after_step1_by_rank": after1, "rel_tol": GNN_REL_TOL,
+          "step_ms_p50_by_rank": [float(np.percentile(r["step_ms"], 50)) for r in ranks],
+          "step_ms_by_rank": [r["step_ms"] for r in ranks],
+          "all_reduce_ms_per_step_by_rank": [r["all_reduce_ms_per_step"] for r in ranks],
+          "all_reduce_bytes_per_step_by_rank": [r["all_reduce_bytes_per_step"] for r in ranks],
+          "all_reduce_calls_per_step_by_rank": [r["all_reduce_calls_per_step"] for r in ranks],
+          "staged_bytes_per_step_by_rank": [r["staged_bytes_per_step"] for r in ranks],
+          "max_memory_allocated_bytes_by_rank": [r["max_memory_allocated_bytes"] for r in ranks],
+          "launches_per_step_by_rank": [r["launches_per_step"][-1] for r in ranks],
+          "kernels_by_rank": [{k: {f: m[f] for f in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+                                                     "bound_ms", "bound_by", "kernel_device_ms")}
+                               for k, m in r["kernels"].items()} for r in ranks],
+          "molecule_compressed": {"one_rank_loss": mol_loss, "loss_by_rank": [r["molecule_loss"] for r in ranks],
+                                  "ef_shape": ranks[0]["molecule_ef_shape"], "later_atol": GNN_MIXED_LOSS_ATOL},
+          "ranks_s": ranks_s})
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    driver, n = _gnn_driver(counts, reset_counts)
+    add(n)
+    emit({**driver, **device_info})
+    emit({"phase": "gnn_kernels", **device_info, "path": "gnn_ogb",
+          "kernels": {k: {f: m[f] for f in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                                            "bound_by", "kernel_device_ms", "host_us", "bytes")}
+                      for k, m in at.items()},
+          "kernels_s": kernels_s, "phase_s": time.perf_counter() - phase_t0})
+    return launches
 
 def _tensors(tree):
     if torch.is_tensor(tree):

@@ -11,6 +11,7 @@ _MODULES = {
     "sasrec": "sasrec",
     "mind": "mind",
     "qwen2.5-3b": "qwen2_5_3b",
+    "gin-tu": "gin_tu",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -1,5 +1,5 @@
 """Config framework: architectures × input-shape cells (port of
-``repro/configs/base.py``, recsys and LM shapes)."""
+``repro/configs/base.py``: the recsys, LM and GNN shapes)."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,6 +10,7 @@ from typing import Any, Mapping
 class ShapeCell:
     name: str
     kind: str                      # train | serve | retrieval | prefill | decode
+                                   # | full_graph | minibatch | graph_batch
     params: Mapping[str, Any] = dataclasses.field(default_factory=dict)
 
     def __getitem__(self, k):
@@ -22,7 +23,7 @@ class ShapeCell:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     arch_id: str
-    family: str                    # recsys | lm
+    family: str                    # recsys | lm | gnn
     model: Any                     # family-specific model config
     shapes: tuple[ShapeCell, ...]
     source: str = ""
@@ -47,4 +48,16 @@ LM_SHAPES = (
     ShapeCell("prefill_32k", "prefill", {"seq_len": 32768, "global_batch": 32}),
     ShapeCell("decode_32k", "decode", {"seq_len": 32768, "global_batch": 128}),
     ShapeCell("long_500k", "decode", {"seq_len": 524288, "global_batch": 1, "long_context": True}),
+)
+
+GNN_SHAPES = (
+    ShapeCell("full_graph_sm", "full_graph",
+              {"n_nodes": 2708, "n_edges": 10556, "d_feat": 1433, "n_classes": 7}),
+    ShapeCell("minibatch_lg", "minibatch",
+              {"n_nodes": 232_965, "n_edges": 114_615_892, "batch_nodes": 1024,
+               "fanout": (15, 10), "d_feat": 602, "n_classes": 41}),
+    ShapeCell("ogb_products", "full_graph",
+              {"n_nodes": 2_449_029, "n_edges": 61_859_140, "d_feat": 100, "n_classes": 47}),
+    ShapeCell("molecule", "graph_batch",
+              {"n_nodes": 30, "n_edges": 64, "batch": 128, "d_feat": 16, "n_classes": 2}),
 )

@@ -10,6 +10,8 @@ transposed; every other parameter, such as a LayerNorm's ``scale`` and
 back. The AdamW moments ``{"m": tree, "v": tree}`` have the params' layout
 and convert the same way. The transformer's tree stacks every layer leaf
 on axis 0; ``transformer_from_numpy`` unstacks it into ``layers.{i}``.
+``gin_from_numpy`` turns the reference's GIN params into a state dict for
+``models/gnn.GIN``.
 
 Engine rows need no converter: the dict the reference's
 ``EmbeddingEngine.export_rows`` returns is what the port's ``import_rows``
@@ -39,6 +41,7 @@ import torch
 from torch import nn
 
 from repro_torch.core import blocks as blocks_lib, idmap as idmap_lib
+from repro_torch.models import gnn
 from repro_torch.models.transformer import TransformerConfig
 
 
@@ -53,7 +56,7 @@ def _linear(p: Mapping, name: str, d_in: int, d_out: int, bias: bool) -> dict[st
     return out
 
 
-def _tree_paths(model: nn.Module) -> dict[str, tuple[tuple[str, ...], bool]]:
+def tree_paths(model: nn.Module) -> dict[str, tuple[tuple[str, ...], bool]]:
     """Each parameter name of ``model`` → (its key path in the reference's
     dense tree, whether it is stored transposed). An ``nn.Linear``'s
     ``weight`` and ``bias`` are the reference's ``w`` (d_in, d_out) and
@@ -76,7 +79,7 @@ def params_to_tree(model: nn.Module, named: Mapping[str, torch.Tensor]) -> dict:
     """Tensors keyed by ``model``'s parameter names (its state dict, or
     AdamW moments keyed alike) → the reference's nested tree. The tensors
     stay where they are (``w`` is a transposed view)."""
-    paths = _tree_paths(model)
+    paths = tree_paths(model)
     out: dict = {}
     for name, x in named.items():
         path, transposed = paths[name]
@@ -100,7 +103,7 @@ def params_from_tree(model: nn.Module, tree: Mapping) -> dict[str, torch.Tensor]
     """The inverse of ``params_to_tree``: the reference's nested tree of
     numpy-convertible leaves → a state dict for ``model`` on the CPU, each
     shape checked. A leaf of ``tree`` that no parameter takes is an error."""
-    params, paths = dict(model.named_parameters()), _tree_paths(model)
+    params, paths = dict(model.named_parameters()), tree_paths(model)
     extra = sorted(set(_leaf_paths(tree)) - {path for path, _ in paths.values()})
     if extra:
         raise ValueError(f"leaves with no parameter of {type(model).__name__}: {['/'.join(p) for p in extra]}")
@@ -217,3 +220,10 @@ def transformer_from_numpy(tree: Mapping, cfg: TransformerConfig) -> dict[str, t
     out["final_norm.scale"] = torch.tensor(np.asarray(tree["final_norm"]["scale"], np.float32))
     out.update(_linear(tree["head"], "head", d, cfg.vocab_size, False))
     return out
+
+
+def gin_from_numpy(tree: Mapping, cfg: gnn.GINConfig) -> dict[str, torch.Tensor]:
+    """The reference's ``gnn.init`` params (numpy leaves: ``encoder``,
+    ``layer{l}/{mlp1, mlp2, eps}``, ``readout{l}``, ``head``) → a state
+    dict for ``gnn.GIN(cfg)``, each shape checked."""
+    return params_from_tree(gnn.GIN(cfg, device="meta"), tree)

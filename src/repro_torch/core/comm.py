@@ -1,6 +1,7 @@
 """Collectives over a ``torch.distributed`` group for the multi-rank paths:
 the exchange's two all_to_alls, the metric and gradient sums, the row
-gathers of a checkpoint.
+gathers of a checkpoint, and the pair of autograd functions of the
+edge-parallel GIN layer (``CopyToGroup``, ``AllReduceSum``).
 
 ``group=None`` is one device: no collective runs. With the ``gloo`` backend
 a CUDA tensor is staged explicitly through a pinned host buffer (gloo's
@@ -102,6 +103,15 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     return _from_host(torch.empty(out.shape, dtype=x.dtype, device=x.device), out) if staged else out
 
 
+def sum_flat(tensors, group) -> list[torch.Tensor]:
+    """Each tensor summed over the group (the dense gradients of a
+    data-parallel step): one all-reduce of them all, flattened in order."""
+    if group is None:
+        return list(tensors)
+    flat = all_reduce(torch.cat([t.reshape(-1) for t in tensors]), group)
+    return [x.view_as(t) for x, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
 def sum_metrics(metrics: Mapping[str, torch.Tensor], group) -> dict:
     """The reference's ``psum`` of a step's counters: one all-reduce of
     every counter, in sorted-name order on every rank, each keeping its
@@ -129,3 +139,33 @@ class AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         return all_to_all(g, ctx.group), None
+
+
+class AllReduceSum(torch.autograd.Function):
+    """The sum of every rank's partial ``x`` (an all-reduce) with the
+    identity as its backward: the function downstream is replicated, so
+    each rank already holds the whole gradient of the sum. The conjugate of
+    ``CopyToGroup``; together they make the edge-parallel GIN layer."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        return all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g, None
+
+
+class CopyToGroup(torch.autograd.Function):
+    """The identity on a replicated tensor that each rank then uses on its
+    own slice of the work; its backward all-reduces the gradient, the sum
+    of every rank's part of it."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return all_reduce(g.clone(memory_format=torch.contiguous_format), ctx.group), None

@@ -26,6 +26,10 @@ def build_arch_cell(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = Cell
         from repro_torch.launch import recsys_cell
 
         return recsys_cell.build(arch, shape, opts, device, group)
+    if arch.family == "gnn":
+        from repro_torch.launch import gnn_cell
+
+        return gnn_cell.build(arch, shape, opts, device, group)
     if group is not None:
         raise NotImplementedError(f"the {arch.family} family runs on one device only "
                                   "(its multi-rank cells are ROADMAP A7)")

@@ -26,6 +26,9 @@ class CellOptions:
     # the device tier's rows per shard when storage is on (the cache size);
     # None keeps the arch-derived all-device sizing
     storage_device_rows: int | None = None
+    # the GNN data-parallel cells' gradient sum as int8 with error feedback
+    # (optim/adamw.compressed_psum, one residual a rank); also on one device
+    compress_grads: bool = False
 
 
 @dataclasses.dataclass

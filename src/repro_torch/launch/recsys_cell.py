@@ -94,15 +94,28 @@ def _cand_specs(arch_id: str, model_cfg) -> list[FeatureSpec]:
                         pooling="values", shared_table="items")]
 
 
+# Whether a dim group is sized for every table of its dim. The reference
+# keys the tables by dim, so Wide & Deep with embed_dim == wide_dim sizes its
+# one group for one of its two tables (ROADMAP C7); the parity tests set
+# this False to size the groups as the reference does.
+SUM_TABLES_OF_A_DIM = True
+
+
 def _rows_per_dim(arch: ArchConfig) -> dict[int, int]:
-    """Global row capacity per dim-group (table sizes from the arch)."""
+    """Global row capacity per dim-group (table sizes from the arch): the
+    rows of every table of the group's dim."""
     m = arch.model
     if arch.arch_id == "dlrm-mlperf":
-        return {m.embed_dim: m.n_sparse * m.vocab_per_feature}
-    if arch.arch_id == "wide-deep":
-        return {m.embed_dim: m.n_sparse * m.vocab_per_feature,
-                m.wide_dim: m.n_sparse * m.vocab_per_feature}
-    return {m.embed_dim: m.vocab}  # sasrec, mind: one shared item table
+        tables = [(m.embed_dim, m.n_sparse * m.vocab_per_feature)]
+    elif arch.arch_id == "wide-deep":
+        tables = [(m.embed_dim, m.n_sparse * m.vocab_per_feature),
+                  (m.wide_dim, m.n_sparse * m.vocab_per_feature)]
+    else:
+        tables = [(m.embed_dim, m.vocab)]  # sasrec, mind: one shared item table
+    out: dict[int, int] = {}
+    for dim, rows in tables:
+        out[dim] = out.get(dim, 0) + rows if SUM_TABLES_OF_A_DIM else rows
+    return out
 
 
 @dataclasses.dataclass
@@ -244,7 +257,7 @@ def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
         loss = _loss_share(model, state["dense"], mcfg, acts, dense_fn(batch), group)
         grads = torch.autograd.grad(loss, [*params.values(), *rows_r.values()])
         del acts
-        gdense = _sum_grads(grads[:len(params)], group)
+        gdense = comm.sum_flat(grads[:len(params)], group)
         if group is not None:
             loss = comm.all_reduce(loss.detach().clone(), group)
         opt = adamw.update(acfg, params, dict(zip(params, gdense)), state["opt"], step)
@@ -279,15 +292,6 @@ def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
         cell.storage_hooks = StorageTrainerHooks(
             pl.engine, lambda batch: pl.prepared(on_device(batch))[0], state_key="sparse")
     return cell
-
-
-def _sum_grads(grads, group) -> list[torch.Tensor]:
-    """The dense gradients summed over the group: one all-reduce of them
-    all, flattened in parameter order."""
-    if group is None:
-        return list(grads)
-    flat = comm.all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
-    return [x.view_as(g) for x, g in zip(flat.split([g.numel() for g in grads]), grads)]
 
 
 def dense_state_tree(state) -> dict:

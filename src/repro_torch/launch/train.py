@@ -32,6 +32,12 @@ frames on a manifest chain: a tiered cell marks its dirty rows through its
 engine, and a chaos schedule's frame, manifest and head events fire in the
 checkpointer's ``ChaosIO``.
 
+``--arch gin-tu`` trains the GIN cell of ``--shape`` (default ``molecule``
+at the smoke sizes of ``smoke_shape``, the reference's) on its
+``make_batch`` graphs; checkpoints hold its state tree (the reference's
+layout), and over several ranks each rank takes its slice of every global
+batch (``launch/gnn_cell.py``).
+
 Over several ranks (a recsys arch on synthetic batches), under torchrun:
 each rank takes its slice of every global batch and holds one shard of
 every table (``launch/recsys_cell.py``); ``--dist-backend`` names the
@@ -45,7 +51,7 @@ and goes on in that layout; ranks resuming a one-device checkpoint export
 its rows from its state tree (each rank holds the whole table once for
 that). ``--data-dir``, ``--autoscale``,
 ``--ckpt-mode delta`` and the LM archs are refused there, as the reference
-refuses ``--data-dir`` on more than one device.
+refuses ``--data-dir`` on more than one device; ``gin-tu`` runs there too.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf \\
@@ -209,7 +215,7 @@ def _refuse_multi_rank(args, arch) -> None:
     """What the multi-rank driver does not run (ROADMAP A6b)."""
     refused = {"--data-dir": args.data_dir, "--autoscale": args.autoscale,
                "--ckpt-mode delta": args.ckpt_mode == "delta",
-               f"the {arch.family} family": arch.family != "recsys"}
+               f"the {arch.family} family": arch.family not in ("recsys", "gnn")}
     bad = [k for k, v in refused.items() if v]
     if bad:
         raise ValueError(f"not run over several ranks: {', '.join(bad)}")
@@ -246,6 +252,8 @@ def run(args: argparse.Namespace, arch):
         raise ValueError("--ckpt-mode delta requires --ckpt-dir")
     if args.data_dir and arch.family != "recsys":
         raise ValueError("--data-dir is a recsys-family data path")
+    if args.ckpt_mode == "delta" and arch.family != "recsys":
+        raise ValueError("--ckpt-mode delta writes engine rows: a recsys-family checkpoint")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         _refuse_multi_rank(args, arch)
         group = mesh.init_group(args.dist_backend)

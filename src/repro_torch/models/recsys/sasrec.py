@@ -90,11 +90,15 @@ class SASRec(nn.Module):
         return self.final_ln(x)
 
     def user_repr(self, acts: dict, prec: Precision = MIXED) -> torch.Tensor:
-        """(B, d): the hidden state at the last valid position."""
+        """(B, d): the hidden state at the last valid position, position 0
+        for an empty history. The reference reads position count(mask) - 1,
+        which is masked when an id before the last has no row (ROADMAP C6);
+        where the mask is a prefix the two are the same position."""
         hist = acts["hist_items"]
         mask = torch.any(hist != 0.0, dim=-1)
         h = self.encode(hist, mask, prec)
-        last = (mask.sum(-1) - 1).clamp(min=0)
+        pos = torch.arange(mask.shape[1], device=mask.device)
+        last = torch.argmax(pos * mask, dim=-1)
         return h[torch.arange(h.shape[0], device=h.device), last]
 
     def forward(self, acts: dict, dense: dict, prec: Precision = MIXED) -> torch.Tensor:

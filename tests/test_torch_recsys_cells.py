@@ -117,6 +117,7 @@ def _cells(key: str, kind: str):
 def _run(key: str, prec: str) -> dict:
     """Serve three requests and train three steps in both packages."""
     mp = pytest.MonkeyPatch()
+    mp.setattr(t_recsys, "SUM_TABLES_OF_A_DIM", False)  # the reference's group sizes (ROADMAP C7)
     if prec == "fp32":
         mp.setattr(j_recsys, "MIXED", j_layers.FP32)
         mp.setattr(t_recsys, "MIXED", t_layers.FP32)
@@ -134,6 +135,7 @@ def _run(key: str, prec: str) -> dict:
         tstate["sparse"] = tcell.engine.import_rows(rows)
         tstate["dense"].load_state_dict(params_from_tree(tstate["dense"], jax.tree.map(np.asarray, jstate["dense"])))
         out["serve_t"] = [tcell.step_fn(tstate, _t_batch(jcell.make_batch(s))) for s in SEEDS]
+        out["serve_rows"], out["serve_jcell"] = rows, jcell
 
         jcell, tcell = _cells(key, "train")
         rows = _rows(jcell, range(STEPS), 0.1, moments=True)
@@ -184,13 +186,43 @@ def test_groups(runs):
     assert len(groups) == (2 if key == "wide-deep-2g" else 1)
 
 
+def _history_masks(r, seed: int) -> np.ndarray:
+    """SASRec's serve history mask (BATCH, T) of one request: the positions
+    whose id has a row (every 7th id has none: a zero row at serve)."""
+    jcell, rows = r["serve_jcell"], r["serve_rows"]
+    key = next(iter(jcell.engine.groups))
+    t = jcell.arch.model.seq_len
+    eng = np.asarray(jcell.engine.engine_ids(jcell.ids_fn(jcell.make_batch(seed)))[key])
+    return np.isin(eng[:BATCH * t], rows[key]["ids"]).reshape(BATCH, t)  # hist_items come first in the group
+
+
 def test_serve_metrics_equal_and_outputs_agree(runs):
-    _, prec, r = runs
-    for jo, to in zip(r["serve_j"], r["serve_t"]):
+    """Every output agrees with the reference's, but SASRec's rows whose
+    history mask is not a prefix (ROADMAP C6, repaired in the port): there
+    the reference reads position count(mask) - 1, and where that position
+    is masked its logit is 0; the port reads the last valid position, a
+    non-zero logit."""
+    key, prec, r = runs
+    c6 = 0
+    for seed, jo, to in zip(SEEDS, r["serve_j"], r["serve_t"]):
         assert {k: int(v) for k, v in to.items() if k != "logits"} == \
                {k: int(v) for k, v in jo.items() if k != "logits"}
         assert to["logits"].shape == (BATCH,) and to["logits"].dtype == torch.float32
-        _close(prec, "out", {"logits": to["logits"].numpy()}, {"logits": jo["logits"]}, "serve")
+        same = np.ones(BATCH, bool)
+        if key == "sasrec":
+            mask = _history_masks(r, seed)
+            count = mask.sum(1)
+            same = np.array([m[:c].all() for m, c in zip(mask, count)])  # prefix masks: one position read
+            read_masked = ~mask[np.arange(BATCH), np.maximum(count - 1, 0)]
+            assert not np.asarray(jo["logits"])[read_masked].any()  # the reference: a zero user vector
+            c6_rows = read_masked & (count > 0)  # an empty history reads a zero vector in both
+            # the port reads the last valid position: non-zero logits, but
+            # where the target item has no row either
+            assert c6_rows.sum() == 0 or to["logits"].numpy()[c6_rows].any()
+            c6 += int(c6_rows.sum())
+        _close(prec, "out", {"logits": to["logits"].numpy()[same]}, {"logits": np.asarray(jo["logits"])[same]},
+               "serve")
+    assert key != "sasrec" or c6 > 0
     assert np.unique(np.concatenate([o["logits"].numpy() for o in r["serve_t"]])).size > BATCH
 
 
@@ -243,6 +275,7 @@ def test_train_checkpoint_crosses_packages(key, tmp_path):
     mp = pytest.MonkeyPatch()
     mp.setattr(j_recsys, "MIXED", j_layers.FP32)
     mp.setattr(t_recsys, "MIXED", t_layers.FP32)
+    mp.setattr(t_recsys, "SUM_TABLES_OF_A_DIM", False)  # the reference's group sizes (ROADMAP C7)
     try:
         jcell, tcell = _cells(key, "train")
         with jcell.mesh:
@@ -280,3 +313,37 @@ def test_train_checkpoint_crosses_packages(key, tmp_path):
     for k, v in back.items():
         np.testing.assert_array_equal(v, np.asarray(tflat[k]), err_msg=k)
     assert float(np.abs(back["dense/bias"] if key == "wide-deep-2g" else back["dense/pos_emb"]).max()) > 0
+
+
+def test_c7_one_group_of_two_tables_is_sized_for_both():
+    """ROADMAP C7, repaired in the port. The Wide & Deep smoke config has
+    embed_dim = wide_dim = 8, so its deep and wide tables share one dim
+    group. The reference sizes that group for one table (n_sparse *
+    vocab_per_feature rows, times 1.5); the port for both, twice the
+    reference's rows before rounding. ``SUM_TABLES_OF_A_DIM = False`` gives
+    the reference's sizing (the other tests of this file run so)."""
+    ja, ta = _archs("wide-deep")
+    m = ta.model
+    assert m.embed_dim == m.wide_dim == 8
+    one_table = m.n_sparse * m.vocab_per_feature
+
+    def rows(n):
+        return max(-(-int(n * 1.5) // 128) * 128, 1024)
+
+    shape = ("train_batch", "train", {"batch": BATCH})
+    jcell = j_recsys.build(ja, JShape(*shape), make_test_mesh(), JOpts(remat=False, zero1=False))
+    tcell = t_recsys.build(ta, TShape(*shape), device="cpu")
+    (jg,), (tg,) = jcell.engine.groups.values(), tcell.engine.groups.values()
+    assert jg.rows_per_shard == rows(one_table)
+    assert tg.rows_per_shard == rows(2 * one_table)
+    assert tg.map_capacity_per_shard == 2 * tg.rows_per_shard
+    mp = pytest.MonkeyPatch()
+    mp.setattr(t_recsys, "SUM_TABLES_OF_A_DIM", False)
+    try:
+        (ref_sized,) = t_recsys.build(ta, TShape(*shape), device="cpu").engine.groups.values()
+    finally:
+        mp.undo()
+    assert (ref_sized.rows_per_shard, ref_sized.map_capacity_per_shard) == (jg.rows_per_shard,
+                                                                          jg.map_capacity_per_shard)
+    two_groups = t_recsys._rows_per_dim(_archs("wide-deep-2g")[1])
+    assert two_groups == {16: one_table, 8: one_table}  # separate dims: one table a group, as before

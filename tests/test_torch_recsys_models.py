@@ -104,7 +104,11 @@ def test_apply_and_loss_agree(arch, prec):
     tl = tm.apply(model, cfg, _t(acts), _t(dense), tp)
     assert tl.dtype == torch.float32 and tl.shape == (B,)
     assert bool(torch.isfinite(tl).all())
-    np.testing.assert_allclose(tl.detach().numpy(), np.asarray(jl), **tol)
+    # SASRec's row 0 misses its first id: its mask is no prefix, where the
+    # port reads another position than the reference (ROADMAP C6; held in
+    # test_sasrec_user_repr_reads_the_last_valid_position)
+    rows = slice(1, None) if arch == "sasrec" else slice(None)
+    np.testing.assert_allclose(tl.detach().numpy()[rows], np.asarray(jl)[rows], **tol)
     jv = jm.loss(params, jcfg, _j(acts), _j(dense), jp)
     tv = tm.loss(model, cfg, _t(acts), _t(dense), tp)
     np.testing.assert_allclose(tv.item(), float(jv), **tol)
@@ -159,6 +163,34 @@ def test_sasrec_masked_positions_give_no_nan():
     np.testing.assert_allclose(h.detach().numpy(), np.asarray(jh), **FP32_TOL)
     u = model.user_repr(_t(acts), t_layers.FP32)
     assert bool(torch.isfinite(u).all())
+
+
+def test_sasrec_user_repr_reads_the_last_valid_position():
+    """ROADMAP C6, repaired in the port. Row 0's history of 8 has no row for
+    its 7th id (mask 1111_1101): the reference reads position
+    count(mask) - 1 = 6, a masked one, so its user vector is
+    final_ln(0) = 0; the port reads position 7, the last valid one. Row 1's
+    mask is a prefix (1111_1000): both read position 4, and the port's
+    vector is bit for bit its hidden state there, as before the repair."""
+    jm, tm, jcfg, cfg, params, model = _models("sasrec")
+    assert cfg.seq_len == 8
+    acts, _ = _acts("sasrec", cfg, 2, seed=7)
+    hist = acts["hist_items"]
+    hist[:] = np.random.default_rng(8).normal(scale=0.5, size=hist.shape).astype(np.float32)
+    hist[0, 6] = 0.0
+    hist[1, 5:] = 0.0
+    mask = np.any(hist != 0.0, axis=-1)
+    assert mask[0].tolist() == [1, 1, 1, 1, 1, 1, 0, 1] and mask[1].tolist() == [1] * 5 + [0] * 3
+    jh = np.asarray(j_sasrec.encode(params, jcfg, jnp.asarray(hist), jnp.asarray(mask), j_layers.FP32))
+    ju = np.asarray(j_sasrec.user_repr(params, jcfg, _j(acts), j_layers.FP32))
+    tu = model.user_repr(_t(acts), t_layers.FP32).detach().numpy()
+    th = model.encode(torch.from_numpy(hist), torch.from_numpy(mask), t_layers.FP32).detach().numpy()
+    np.testing.assert_array_equal(ju[0], jh[0, 6])                     # the reference: position 6
+    assert not ju[0].any()                                             # ... a zero user vector
+    np.testing.assert_allclose(tu[0], jh[0, 7], **FP32_TOL)            # the port: position 7
+    assert np.abs(tu[0]).max() > 0.1
+    np.testing.assert_array_equal(tu[1], th[1, 4])                     # a prefix: position 4 in both
+    np.testing.assert_allclose(tu[1], ju[1], **FP32_TOL)
 
 
 @pytest.mark.parametrize("shape", [(4, 50), (2, 8), (3, 7), (5, 123)])

@@ -334,3 +334,80 @@ def cuda_train_ranks(rank: int, group, batch: int, steps: int) -> dict:
         losses.append(float(o["loss"]))
     return {"losses": losses, "launches": launches, "rows": cell.engine.export_rows(state["sparse"]),
             "staged_bytes": comm.STAGED_BYTES - staged, "transport": comm.transport(group, dev)}
+
+
+# ---------------------------------------------------------------- the GNN cells
+GNN_STEPS = 3
+# (case, shape name, kind, params, compress_grads, ranks): the edge-parallel
+# full graph at ogb_products' widths (scale cut, E odd so that it is padded
+# to D), the minibatch cell, and the molecule cell with compressed sums
+GNN_CASES = [
+    ("ogb_d2", "ogb_products", "full_graph",
+     {"n_nodes": 4_000, "n_edges": 30_001, "d_feat": 100, "n_classes": 47}, False, 2),
+    ("ogb_d3", "ogb_products", "full_graph",
+     {"n_nodes": 4_000, "n_edges": 30_001, "d_feat": 100, "n_classes": 47}, False, 3),
+    ("minibatch_d2", "minibatch_lg", "minibatch",
+     {"n_nodes": 232_965, "n_edges": 114_615_892, "batch_nodes": 16, "fanout": (15, 10), "d_feat": 602,
+      "n_classes": 41}, False, 2),
+    ("molecule_d2_compressed", "molecule", "graph_batch",
+     {"n_nodes": 30, "n_edges": 64, "batch": 128, "d_feat": 16, "n_classes": 2}, True, 2),
+]
+
+
+def _flat_np(tree, prefix: str = "") -> dict:
+    """A state tree's leaves as numpy copies under "a/b/c" keys."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_np(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: np.array(tree.detach().cpu() if torch.is_tensor(tree) else tree)}
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for k, v in flat.items():
+        *path, leaf = k.split("/")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def gnn_ranks(rank: int, group, d: str) -> dict:
+    """The GIN smoke cells of GNN_CASES with this group's size, FP32, from
+    the reference's initial params (``d/gnn_init_<case>.npz``), GNN_STEPS
+    steps on the reference's batches: the losses, and the state tree after
+    the first and the last step (the residuals all-gathered over the ranks)."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import gnn_cell
+    from repro_torch.launch.cells import build_arch_cell
+    from repro_torch.launch.common import CellOptions
+    from repro_torch.models import layers
+
+    d = pathlib.Path(d)
+    res = {}
+    gnn_cell.MIXED = layers.FP32
+    try:
+        for case, name, kind, params, compress, n_ranks in GNN_CASES:
+            if n_ranks != comm.size(group):
+                continue
+            cell = build_arch_cell(get_config("gin-tu", smoke=True), ShapeCell(name, kind, params),
+                                   CellOptions(compress_grads=compress), device="cpu", group=group)
+            state = cell.init_state()
+            init = _nest(dict(np.load(d / f"gnn_init_{case}.npz")))
+            state["dense"].load_state_dict(convert.params_from_tree(state["dense"], init))
+            out = {"loss": [], "rank_shard": {f: _np(x) for f, x in cell.make_batch(0)._asdict().items()}}
+            for s in range(GNN_STEPS):
+                state, o = cell.step_fn(state, cell.make_batch(s))
+                out["loss"].append(float(o["loss"]))
+                if s == 0:
+                    out["step1"] = _flat_np(cell.state_tree(state))
+            out["final"] = _flat_np(cell.state_tree(state))
+            res[case] = out
+    finally:
+        gnn_cell.MIXED = layers.MIXED
+    return res
