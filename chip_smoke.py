@@ -5,8 +5,10 @@ ranking model of examples/train_mse.py (its step at full size, its main() with c
 and a resume), running the online-window example, serving and training
 Wide & Deep, SASRec and MIND, scoring 1,000,000 retrieval candidates for
 the four recsys archs, training GIN (gin-tu) in its four shape cells (one
-of them edge-parallel over two ranks), and serving the qwen2.5-3b prefill
-and training qwen2.5-3b, on one NVIDIA card, through its own CUDA kernels.
+of them edge-parallel over two ranks), serving the qwen2.5-3b prefill and
+its decode (decode_32k, and long_500k also sequence-sharded over two
+ranks), and training qwen2.5-3b, on one NVIDIA card, through its own CUDA
+kernels.
 
     python3 chip_smoke.py [--save-inputs DIR]
 
@@ -196,6 +198,25 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 step, three steps on one repeated batch (the loss falls);
                 then the scatter on its D-2,048 inputs and the fp32 flash
                 kernels at T 1,024, H 16, Hk 2, hd 128 are measured;
+     decode   — (before the LM train) qwen2.5-3b decode: the smoke
+                decode_32k (S 128, B 4) and long_500k (S 256, B 1) cells,
+                three steps each on the card against the CPU; at published
+                widths decode_32k (S 32,768, batch cut to 32) three steps
+                from the cell's fresh state, then rows for every token
+                imported, a prefill of 2,048 tokens whose cache a decode
+                cell takes, its decode of token 2,048 held to the last
+                logits of a 2,049-token prefill; decode_32k timed from a
+                cache filled with seeded bf16 values (3 warm-up and 10
+                timed steps from position S - 16, a torch.profiler trace,
+                the cache unchanged where no step wrote); long_500k (S
+                524,288, batch 1) the same; long_500k over two gloo ranks
+                sharing the card (spawned at the phase's start, 262,144
+                positions each, reading the parent's weights on the card
+                through CUDA IPC), three steps held to the one-rank run's
+                (logits, the written rows, each slice unchanged elsewhere),
+                five more timed with their 109 all-reduces; the row gather
+                on each path's first call against its plain version, timed
+                (paths decode_32k, long_500k, decode_r0, decode_r1);
   5. a ``{"kernels": [...]}`` line: each kernel on the exact inputs the
      serve, train, prefill, MSE train and LM train paths fed it (and the
      bucketize kernel at the operator benchmark's shape too, with
@@ -1991,11 +2012,29 @@ def main() -> None:
         e["launches_by_path"]["multi_rank"] = mr_launches[e["name"]]
     torch.cuda.empty_cache()
 
+    # the decode phase's seed-0 qwen2.5-3b weights, drawn on the host while
+    # the GNN phase runs (the draw takes 30-45 s)
+    import threading
+
+    drawn: dict = {}
+    draw = threading.Thread(target=_draw_lm_weights, args=(drawn,), daemon=True)
+    draw.start()
+
     # ------------ 4 the GNN family (gin-tu): smoke, published widths, two ranks
     gnn_launches = gnn_phase(counts, reset_counts, phase, recorded, recorder, {e["name"]: e for e in entries}, dev,
                              device_info)
     for e in entries:
         e["launches_by_path"]["gnn"] = gnn_launches[e["name"]]
+    torch.cuda.empty_cache()
+
+    # ------------- 4 LM decode (qwen2.5-3b decode_32k and long_500k), two ranks
+    draw.join()
+    if "error" in drawn:
+        raise drawn["error"]
+    dec_launches = decode_phase(counts, reset_counts, phase, recorded, recorder, {e["name"]: e for e in entries},
+                                dev, device_info, drawn.pop("model"))
+    for e in entries:
+        e["launches_by_path"]["decode"] = dec_launches[e["name"]]
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ 4 full-width LM train
@@ -2150,6 +2189,7 @@ def main() -> None:
         e["launches"] = sum(e["launches_by_path"].values())
     fwd_by_path = {"csr_op": csr_launches["flash_attention.flash_fwd"],
                    "gnn": gnn_launches["flash_attention.flash_fwd"],
+                   "decode": dec_launches["flash_attention.flash_fwd"],
                    "delta_ckpt": delta_launches["flash_attention.flash_fwd"],
                    "recsys_models": recsys_launches["flash_attention.flash_fwd"],
                    "multi_rank": mr_launches["flash_attention.flash_fwd"],
@@ -2175,6 +2215,7 @@ def main() -> None:
         "bf16_route": "tensor cores (wgmma, TMA)", **flash_build["flash_attention.flash_fwd"]})
     bwd_by_path = {"csr_op": csr_launches["flash_attention.flash_bwd"],
                    "gnn": gnn_launches["flash_attention.flash_bwd"],
+                   "decode": dec_launches["flash_attention.flash_bwd"],
                    "delta_ckpt": delta_launches["flash_attention.flash_bwd"],
                    "recsys_models": recsys_launches["flash_attention.flash_bwd"],
                    "multi_rank": mr_launches["flash_attention.flash_bwd"],
@@ -5102,6 +5143,645 @@ def gnn_phase(counts, reset_counts, phase: dict, recorded: dict, recorder, by_na
                       for k, m in at.items()},
           "kernels_s": kernels_s, "phase_s": time.perf_counter() - phase_t0})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# 4 LM decode: qwen2.5-3b decode_32k and long_500k on one card, long_500k
+# sequence-sharded over two gloo ranks sharing it
+# ---------------------------------------------------------------------------
+DEC_SMOKE = {"decode_32k": {"seq_len": 128, "global_batch": 4},
+             "long_500k": {"seq_len": 256, "global_batch": 1, "long_context": True}}
+DEC_SMOKE_STEPS = 3
+DEC_BATCH = 32               # decode_32k's batch, cut from 128 (its cache would take 154.6 GB)
+DEC_T0, DEC_CHECK_S = 2_048, 4_096   # prefill T0 tokens, then decode token T0 in a cache of 4,096
+# Decode of token T0 after a prefill of T0 tokens against the last logits of a
+# prefill of T0 + 1: the two paths round differently (decode rounds the
+# scores and p to bf16, the flash kernel keeps fp32 scores), and 36 bf16
+# layers compound it: on the CPU at 4 of the 36 layers (d 2,048, T0 1,024)
+# the difference was 0.4% of the largest logit, so 36 layers stay under
+# about 4%. Held: within 10% of the largest magnitude, and the logits of
+# the position before (what a decode that read the wrong position or cache
+# gives) beyond it (142% at that cut).
+DEC_PREFILL_FRAC = 0.1
+DEC_BACK = 16                # the timed runs start at position S - 16 of a filled cache
+N_DEC_WARMUP, N_DEC_STEPS = 3, 10
+DEC_RANKS, DEC_RANK_HELD, DEC_RANK_TIMED = 2, 3, 5
+DEC_TIMEOUT_S = 600.0
+DEC_SEED = 50_000
+
+
+def _dec_fill(cache: dict, seed: int, s_global: int, lo: int) -> None:
+    """Fill a cache (L, B, S_local, Hk, hd) with seeded random bf16 values:
+    each layer's K (and V) drawn whole, (B, s_global, Hk, hd), from its own
+    generator and sliced at [lo, lo + S_local), so that every rank of a
+    sequence-sharded cache holds its slice of one filled cache."""
+    for j, (name, c) in enumerate(sorted(cache.items())):
+        L, B, S, hk, hd = c.shape
+        for layer in range(L):
+            g = torch.Generator(device=c.device).manual_seed(seed + 2 * layer + j)
+            whole = torch.randn((B, s_global, hk, hd), generator=g, device=c.device, dtype=c.dtype)
+            c[layer].copy_(whole[:, lo:lo + S])
+            del whole
+
+
+def _dec_unwritten_equal(cache: dict, seed: int, s_global: int, lo: int, written: list[int]) -> bool:
+    """Whether every position of the cache but the ``written`` ones (local)
+    still holds ``_dec_fill``'s values, bit for bit."""
+    for j, (name, c) in enumerate(sorted(cache.items())):
+        L, B, S, hk, hd = c.shape
+        keep = torch.ones(S, dtype=torch.bool, device=c.device)
+        keep[written] = False
+        for layer in range(L):
+            g = torch.Generator(device=c.device).manual_seed(seed + 2 * layer + j)
+            whole = torch.randn((B, s_global, hk, hd), generator=g, device=c.device, dtype=c.dtype)
+            if not torch.equal(c[layer][:, keep], whole[:, lo:lo + S][:, keep]):
+                return False
+            del whole
+    return True
+
+
+def _dec_written(cache: dict, written: list[int]) -> dict:
+    """The cache's rows at the ``written`` (local) positions, on the host:
+    {"k", "v"} each (L, B, len(written), Hk, hd)."""
+    idx = torch.tensor(written, dtype=torch.long, device=cache["k"].device)
+    return {k: c.index_select(2, idx).cpu() for k, c in cache.items()}
+
+
+def _dec_token_rows(engine, gkey: str, V: int, d: int, dev) -> dict:
+    """Rows for all V tokens (seeded N(0, 1) embeddings, zero moments), as
+    ``import_rows`` takes them; on a rank of a group it keeps its own."""
+    from repro_torch.io.ragged import Ragged
+
+    vocab = Ragged(torch.arange(V, dtype=torch.int64, device=dev), torch.tensor([0, V], dtype=torch.int32, device=dev))
+    ids = engine.engine_ids({"tokens": vocab})[gkey]
+    emb = torch.randn((V, d), generator=torch.Generator(device=dev).manual_seed(DEC_SEED), device=dev)
+    zeros = torch.zeros((V, d), dtype=torch.float32, device=dev)
+    return {gkey: {"ids": ids, "emb": emb, "slots": {"m": zeros, "v": zeros},
+                   "last_use": torch.zeros(V, dtype=torch.int32, device=dev)}}
+
+
+def _dec_bytes(cfg, B: int, S: int) -> dict:
+    """What one decode step must move: the whole K and V caches read (the
+    step reads every position, masked), and the dense params; the MIXED
+    cast of each fp32 weight reads 4 bytes a param and writes 2, and the
+    bf16 product reads those 2 again."""
+    cache = 2 * cfg.n_layers * B * S * cfg.n_kv_heads * cfg.head_dim * 2
+    hd, d = cfg.head_dim, cfg.d_model
+    per_layer = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d + 3 * d * cfg.d_ff
+    n_weights = cfg.n_layers * per_layer + d * cfg.vocab_size
+    return {"cache_read": cache, "weights_fp32_read": 4 * n_weights, "weights_bf16_written": 2 * n_weights,
+            "weights_bf16_read": 2 * n_weights, "weight_params": n_weights,
+            "total": cache + 8 * n_weights, "least": cache + 4 * n_weights}
+
+
+def _dec_smoke(dev) -> dict:
+    """(a) The smoke decode cells (decode_32k S 128, B 4; long_500k S 256,
+    B 1) on the card against the CPU from the same rows, weights and filled
+    cache, three steps from position S - 3: logits within
+    MIXED_PREFILL_TOL, metrics and pos equal, the caches equal where no
+    step wrote and within MIXED_PREFILL_TOL where they did."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.cells import build_cell
+
+    out = {}
+    for name, params in DEC_SMOKE.items():
+        shape = ShapeCell(name, "decode", params)
+        cells = {d: build_cell("qwen2.5-3b", name, smoke=True, shape_override=shape, device=d)
+                 for d in ("cpu", dev)}
+        cfg = cells["cpu"].arch.model
+        gkey, S = f"dim{cfg.d_model}", params["seq_len"]
+        rows = _dec_token_rows(cells["cpu"].engine, gkey, cfg.vocab_size, cfg.d_model, "cpu")
+        states = {}
+        for d, c in cells.items():
+            states[d] = c.init_state()
+            states[d]["sparse"] = c.engine.import_rows(rows)
+            states[d]["pos"] = torch.tensor(S - DEC_SMOKE_STEPS, dtype=torch.int32, device=d)
+        _dec_fill(states["cpu"]["cache"], DEC_SEED, S, 0)
+        for k in ("k", "v"):
+            states[dev]["cache"][k].copy_(states["cpu"]["cache"][k])
+        states[dev]["dense"].load_state_dict(states["cpu"]["dense"].state_dict())
+        err = 0.0
+        for s in range(DEC_SMOKE_STEPS):
+            outs = {}
+            for d, c in cells.items():
+                states[d], outs[d] = c.step_fn(states[d], c.make_batch(s))
+            met = {d: {k: int(v) for k, v in o.items() if "/" in k} for d, o in outs.items()}
+            check(met[dev] == met["cpu"], f"smoke {name} metrics differ: {met}")
+            got, want = outs[dev]["logits"].cpu(), outs["cpu"]["logits"]
+            check(bool(torch.isfinite(got).all()) and torch.allclose(got, want, **MIXED_PREFILL_TOL),
+                  f"smoke {name} logits differ by {(got - want).abs().max()} at step {s + 1}")
+            err = max(err, float((got - want).abs().max()))
+        check(int(states[dev]["pos"]) == int(states["cpu"]["pos"]) == S, f"smoke {name} pos")
+        written = list(range(S - DEC_SMOKE_STEPS, S))
+        cache_err = 0.0
+        for k in ("k", "v"):
+            got, want = states[dev]["cache"][k].cpu(), states["cpu"]["cache"][k]
+            keep = torch.ones(S, dtype=torch.bool)
+            keep[written] = False
+            check(torch.equal(got[:, :, keep], want[:, :, keep]), f"smoke {name}: cache {k} changed where no step wrote")
+            g, w = got[:, :, ~keep].float(), want[:, :, ~keep].float()
+            check(torch.allclose(g, w, **MIXED_PREFILL_TOL), f"smoke {name}: written cache {k} differs")
+            cache_err = max(cache_err, float((g - w).abs().max()))
+        out[name] = {"params": params, "steps": DEC_SMOKE_STEPS, "from_pos": S - DEC_SMOKE_STEPS,
+                     "logits_max_abs_diff": err, "written_cache_max_abs_diff": cache_err, "metrics": met[dev]}
+    return out
+
+
+def _dec_nonzero_after(cache: dict, p: int) -> int:
+    """Nonzero cache values at positions p and later (a layer at a time)."""
+    return sum(int(torch.count_nonzero(c[layer][:, p:])) for c in cache.values() for layer in range(c.shape[0]))
+
+
+def _dec_step_checks(o: dict, B: int, V: int, rows_live: int, gkey: str, what: str) -> None:
+    met = {k: int(v) for k, v in o.items() if "/" in k}
+    check(o["logits"].shape == (B, V) and o["logits"].dtype == torch.float32
+          and bool(torch.isfinite(o["logits"]).all()), f"{what}: logits")
+    check(all(v == 0 for k, v in met.items() if "overflow" in k) and met[f"{gkey}/dev_rows_live"] == rows_live,
+          f"{what}: metrics {met}")
+
+
+def _dec_timed(cell, st: dict, label: str, S: int, fill_seed: int, counts, reset_counts, phase: dict,
+               per_step: dict, rows_live: int) -> tuple[dict, dict, list, dict]:
+    """The timed run of a decode cell at full width: the cache filled with
+    ``_dec_fill`` and ``pos`` at S - DEC_BACK, N_DEC_WARMUP + N_DEC_STEPS
+    steps (CUDA events; the first records its inputs as phase ``label``),
+    exact launches a step, then a torch.profiler trace of one more step
+    (``profile_requests``); every position no step wrote still holds the
+    fill. Returns the state, the run's line, the warm-up steps' logits on
+    the host, and the cache's rows at the warm-up steps' positions."""
+    cfg = cell.arch.model
+    B, V, gkey = cell.shape["global_batch"], cfg.vocab_size, f"dim{cfg.d_model}"
+    t0 = time.perf_counter()
+    _dec_fill(st["cache"], fill_seed, S, 0)
+    p0 = S - DEC_BACK
+    st["pos"] = torch.tensor(p0, dtype=torch.int32, device=cell.device)
+    n = N_DEC_WARMUP + N_DEC_STEPS
+    batches = [cell.make_batch(DEC_SEED + 10 + s) for s in range(n + 1)]
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ms, warm = [], []
+    for s in range(n):
+        phase["name"] = label if s == 0 else None
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        st, o = cell.step_fn(st, batches[s])
+        end.record()
+        end.synchronize()
+        phase["name"] = None
+        if s >= N_DEC_WARMUP:
+            ms.append(start.elapsed_time(end))
+        else:
+            warm.append(o["logits"].cpu())
+        _dec_step_checks(o, B, V, rows_live, gkey, f"{label} step {s + 1}")
+    launches = counts()
+    check(launches == {k: v * n for k, v in per_step.items()}, f"{label}: launches {launches}")
+    peak = torch.cuda.max_memory_allocated()
+
+    def step(b):
+        nonlocal st
+        st, _ = cell.step_fn(st, b)
+
+    prof = profile_requests(label, step, batches[n:])  # two steps: one untraced, one traced
+    launches = counts()
+    written = list(range(p0, p0 + n + 2))
+    check(int(st["pos"]) == p0 + n + 2, f"{label}: pos {int(st['pos'])}")
+    check(_dec_unwritten_equal(st["cache"], fill_seed, S, 0, written), f"{label}: the cache changed where no step wrote")
+    warm_rows = _dec_written(st["cache"], written[:N_DEC_WARMUP])
+    nbytes = _dec_bytes(cfg, B, S)
+    msa = np.array(ms)
+    line = {"phase": f"full_{label}", "arch": "qwen2.5-3b", "shape": label, "seq_len": S, "batch": B,
+            "from_pos": p0, "warmup": N_DEC_WARMUP, "steps": N_DEC_STEPS, "fill_s": fill_s,
+            "step_ms_p50": float(np.percentile(msa, 50)), "step_ms_p99": float(np.percentile(msa, 99)),
+            "step_ms_mean": float(msa.mean()), "step_ms": ms, "tokens_per_s": B / (float(np.percentile(msa, 50)) / 1e3),
+            "bytes_per_step": nbytes, "bound_ms": nbytes["least"] / HBM_BYTES_PER_S * 1e3,
+            "bound_ms_with_weight_cast": nbytes["total"] / HBM_BYTES_PER_S * 1e3,
+            "bound_share_p50": nbytes["least"] / HBM_BYTES_PER_S * 1e3 / float(np.percentile(msa, 50)),
+            "max_memory_allocated_bytes": peak, "launches": launches,
+            "profile": {k: prof[k] for k in ("wall_ms_per_request", "device_busy_ms_per_request", "device_idle_share",
+                                              "device_events_per_request", "top_device_ms_per_request")}}
+    return st, line, warm, warm_rows
+
+
+def _dec_rank(rank: int, world: int, store: str, weights, fill_seed: int, q) -> None:
+    """One rank of the decode phase's two-rank run (a spawned process,
+    started at the phase's start): joins the gloo group and takes its first
+    profiler trace while the parent runs its one-card parts, then takes the
+    parent's weights from the queue ``weights`` (the module itself, its
+    tensors shared on the card through CUDA IPC; None: the parent failed),
+    runs ``_dec_rank_run`` and reports its result, or its traceback."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import mesh
+
+    try:
+        group = mesh.init_group("gloo", rank=rank, world_size=world, store_path=store)
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        kernel_device_ms(lambda: None, "", iters=1, tries=1)  # a process's first trace takes 11-13 s
+        model = weights.get(timeout=DEC_TIMEOUT_S)
+        check(model is not None, "decode rank: the parent failed before the ranks' turn")
+        q.put((rank, True, _dec_rank_run(rank, group, dev, fill_seed, model)))
+    except BaseException:
+        q.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        mesh.close()
+
+
+def _dec_rank_run(rank: int, group, dev, fill_seed: int, model) -> dict:
+    """This rank's part of long_500k sequence-sharded over the group (its
+    half of the cache's positions, the whole batch), from the one-rank
+    run's filled state (the same rows, weights and cache values; the
+    cell's ``init_state`` but for the weights, ``model``, the parent's
+    seed-0 weights, which every process reads where they lie on the card):
+    DEC_RANK_HELD steps whose logits and written cache rows the caller holds
+    to the one-rank run's, then DEC_RANK_TIMED more; each step timed (host
+    clock, synced) with its all-reduces (calls, bytes, ms, each timed
+    between two synchronises), staged bytes and launches. The row gather of
+    step 1 is held to its plain version and timed, the ranks in turn."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import comm
+    from repro_torch.kernels.fused_gather import ops as fg_ops, ref as fg_ref
+    from repro_torch.launch.cells import build_arch_cell
+    from repro_torch.models import transformer as tfm
+
+    arch = get_config("qwen2.5-3b")
+    cfg = arch.model
+    V, gkey = cfg.vocab_size, f"dim{cfg.d_model}"
+    S = arch.shape("long_500k")["seq_len"]
+    real_all_reduce, ar = comm.all_reduce, {"ms": 0.0, "calls": 0, "bytes": 0}
+
+    def timed_all_reduce(x, group, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_all_reduce(x, group, *a, **kw)
+        torch.cuda.synchronize()
+        ar["ms"] += (time.perf_counter() - t0) * 1e3
+        ar["calls"] += 1
+        ar["bytes"] += x.numel() * x.element_size()
+        return out
+
+    comm.all_reduce = timed_all_reduce
+    probe, recorded, real = {"on": True}, {}, {}
+    _record_first(fg_ops, "gather_rows", False, lambda: probe["on"], recorded, real)
+    try:
+        t0 = time.perf_counter()
+        cell = build_arch_cell(arch, arch.shape("long_500k"), device=dev, group=group)
+        s_loc = S // comm.size(group)
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        st = {"step": zero, "pos": zero.clone(), "dense": model,
+              "sparse": cell.engine.import_rows(_dec_token_rows(cell.engine, gkey, V, cfg.d_model, dev)),
+              "cache": tfm.init_cache(cfg, 1, s_loc, dev)}
+        lo = comm.rank(group) * s_loc
+        _dec_fill(st["cache"], fill_seed, S, lo)
+        p0 = S - DEC_BACK
+        st["pos"] = torch.tensor(p0, dtype=torch.int32, device=dev)
+        n = DEC_RANK_HELD + DEC_RANK_TIMED
+        batches = [cell.make_batch(DEC_SEED + 10 + s) for s in range(n)]
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        rows_live = int(st["sparse"][gkey]["idmap"].n_live())
+        torch.cuda.reset_peak_memory_stats()
+        logits, ms, per_step, ar_ms, ar_calls, ar_bytes, staged_bytes = [], [], [], [], [], [], []
+        live_sum = []
+        for s in range(n):
+            reset_kernel_counts()
+            ar.update(ms=0.0, calls=0, bytes=0)
+            staged = comm.STAGED_BYTES
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st, o = cell.step_fn(st, batches[s])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            per_step.append({k: v for k, v in kernel_counts().items() if v})
+            ar_ms.append(ar["ms"])
+            ar_calls.append(ar["calls"])
+            ar_bytes.append(ar["bytes"])
+            staged_bytes.append(comm.STAGED_BYTES - staged)
+            met = {k: int(v) for k, v in o.items() if "/" in k}
+            check(o["logits"].shape == (1, V) and bool(torch.isfinite(o["logits"]).all()),
+                  f"decode rank {rank}: logits at step {s + 1}")
+            check(all(v == 0 for k, v in met.items() if "overflow" in k), f"decode rank {rank}: {met}")
+            live_sum.append(met[f"{gkey}/dev_rows_live"])
+            if s < DEC_RANK_HELD:
+                logits.append(o["logits"].cpu())
+            if s == 0:
+                probe["on"] = False
+                kernels = _measure_in_turns(rank, group, {"gather_rows": fg_ref.gather_rows}, recorded, real, 20, dev)
+                torch.cuda.reset_peak_memory_stats()
+        written = [p - lo for p in range(p0, p0 + n) if lo <= p < lo + s_loc]
+        held = [p - lo for p in range(p0, p0 + DEC_RANK_HELD) if lo <= p < lo + s_loc]
+        return {"rank": rank, "transport": comm.transport(group, dev), "slice": [lo, lo + s_loc],
+                "rows_live_here": rows_live, "rows_live_summed": live_sum, "setup_s": setup_s,
+                "logits": [x.numpy() for x in logits], "step_ms": ms, "launches_per_step": per_step,
+                "all_reduce_ms_per_step": ar_ms, "all_reduce_calls_per_step": ar_calls,
+                "all_reduce_bytes_per_step": ar_bytes, "staged_bytes_per_step": staged_bytes,
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                "written_local": written, "held_local": held,
+                "unwritten_equal_fill": _dec_unwritten_equal(st["cache"], fill_seed, S, lo, written),
+                "held_rows": {k: v.float().numpy() for k, v in _dec_written(st["cache"], held).items()},
+                "pos": int(st["pos"]), "kernels": kernels}
+    finally:
+        comm.all_reduce = real_all_reduce
+        fg_ops.gather_rows = real["gather_rows"]
+
+
+def _draw_lm_weights(out: dict) -> None:
+    """qwen2.5-3b's seed-0 weights on the host (``tfm.init``: the draw a
+    decode cell's ``init_state`` makes) into ``out["model"]``, or the
+    failure into ``out["error"]``; for a thread beside an earlier phase."""
+    from repro_torch.configs import qwen2_5_3b
+    from repro_torch.models import transformer as tfm
+
+    try:
+        out["model"] = tfm.init(qwen2_5_3b.ARCH.model, seed=0, device="cpu")
+    except BaseException as e:  # re-raised by the caller
+        out["error"] = e
+
+
+def decode_phase(counts, reset_counts, phase: dict, recorded: dict, recorder, by_name: dict, dev,
+                 device_info: dict, host_model) -> dict:
+    """LM decode on the card: (a) ``_dec_smoke``; (b) qwen2.5-3b
+    ``decode_32k`` at published widths, batch DEC_BATCH, three steps from
+    the cell's fresh state (pos 0, a zero cache, an empty engine: the
+    tokens read zero rows; the state its ``init_state`` makes, with the
+    seed-0 weights ``host_model`` drawn on the host beforehand); (c) prefill then decode at full width: rows for
+    all tokens imported, a prefill of DEC_T0 tokens (the flash kernel) whose
+    cache a decode cell takes at [0, DEC_T0), the decode of token DEC_T0
+    held to the last logits of a prefill of DEC_T0 + 1 tokens; (d)
+    ``decode_32k`` timed from a filled cache (``_dec_timed``, phase
+    ``decode_32k``); (e) ``long_500k`` (S 524,288, batch 1) three steps from
+    a fresh state (as (b)'s, the same weights) and timed from a filled cache (phase
+    ``long_500k``); (f) ``long_500k`` over two gloo ranks sharing the card
+    from the same filled state, held to (e)'s first three steps; (g) the
+    row gather on each path's recorded inputs against its plain version,
+    timed (paths ``decode_32k``, ``long_500k``, ``decode_r0``,
+    ``decode_r1``). The ranks are spawned at the phase's start and reach
+    the card during (a)-(e); in (f) they read this process's weights on the
+    card (CUDA IPC: one copy of the 12.34 GB for three processes). Returns
+    the launches of the phase (its ranks' included)."""
+    phase_t0 = time.perf_counter()
+    launches = dict.fromkeys(counts(), 0)
+    per_step = {k: int(k == "fused_gather.gather_rows") for k in launches}  # one row gather a step
+
+    def add(d):
+        for k, v in d.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # the ranks start now: they reach the card and take their first trace
+    # while this process runs the one-card parts, then wait for the weights
+    import threading
+
+    out_dir = ROOT / "build" / "decode_ranks"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    weights = mp.get_context("spawn").Queue()
+    spawned: dict = {"sent": False}
+
+    def spawn():
+        try:
+            spawned["ranks"] = _spawn_ranks(_dec_rank, DEC_RANKS, (str(out_dir / "store"), weights, DEC_SEED + 200),
+                                            DEC_TIMEOUT_S, "decode ranks")
+        except BaseException as e:  # re-raised in this process below
+            spawned["error"] = e
+
+    ranks_thread = threading.Thread(target=spawn, daemon=True)
+    ranks_thread.start()
+    try:
+        box = [host_model]  # no frame but the callee's keeps the model
+        del host_model
+        return _decode_one_card(counts, reset_counts, phase, recorded, recorder, by_name, dev, device_info,
+                                launches, per_step, add, phase_t0, weights, ranks_thread, spawned, box)
+    finally:
+        if not spawned["sent"]:  # a failure before the ranks' turn: they stop
+            for _ in range(DEC_RANKS):
+                weights.put(None)
+        ranks_thread.join(timeout=DEC_TIMEOUT_S)
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _decode_one_card(counts, reset_counts, phase, recorded, recorder, by_name, dev, device_info, launches, per_step,
+                     add, phase_t0, weights, ranks_thread, spawned, box: list) -> dict:
+    """``decode_phase``'s parts in this process, then the ranks' turn."""
+    from repro_torch.configs import qwen2_5_3b
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.kernels.fused_gather import ops as fg_ops, ref as fg_ref
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.models import transformer as tfm
+
+    reset_counts()
+    smoke = _dec_smoke(dev)
+    n = counts()
+    check(n == {k: v * DEC_SMOKE_STEPS * len(DEC_SMOKE) for k, v in per_step.items()}, f"smoke decode launches {n}")
+    add(n)
+    emit({"phase": "decode_smoke_card_vs_cpu", **device_info, "arch": "qwen2.5-3b (smoke)", "cells": smoke,
+          "tolerance": MIXED_PREFILL_TOL, "phase_s": time.perf_counter() - phase_t0})
+
+    arch = qwen2_5_3b.ARCH
+    cfg = arch.model
+    V, d, L = cfg.vocab_size, cfg.d_model, cfg.n_layers
+    gkey = f"dim{d}"
+    s32, s500 = arch.shape("decode_32k")["seq_len"], arch.shape("long_500k")["seq_len"]
+    check((s32, arch.shape("decode_32k")["global_batch"], s500, arch.shape("long_500k")["global_batch"])
+          == (32_768, 128, 524_288, 1), "the decode shapes")
+    widths = {"n_layers": L, "d_model": d, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+              "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab_size": V, "qkv_bias": cfg.qkv_bias}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    check(held < (1 << 30), f"{held} bytes still allocated before the decode phase")
+
+    # (b) decode_32k from the cell's fresh state
+    t0 = time.perf_counter()
+    c32 = build_cell("qwen2.5-3b", "decode_32k", device=dev, shape_override=ShapeCell(
+        "decode_32k", "decode", {"seq_len": s32, "global_batch": DEC_BATCH}))
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    st = {"step": zero, "pos": zero.clone(), "dense": box.pop().to(dev), "sparse": c32.engine.init_state(),
+          "cache": tfm.init_cache(cfg, DEC_BATCH, s32, dev)}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    state_bytes = {"dense_params": sum(p.numel() * p.element_size() for p in st["dense"].parameters()),
+                   "engine": sum(t.numel() * t.element_size() for t in _tensors(st["sparse"])),
+                   "cache": sum(t.numel() * t.element_size() for t in st["cache"].values())}
+    reset_counts()
+    for s in range(DEC_SMOKE_STEPS):
+        st, o = c32.step_fn(st, c32.make_batch(DEC_SEED + s))
+        _dec_step_checks(o, DEC_BATCH, V, 0, gkey, f"decode_32k fresh step {s + 1}")
+    n = counts()
+    check(n == {k: v * DEC_SMOKE_STEPS for k, v in per_step.items()}, f"decode_32k fresh launches {n}")
+    add(n)
+    # an empty engine gives zero rows and the biases start at zero, so the
+    # fresh steps write zeros: nothing may be written past them
+    check(int(st["pos"]) == DEC_SMOKE_STEPS and _dec_nonzero_after(st["cache"], DEC_SMOKE_STEPS) == 0,
+          "decode_32k fresh: the steps wrote other positions")
+    fresh32 = {"fresh_steps": DEC_SMOKE_STEPS, "setup_s": setup_s, "state_bytes": state_bytes,
+               "logits_max_abs": float(o["logits"].abs().max())}
+    model = st["dense"]
+    st["sparse"] = None  # import_rows builds the engine state
+    t0 = time.perf_counter()
+    st["sparse"] = c32.engine.import_rows(_dec_token_rows(c32.engine, gkey, V, d, dev))
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    check(int(st["sparse"][gkey]["idmap"].n_live()) == V, "not every token's row is live")
+
+    # (c) prefill then decode
+    t0 = time.perf_counter()
+    pre = {T: build_cell("qwen2.5-3b", "prefill_32k", device=dev, shape_override=ShapeCell(
+        "prefill_32k", "prefill", {"seq_len": T, "global_batch": 1})) for T in (DEC_T0, DEC_T0 + 1)}
+    chk = build_cell("qwen2.5-3b", "decode_32k", device=dev, shape_override=ShapeCell(
+        "decode_32k", "decode", {"seq_len": DEC_CHECK_S, "global_batch": 1}))
+    tokens = torch.from_numpy(np.random.default_rng(DEC_SEED + 1).integers(0, V, (1, DEC_T0 + 1))).to(
+        torch.int32).to(dev)
+    pst = {"step": zero, "dense": model, "sparse": st["sparse"]}
+    reset_counts()
+    out_a = pre[DEC_T0].step_fn(pst, tokens[:, :DEC_T0])
+    out_b = pre[DEC_T0 + 1].step_fn(pst, tokens)
+    cst = {"step": zero, "pos": torch.tensor(DEC_T0, dtype=torch.int32, device=dev), "dense": model,
+           "sparse": st["sparse"], "cache": tfm.init_cache(cfg, 1, DEC_CHECK_S, dev)}
+    for k in ("k", "v"):
+        cst["cache"][k][:, :, :DEC_T0].copy_(out_a[f"cache_{k}"])
+    cst, out_d = chk.step_fn(cst, tokens[:, DEC_T0])
+    torch.cuda.synchronize()
+    n = counts()
+    want_n = {k: {"fused_gather.gather_rows": 3, "flash_attention.flash_fwd": 2 * L}.get(k, 0) for k in n}
+    check(n == want_n, f"prefill then decode: launches {n}, expected {want_n}")
+    add(n)
+    got, want, prev = out_d["logits"][0], out_b["logits"][0], out_a["logits"][0]
+    scale = float(want.abs().max())
+    pd = {"t0": DEC_T0, "cache_seq_len": DEC_CHECK_S, "logits_max_abs": scale,
+          "max_abs_err": float((got - want).abs().max()), "tolerance": DEC_PREFILL_FRAC * scale,
+          "previous_position_max_abs_diff": float((got - prev).abs().max()),
+          "argmax_equal": bool(int(got.argmax()) == int(want.argmax())), "launches": n,
+          "s": time.perf_counter() - t0}
+    check(bool(torch.isfinite(got).all()) and pd["max_abs_err"] <= pd["tolerance"],
+          f"decode of token T0 against the prefill of T0 + 1 tokens: {pd}")
+    check(pd["previous_position_max_abs_diff"] > pd["tolerance"], f"the prefill-then-decode check cannot tell a "
+          f"position apart: {pd}")
+    emit({"phase": "decode_after_prefill", **device_info, "arch": "qwen2.5-3b", "widths": widths, **pd,
+          "tolerance_frac_of_largest": DEC_PREFILL_FRAC})
+    del pre, chk, cst, out_a, out_b, out_d, pst, got, want, prev
+    torch.cuda.empty_cache()
+
+    # (d) decode_32k timed from a filled cache
+    real = {"gather_rows": recorder(fg_ops, "gather_rows")}
+    try:
+        st, line32, _, _ = _dec_timed(c32, st, "decode_32k", s32, DEC_SEED + 100, counts, reset_counts, phase,
+                                      per_step, V)
+        add(line32["launches"])
+        line32.update(fresh32, import_rows_s=import_s, widths=widths,
+                      reduced={"global_batch": [128, DEC_BATCH]}, **device_info)
+        emit(line32)
+        sparse = st["sparse"]
+        del st, c32
+        torch.cuda.empty_cache()
+
+        # (e) long_500k: three steps from a fresh state, then timed from a filled cache
+        t0 = time.perf_counter()
+        c500 = build_cell("qwen2.5-3b", "long_500k", device=dev)
+        st = {"step": zero, "pos": zero.clone(), "dense": model, "sparse": c500.engine.init_state(),
+              "cache": tfm.init_cache(cfg, 1, s500, dev)}
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        reset_counts()
+        for s in range(DEC_SMOKE_STEPS):
+            st, o = c500.step_fn(st, c500.make_batch(DEC_SEED + s))
+            _dec_step_checks(o, 1, V, 0, gkey, f"long_500k fresh step {s + 1}")
+        n = counts()
+        check(n == {k: v * DEC_SMOKE_STEPS for k, v in per_step.items()}, f"long_500k fresh launches {n}")
+        add(n)
+        check(int(st["pos"]) == DEC_SMOKE_STEPS and _dec_nonzero_after(st["cache"], DEC_SMOKE_STEPS) == 0,
+              "long_500k fresh: the steps wrote other positions")
+        st["sparse"] = sparse
+        del sparse
+        torch.cuda.empty_cache()
+        st, line500, warm500, rows500 = _dec_timed(c500, st, "long_500k", s500, DEC_SEED + 200, counts, reset_counts,
+                                                   phase, per_step, V)
+        add(line500["launches"])
+        line500.update(setup_s=setup_s, widths=widths, fresh_steps=DEC_SMOKE_STEPS, **device_info)
+        emit(line500)
+    finally:
+        fg_ops.gather_rows = real["gather_rows"]  # no more records
+    del st, c500
+    torch.cuda.empty_cache()
+
+    # (g) the row gather on the one-card paths' recorded inputs
+    at = {}
+    for path in ("decode_32k", "long_500k"):
+        args, kw = recorded.pop(("gather_rows", path))
+        check(args[0].shape[1] == d and args[0].dtype == torch.float32, f"{path}: recorded gather {args[0].shape}")
+        at[path] = _measure("gather_rows", real["gather_rows"], fg_ref.gather_rows, args, kw, 20, dev)
+        del args
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - state_bytes["dense_params"]
+    check(held < (1 << 30), f"{held} bytes beside the weights still allocated before the decode ranks' turn")
+
+    # (f) long_500k over two gloo ranks sharing the card: their turn, each
+    # reading this process's weights where they lie (CUDA IPC)
+    t0 = time.perf_counter()
+    for _ in range(DEC_RANKS):
+        weights.put(model)
+    spawned["sent"] = True
+    ranks_thread.join(timeout=DEC_TIMEOUT_S)
+    if "error" in spawned:
+        raise spawned["error"]
+    check("ranks" in spawned, "decode ranks: no result")
+    ranks = spawned["ranks"]
+    ranks_s = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    p0 = s500 - DEC_BACK
+    by_rank = []
+    for r in ranks:
+        rank = r["rank"]
+        check(r["transport"] == "gloo, host-staged", f"decode rank {rank}: transport {r['transport']}")
+        errs = [float(np.abs(got - want.numpy()).max()) for got, want in zip(r["logits"], warm500)]
+        check(all(np.allclose(got, want.numpy(), **MIXED_PREFILL_TOL) for got, want in zip(r["logits"], warm500)),
+              f"decode rank {rank}: logits off the one-rank run's by {errs}")
+        check(r["unwritten_equal_fill"], f"decode rank {rank}: its cache slice changed where no step wrote")
+        mine = [p for p in range(p0, p0 + DEC_RANK_HELD + DEC_RANK_TIMED) if r["slice"][0] <= p < r["slice"][1]]
+        check(r["written_local"] == [p - r["slice"][0] for p in mine] and r["pos"] == p0 + DEC_RANK_HELD + DEC_RANK_TIMED,
+              f"decode rank {rank}: written {r['written_local']}, pos {r['pos']}")
+        held_err = {}
+        if r["held_local"]:  # the rank that holds the first steps' positions: rank 1
+            for k in ("k", "v"):
+                got, want = r["held_rows"][k], rows500[k].float().numpy()
+                check(np.array_equal(got[0], want[0]), f"decode rank {rank}: layer 0's written {k} rows differ")
+                check(np.allclose(got, want, **MIXED_PREFILL_TOL), f"decode rank {rank}: written {k} rows differ")
+                held_err[k] = float(np.abs(got - want).max())
+        check(all(n == {"fused_gather.gather_rows": 1} for n in r["launches_per_step"]),
+              f"decode rank {rank}: launches a step {r['launches_per_step']}")
+        check(all(c == 3 * L + 1 for c in r["all_reduce_calls_per_step"]),
+              f"decode rank {rank}: all-reduces a step {r['all_reduce_calls_per_step']}")
+        check(all(x == V for x in r["rows_live_summed"]), f"decode rank {rank}: rows live {r['rows_live_summed']}")
+        add({"fused_gather.gather_rows": len(r["launches_per_step"])})
+        _add_path(by_name["fused_gather.gather_rows"], f"decode_r{rank}", r["kernels"]["gather_rows"])
+        by_rank.append({"logits_max_abs_err": errs, "written_rows_max_abs_err": held_err})
+    check(not ranks[0]["written_local"] and ranks[1]["held_local"] == [p - s500 // 2 for p in range(p0, p0 + 3)],
+          "decode ranks: the new tokens' positions are not all on rank 1")
+    t_ms = [r["step_ms"][DEC_RANK_HELD:] for r in ranks]
+    emit({"phase": "decode_ranks", **device_info, "shape": "long_500k", "ranks": DEC_RANKS,
+          "transport": "gloo, one card, host-staged (not NCCL, not NVLink)", "precision": "MIXED (bf16 compute)",
+          "seq_len": s500, "slices": [r["slice"] for r in ranks], "from_pos": p0,
+          "held_steps": DEC_RANK_HELD, "timed_steps": DEC_RANK_TIMED, "tolerance": MIXED_PREFILL_TOL,
+          "against_one_rank": by_rank, "rows_live_by_rank": [r["rows_live_here"] for r in ranks],
+          "step_ms_p50_by_rank": [float(np.percentile(m, 50)) for m in t_ms], "step_ms_by_rank": [r["step_ms"] for r in ranks],
+          "all_reduce_calls_per_step": ranks[0]["all_reduce_calls_per_step"][-1],
+          "all_reduce_ms_per_step_by_rank": [r["all_reduce_ms_per_step"] for r in ranks],
+          "all_reduce_bytes_per_step_by_rank": [r["all_reduce_bytes_per_step"] for r in ranks],
+          "staged_bytes_per_step_by_rank": [r["staged_bytes_per_step"] for r in ranks],
+          "max_memory_allocated_bytes_by_rank": [r["max_memory_allocated_bytes"] for r in ranks],
+          "setup_s_by_rank": [r["setup_s"] for r in ranks], "ranks_s": ranks_s})
+    for path, m in at.items():
+        _add_path(by_name["fused_gather.gather_rows"], path, m)
+    keep = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "kernel_device_ms",
+            "host_us", "bytes")
+    emit({"phase": "decode_kernels", **device_info,
+          "gather_rows": {**{p: {k: m[k] for k in keep} for p, m in at.items()},
+                          **{f"decode_r{r['rank']}": {k: r["kernels"]["gather_rows"][k] for k in keep} for r in ranks}},
+          "launches": launches, "phase_s": time.perf_counter() - phase_t0})
+    return launches
+
 
 def _tensors(tree):
     if torch.is_tensor(tree):

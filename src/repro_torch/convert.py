@@ -31,6 +31,11 @@ above) with the store's ``checkpoint_payload``, which
 ``tiered_state_from_numpy`` loads as they are; the same keys name the host
 tier in a checkpoint's ``extra.safetensors``, so the reference's tiered
 checkpoint resumes through the port's Trainer hooks unchanged.
+
+``decode_state_from_numpy`` loads the reference decode cell's whole state
+(dense params, engine state, KV cache, ``pos``) into a port decode cell's
+state; over a group each rank takes its shard of the engine state and its
+slice of the cache.
 """
 from __future__ import annotations
 
@@ -227,3 +232,59 @@ def gin_from_numpy(tree: Mapping, cfg: gnn.GINConfig) -> dict[str, torch.Tensor]
     ``layer{l}/{mlp1, mlp2, eps}``, ``readout{l}``, ``head``) → a state
     dict for ``gnn.GIN(cfg)``, each shape checked."""
     return params_from_tree(gnn.GIN(cfg, device="meta"), tree)
+
+
+def _bf16_tensor(a) -> torch.Tensor:
+    """A numpy array (bfloat16 as JAX gives it, or a float type) → a bf16
+    tensor with the same values (exact for values that bf16 holds)."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+
+
+def _sparse_layout(v: Mapping) -> dict:
+    """One engine group of the reference's state, IDMap and Blocks objects
+    with numpy fields or already in ``sparse_to_tree``'s layout."""
+    im, bl = v["idmap"], v["blocks"]
+    if not isinstance(im, (tuple, list)):
+        im = tuple(getattr(im, f) for f in idmap_lib.TENSOR_FIELDS)
+    if not isinstance(bl, (tuple, list)):
+        bl = (bl.emb, tuple(bl.slots[k] for k in sorted(bl.slots)))
+    return {"idmap": tuple(im), "blocks": (bl[0], tuple(bl[1]))}
+
+
+def decode_state_from_numpy(tree: Mapping, state: Mapping, rank: int = 0, n_ranks: int = 1,
+                            long_context: bool = False) -> dict:
+    """The reference decode cell's state ``{"step", "pos", "dense",
+    "sparse", "cache"}`` (numpy leaves; the engine state stacked [D, ...]
+    over the D = ``n_ranks`` devices, the cache (L, B, S, Hk, hd) whole)
+    loaded into a port decode cell's ``state`` (from its ``init_state``):
+    the params into its module, the cache into its cache in place, a new
+    engine state, step and pos on the same device. On rank ``rank`` of a
+    group the engine state is that rank's shard and the cache its slice:
+    of the sequence for a ``long_context`` cell, else of the batch."""
+    model = state["dense"]
+    device = state["cache"]["k"].device
+    model.load_state_dict(transformer_from_numpy(tree["dense"], model.cfg))
+    sparse = {g: _sparse_layout(v) for g, v in tree["sparse"].items()}
+    if n_ranks > 1:
+        sparse = {g: {"idmap": tuple(np.asarray(a)[rank:rank + 1] for a in v["idmap"]),
+                      "blocks": (np.asarray(v["blocks"][0])[rank:rank + 1],
+                                 tuple(np.asarray(a)[rank:rank + 1] for a in v["blocks"][1]))}
+                  for g, v in sparse.items()}
+    axis = 2 if long_context else 1
+    with torch.no_grad():
+        for k, dst in state["cache"].items():
+            whole = _bf16_tensor(tree["cache"][k])
+            n = whole.shape[axis] // n_ranks
+            part = whole.narrow(axis, rank * n, n)
+            if part.shape != dst.shape:
+                raise ValueError(f"cache/{k}: a rank's slice is {tuple(part.shape)}, the cell has {tuple(dst.shape)}")
+            dst.copy_(part)
+
+    def scalar(a):
+        return torch.tensor(np.asarray(a), dtype=torch.int32, device=device)
+
+    return {"step": scalar(tree["step"]), "pos": scalar(tree["pos"]), "dense": model,
+            "sparse": sparse_from_tree(sparse, state["sparse"], device), "cache": state["cache"]}

@@ -30,11 +30,8 @@ def build_arch_cell(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = Cell
         from repro_torch.launch import gnn_cell
 
         return gnn_cell.build(arch, shape, opts, device, group)
-    if group is not None:
-        raise NotImplementedError(f"the {arch.family} family runs on one device only "
-                                  "(its multi-rank cells are ROADMAP A7)")
     if arch.family == "lm":
         from repro_torch.launch import lm_cell
 
-        return lm_cell.build(arch, shape, opts, device)
+        return lm_cell.build(arch, shape, opts, device, group)
     raise NotImplementedError(f"the {arch.family} family is not ported yet")

@@ -1,5 +1,6 @@
-"""LM-family cells (port of ``repro/launch/lm_cell.py``), one device: the
-train cell and the prefill (serve) cell.
+"""LM-family cells (port of ``repro/launch/lm_cell.py``): the train cell and
+the prefill (serve) cell on one device, and the decode (serve) cells on one
+device or over a ``torch.distributed`` group.
 
 The vocab table lives in the Embedding Engine as one ``tokens`` feature
 (pooling "values": one row per token); its rows come back through
@@ -8,10 +9,21 @@ takes. The train step inserts the batch's new tokens, takes the gradient of
 the next-token loss in the dense params and the fetched rows, and applies
 AdamW and SparseAdam; it returns the new state and the loss with the
 engine's metrics. The prefill step returns fp32 logits of the last position
-and the bf16 KV cache, with the engine's metrics. Decode cells are not
-ported yet.
+and the bf16 KV cache, with the engine's metrics. A decode step takes one
+token a sequence at the state's ``pos``, writes its K and V into the
+state's cache in place (the reference returns a new cache and donates the
+old one: two copies of a 38.7 GB cache do not fit a card) and returns the
+new state (``pos`` one on) and fp32 logits (B, V) with the engine's
+metrics. Decode reads the whole cache, masked, as the reference does.
 
-Batch convention: (B, T) int32 token ids on the cell's device.
+Over a group of D ranks the vocab table is sharded over the ranks as the
+reference shards it over its mesh. ``long_context`` cells (``long_500k``)
+shard the cache's sequence over the ranks and give every rank the whole
+batch; ``decode_32k`` splits the batch over the ranks, each with the whole
+sequence. The metrics are summed over the group.
+
+Batch convention: (B, T) int32 token ids on the cell's device; a decode
+batch is (B,) ids (over a group, this rank's slice).
 """
 from __future__ import annotations
 
@@ -19,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeCell
-from repro_torch.core import exchange
+from repro_torch.core import comm, exchange
 from repro_torch.core.embedding_engine import EmbeddingEngine, EngineConfig
 from repro_torch.core.feature_engine import FeatureSpec
 from repro_torch.io.ragged import Ragged
@@ -31,10 +43,10 @@ from repro_torch.optim.sparse_adam import SparseAdamConfig
 
 
 def _engine_for(cfg: tfm.TransformerConfig, L: int, opts: CellOptions,
-                device) -> tuple[EmbeddingEngine, str]:
-    """The reference's budgets on one device: U, C, R from the L tokens of
-    a step, two rows per vocab entry."""
-    D = 1
+                device, group=None) -> tuple[EmbeddingEngine, str]:
+    """The reference's budgets: U, C, R from the L tokens a device requests
+    in a step, two rows per vocab entry over the D devices."""
+    D = comm.size(group)
     u = max(round_up(L, 8), 16)
     c = max(8, round_up(int(np.ceil(u / D * opts.capacity_slack)), 8))
     r = min(D * c, max(round_up(int(opts.recv_slack * u), 8), 64))
@@ -43,7 +55,7 @@ def _engine_for(cfg: tfm.TransformerConfig, L: int, opts: CellOptions,
         [FeatureSpec("tokens", transform="mod", vocab_size=cfg.vocab_size,
                      emb_dim=cfg.d_model, pooling="values")],
         EngineConfig(n_devices=D, rows_per_shard=rows, map_capacity_per_shard=2 * rows,
-                     u_budget=u, per_dest_cap=c, recv_budget=r),
+                     u_budget=u, per_dest_cap=c, recv_budget=r, group=group),
         device)
     return eng, f"dim{cfg.d_model}"
 
@@ -131,11 +143,62 @@ def make_prefill_cell(arch: ArchConfig, shape: ShapeCell, opts: CellOptions,
                 returns_state=False)
 
 
+def make_decode_cell(arch: ArchConfig, shape: ShapeCell, opts: CellOptions,
+                     device: torch.device, group=None) -> Cell:
+    cfg = arch.model
+    B, S = shape["global_batch"], shape["seq_len"]
+    D, rank = comm.size(group), comm.rank(group)
+    long_ctx = bool(shape.get("long_context"))
+    if long_ctx:  # the cache's sequence over every rank, the ids replicated
+        if S % D:
+            raise ValueError(f"seq_len {S} is not a multiple of {D} ranks")
+        b_loc, s_loc, seq_group = B, S // D, group
+    else:  # the batch over the ranks
+        if B % D:
+            raise ValueError(f"batch {B} is not a multiple of {D} ranks")
+        b_loc, s_loc, seq_group = B // D, S, None
+    engine, gkey = _engine_for(cfg, max(b_loc, 1), opts, device, group)
+    espec = engine.groups[gkey].exchange
+
+    def init_fn():
+        zero = torch.zeros((), dtype=torch.int32, device=device)
+        return {"step": zero, "pos": zero.clone(), "dense": tfm.init(cfg, seed=0, device=device),
+                "sparse": engine.init_state(), "cache": tfm.init_cache(cfg, b_loc, s_loc, device)}
+
+    def serve_step(state, token_ids):
+        pos = state["pos"]
+        with torch.inference_mode():
+            _, rows_r, plans, met = engine.fetch_local(
+                local_view(state["sparse"]), _tokens(token_ids), state["step"], train=False)
+            met = comm.sum_metrics(met, group)
+            x_emb = exchange.route_rows(rows_r[gkey], plans[gkey], espec).view(b_loc, 1, cfg.d_model)
+            del rows_r, plans
+            logits = tfm.decode_step(state["dense"], x_emb, state["cache"], pos, seq_group, MIXED)
+            new_pos = pos + 1
+        return {**state, "pos": new_pos}, {"logits": logits, **met}
+
+    def make_batch(seed: int) -> torch.Tensor:
+        """The reference's numpy stream of (B,) ids; over a batch-split
+        group, this rank's slice of it."""
+        ids = np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(B,))
+        if not long_ctx:
+            ids = ids[rank * b_loc:(rank + 1) * b_loc]
+        return torch.from_numpy(ids).to(torch.int32).to(device)
+
+    return Cell(arch=arch, shape=shape, device=device, step_fn=serve_step, init_state=init_fn,
+                make_batch=make_batch, ids_fn=_tokens, engine=engine, group=group)
+
+
 def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
-          device=None) -> Cell:
+          device=None, group=None) -> Cell:
     device = resolve_device(device)
+    if shape.kind == "decode":
+        return make_decode_cell(arch, shape, opts, device, group)
+    if group is not None:
+        raise NotImplementedError(f"LM {shape.kind} cells run on one device only "
+                                  "(their multi-rank cells are ROADMAP A7g)")
     if shape.kind == "train":
         return make_train_cell(arch, shape, opts, device)
     if shape.kind != "prefill":
-        raise NotImplementedError(f"LM {shape.kind} cells are not ported yet")
+        raise ValueError(shape.kind)
     return make_prefill_cell(arch, shape, opts, device)

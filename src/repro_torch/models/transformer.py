@@ -1,5 +1,6 @@
-"""Transformer LM stack (port of ``repro/models/transformer.py``), one device:
-the train and prefill forward, and the next-token loss.
+"""Transformer LM stack (port of ``repro/models/transformer.py``): the train
+and prefill forward, the next-token loss, and one decode step over a KV
+cache.
 
 Llama-family: RMSNorm → GQA attention → RMSNorm → SwiGLU with residuals,
 RoPE positions, vocab head. Token embeddings come from the Embedding Engine
@@ -8,8 +9,11 @@ stacked layer params over a mesh; here the layers are a Python loop over an
 ``nn.ModuleList`` on one device, so its ``MeshCtx`` sharding constraints are
 the identity and are left out. With ``remat`` each layer is recomputed in the
 backward (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
-MoE layers, ``remat_policy="dots"``, the chunked loss (ROADMAP A7) and
-decode are not ported yet.
+A decode step over a ``torch.distributed`` group takes this rank's slice of
+the cache's sequence (the reference's ``cache_pspec`` with ``seq_shards``);
+everything but the attention's all-reduces runs on every rank alone. MoE
+layers, ``remat_policy="dots"`` and the chunked loss (ROADMAP A7) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ class TransformerConfig:
     vocab_size: int
     qkv_bias: bool = False
     rope_theta: float = 10000.0
-    moe: Any = None   # the reference's MoEConfig; not ported (ROADMAP A7)
+    moe: Any = None   # the reference's MoEConfig; not ported (ROADMAP A7b)
     remat: bool = True  # recompute each layer in the backward
 
     @property
@@ -74,7 +78,7 @@ class Transformer(nn.Module):
     def __init__(self, cfg: TransformerConfig, seed: int = 0, device=None):
         super().__init__()
         if cfg.moe is not None:
-            raise NotImplementedError(f"{cfg.name}: MoE layers are not ported yet (ROADMAP A7)")
+            raise NotImplementedError(f"{cfg.name}: MoE layers are not ported yet (ROADMAP A7b)")
         self.cfg = cfg
         gen = torch.Generator().manual_seed(seed)
         self.layers = nn.ModuleList(Layer(cfg, gen, device) for _ in range(cfg.n_layers))
@@ -128,3 +132,33 @@ def lm_loss(model: Transformer, x_emb: torch.Tensor, labels: torch.Tensor,
     logits = dense_apply(model.head, h, prec).to(torch.float32)
     gold = logits.gather(-1, labels[..., None].long())[..., 0]
     return torch.mean(torch.logsumexp(logits, dim=-1) - gold)
+
+
+# ---------------------------------------------------------------------------
+# decode (serving)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: TransformerConfig, batch: int, seq_len: int, device=None,
+               dtype: torch.dtype = torch.bfloat16) -> dict[str, torch.Tensor]:
+    """Zero K and V caches, each (L, batch, seq_len, Hk, hd). Over a group
+    ``batch`` and ``seq_len`` are this rank's slice (the reference's
+    ``cache_pspec``)."""
+    shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_step(model: Transformer, x_emb: torch.Tensor, cache: dict[str, torch.Tensor], pos: torch.Tensor,
+                group=None, prec: Precision = MIXED) -> torch.Tensor:
+    """One token through the whole stack: x_emb (B, 1, d), the embedding of
+    the token at global position ``pos`` (a 0-d tensor on the device) →
+    fp32 logits (B, V). Every layer's K and V of the token are written into
+    ``cache`` in place; with a ``group`` the cache is sequence-sharded over
+    its ranks."""
+    x = prec.cast(x_emb)
+    for i, layer in enumerate(model.layers):
+        h = layer.attn_norm(x)
+        x = x + attn.attn_decode_apply(layer.attn, h, cache["k"][i], cache["v"][i], pos, group, prec)
+        x = x + layer.ffn(layer.ffn_norm(x), prec)
+    x = model.final_norm(x)
+    return dense_apply(model.head, x, prec)[:, 0, :].to(torch.float32)

@@ -870,6 +870,59 @@ def test_smoke_prefill_cell_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name,params", [("decode_32k", {"seq_len": 128, "global_batch": 4}),
+                                         ("long_500k", {"seq_len": 256, "global_batch": 1, "long_context": True})])
+def test_smoke_decode_cell_card_matches_cpu(cuda, name, params):
+    """Three qwen2.5 smoke decode steps on the card and on the CPU from the
+    same rows, weights and filled cache (its last three positions written):
+    metrics and ``pos`` equal, logits and caches within bf16 tolerances (the
+    stack runs in bf16 on both), one row gather a step and no flash launch."""
+    shape = ShapeCell(name, "decode", params)
+    cells = {d: build_cell("qwen2.5-3b", name, smoke=True, shape_override=shape, device=d)
+             for d in ("cpu", "cuda")}
+    cfg = cells["cpu"].arch.model
+    vocab = torch.arange(cfg.vocab_size, dtype=torch.int64)
+    ids = cells["cpu"].engine.engine_ids(
+        {"tokens": Ragged(vocab, torch.tensor([0, cfg.vocab_size], dtype=torch.int32))})["dim64"]
+    ids = ids[torch.arange(ids.numel()) % 7 != 0]  # some tokens read zero rows
+    n = ids.numel()
+    r = np.random.default_rng(0)
+    rows = {"dim64": {"ids": ids.numpy(), "emb": r.normal(size=(n, 64)).astype(np.float32),
+                      "slots": {k: np.zeros((n, 64), np.float32) for k in ("m", "v")},
+                      "last_use": np.ones(n, np.int32)}}
+    S = params["seq_len"]
+    fill = {k: torch.from_numpy(r.normal(size=(cfg.n_layers, params["global_batch"], S, cfg.n_kv_heads,
+                                                cfg.head_dim)).astype(np.float32)).to(torch.bfloat16)
+            for k in ("k", "v")}
+    states = {}
+    for d, c in cells.items():
+        states[d] = c.init_state()
+        states[d]["sparse"] = c.engine.import_rows(rows)
+        for k in ("k", "v"):
+            states[d]["cache"][k].copy_(fill[k])
+        states[d]["pos"] = torch.tensor(S - 3, dtype=torch.int32, device=d)
+    states["cuda"]["dense"].load_state_dict(states["cpu"]["dense"].state_dict())
+    for s in range(3):
+        before = (t_fg.LAUNCHES, t_fa.LAUNCHES)
+        outs = {}
+        for d, c in cells.items():
+            states[d], outs[d] = c.step_fn(states[d], c.make_batch(s))
+        torch.cuda.synchronize()
+        assert (t_fg.LAUNCHES - before[0], t_fa.LAUNCHES - before[1]) == (1, 0)
+        met = {d: {k: int(v) for k, v in o.items() if "/" in k} for d, o in outs.items()}
+        assert met["cuda"] == met["cpu"] and met["cpu"]["dim64/dev_rows_live"] == n
+        got, want = outs["cuda"]["logits"].cpu().numpy(), outs["cpu"]["logits"].numpy()
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, rtol=3e-2, atol=3e-2)
+    assert int(states["cuda"]["pos"]) == int(states["cpu"]["pos"]) == S
+    for k in ("k", "v"):
+        got, want = states["cuda"]["cache"][k].cpu(), states["cpu"]["cache"][k]
+        assert torch.equal(got[:, :, :S - 3], fill[k][:, :, :S - 3])
+        np.testing.assert_allclose(got[:, :, S - 3:].float().numpy(), want[:, :, S - 3:].float().numpy(),
+                                   rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.cuda
 def test_smoke_lm_train_cell_card_matches_cpu(cuda):
     """Three qwen2.5 smoke train steps (T = 256, B = 2) on the card and on
     the CPU from the same weights and a fresh engine: metrics equal, loss

@@ -180,7 +180,10 @@ def test_engine_budgets_equal():
     mesh = make_test_mesh()
     jcfg, tcfg = _smoke_cfgs()
     full_j, full_t = j_get_config("qwen2.5-3b").model, t_get_config("qwen2.5-3b").model
-    for (jc, tc), L in [((jcfg, tcfg), B * T), ((full_j, full_t), 32_768), ((full_j, full_t), 1)]:
+    # prefill and train at B·T tokens a step, decode at B: long_500k's 1,
+    # decode_32k's 32 (its batch cut from 128) and its smoke batch of 4
+    for (jc, tc), L in [((jcfg, tcfg), B * T), ((full_j, full_t), 32_768), ((full_j, full_t), 1),
+                        ((full_j, full_t), 32), ((jcfg, tcfg), 4)]:
         jeng, jkey = j_lm._engine_for(jc, mesh, L, JOpts())
         teng, tkey = t_lm._engine_for(tc, L, TOpts(), "cpu")
         assert jkey == tkey
@@ -251,12 +254,6 @@ def test_prefill_logits_and_cache_match_reference(prefill):
             assert to[k].shape == (cfg.n_layers, B, T, cfg.n_kv_heads, cfg.head_dim)
             assert to[k].dtype == torch.bfloat16
             np.testing.assert_allclose(to[k].float().numpy(), jo[k].astype(np.float32), **MIXED_TOL)
-
-
-@pytest.mark.parametrize("shape_name", ["decode_32k", "long_500k"])
-def test_lm_train_and_decode_cells_raise(shape_name):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        t_build_cell("qwen2.5-3b", shape_name, smoke=True, device="cpu")
 
 
 def test_moe_config_raises():

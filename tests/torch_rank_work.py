@@ -411,3 +411,71 @@ def gnn_ranks(rank: int, group, d: str) -> dict:
     finally:
         gnn_cell.MIXED = layers.MIXED
     return res
+
+
+# The decode cells at D 2 (tests/test_torch_decode_ranks.py): (case, shape,
+# its params, the first step's position). long_500k shards the cache's 256
+# positions over the ranks, 128 each, and its three steps write positions
+# 126, 127 (rank 0) and 128 (rank 1); decode_32k splits its batch of 4.
+DECODE_CASES = [("long", "long_500k", {"seq_len": 256, "global_batch": 1, "long_context": True}, 126),
+                ("batch", "decode_32k", {"seq_len": 128, "global_batch": 4}, 125)]
+DECODE_STEPS = 3
+DECODE_PRECS = ("fp32", "mixed")
+
+
+def _decode_tree(flat: dict) -> dict:
+    """The reference decode state saved flat (the IDMap's fields by index,
+    the Blocks' slots by name) in ``convert.decode_state_from_numpy``'s
+    layout."""
+    tree = _nest(flat)
+    tree["sparse"] = {g: {"idmap": tuple(v["idmap"][str(i)] for i in range(len(v["idmap"]))),
+                          "blocks": (v["blocks"]["emb"],
+                                     tuple(v["blocks"]["slots"][k] for k in sorted(v["blocks"]["slots"])))}
+                      for g, v in tree["sparse"].items()}
+    return tree
+
+
+def decode_ranks(rank: int, group, d: str) -> dict:
+    """The qwen2.5 smoke decode cells of DECODE_CASES over this group, in
+    FP32 and MIXED, from the reference cell's initial state
+    (``d/decode_init.npz``): each step's logits and summed metrics, this
+    rank's slice of the final cache, ``pos``, and this rank's batch; then
+    whether the LM train and prefill cells refuse the group."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import lm_cell
+    from repro_torch.launch.cells import build_arch_cell
+    from repro_torch.models import layers
+
+    d = pathlib.Path(d)
+    _wait_for(d / "decode_init.npz")
+    ref = dict(np.load(d / "decode_init.npz"))
+    arch = get_config("qwen2.5-3b", smoke=True)
+    res = {}
+    try:
+        for case, name, params, _ in DECODE_CASES:
+            p = f"{case}/"
+            tree = _decode_tree({k[len(p):]: v for k, v in ref.items() if k.startswith(p)})
+            for prec in DECODE_PRECS:
+                lm_cell.MIXED = layers.FP32 if prec == "fp32" else layers.MIXED
+                cell = build_arch_cell(arch, ShapeCell(name, "decode", params), device="cpu", group=group)
+                st = convert.decode_state_from_numpy(tree, cell.init_state(), rank, comm.size(group),
+                                                     bool(params.get("long_context")))
+                out = {"logits": [], "metrics": [], "batch": _np(cell.make_batch(0))}
+                for s in range(DECODE_STEPS):
+                    st, o = cell.step_fn(st, cell.make_batch(s))
+                    out["logits"].append(_np(o["logits"]))
+                    out["metrics"].append({k: int(v) for k, v in o.items() if "/" in k})
+                out.update(cache={k: _np(v.float()) for k, v in st["cache"].items()}, pos=int(st["pos"]),
+                           step=int(st["step"]))
+                res[case, prec] = out
+    finally:
+        lm_cell.MIXED = layers.MIXED
+    for name in ("train_4k", "prefill_32k"):
+        try:
+            build_arch_cell(arch, arch.shape(name), device="cpu", group=group)
+            res[name] = "built"
+        except NotImplementedError as e:
+            res[name] = str(e)
+    return res
