@@ -7,8 +7,9 @@ Wide & Deep, SASRec and MIND, scoring 1,000,000 retrieval candidates for
 the four recsys archs, training GIN (gin-tu) in its four shape cells (one
 of them edge-parallel over two ranks), serving the qwen2.5-3b prefill and
 its decode (decode_32k, and long_500k also sequence-sharded over two
-ranks), and training qwen2.5-3b, on one NVIDIA card, through its own CUDA
-kernels.
+ranks), training qwen2.5-3b, and serving the MoE archs (qwen2-moe-a2.7b
+and moonshot-v1-16b-a3b: prefill and decode), on one NVIDIA card, through
+its own CUDA kernels.
 
     python3 chip_smoke.py [--save-inputs DIR]
 
@@ -64,11 +65,12 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 serve_bulk request (device busy time, idle share, device
                 operations and fp32 add and fill time per request);
      train    — full-width train_batch (batch 65,536) from a fresh state:
-                3 warm-up and 10 timed steps with the kernels' launch counts
-                over the 13, state checks, a torch.profiler trace of three
-                steps, and ten steps on one repeated batch (the loss falls);
-     prefill  — full-width qwen2.5-3b prefill (T 32,768, batch cut to 1):
-                rows for all 151,936 tokens imported, 1 warm-up and 3 timed
+                3 warm-up and 5 timed steps with the kernels' launch counts
+                over the 8, state checks, a torch.profiler trace of three
+                steps, and five steps on one repeated batch (the loss falls);
+     prefill  — full-width qwen2.5-3b prefill (T 32,768, batch cut to 1,
+                weights drawn on the card): rows for all 151,936 tokens
+                imported, 1 warm-up and 3 timed
                 requests with the kernels' launch counts, output checks,
                 layer 0's attention against the plain formula on every
                 query row, a torch.profiler trace of one request; then the
@@ -76,9 +78,9 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 everything those paths held is released;
      mse      — the MSE example's widths at batch 65,536 with its budgets
                 raised to hold the whole batch, from a fresh state: 3
-                warm-up and 10 timed steps with the kernels' launch counts,
+                warm-up and 5 timed steps with the kernels' launch counts,
                 overflow and row checks, a torch.profiler trace of three
-                steps, ten steps on one repeated batch; then the step at the
+                steps, five steps on one repeated batch; then the step at the
                 example's own batch of 128; then the MSE kernels are
                 measured (phase 5) and everything is released;
      loop     — the MSE example's main() (the twin's, on the card, at the
@@ -91,7 +93,7 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 shares; then the slab gather is called once through its op
                 entry (its launch counted) and measured (phase 5);
      train_driver — the twin of launch/train.py: its run() at published
-                widths (vocab cut to 50,000 a feature, 1.95 M rows) and batch
+                widths (vocab cut to 20,000 a feature, 0.78 M rows) and batch
                 8,192, 40 steps over a 65,536-row ColumnIO table from one
                 reader under the autoscaler, with telemetry snapshots, the
                 aggregator and the Prometheus endpoint (zero overflow, a
@@ -101,7 +103,8 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 within 1e-5 of an uninterrupted run; its CLI, saving every
                 step, crashed at step 6 in a fresh process (exit 42) and
                 resumed from step 4 or 5, each run's steps within 1e-5 of an
-                uninterrupted CLI run; then the benchmark twins
+                uninterrupted CLI run (the first two processes run beside
+                the SIGTERM part); then the benchmark twins
                 (the autoscaler on a calibrated SimPipeline, the telemetry
                 overhead at the MSE cell's batch of 128);
      tiered   — full-width train_batch with a tiered engine (a device tier
@@ -116,13 +119,14 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 touches, bit-equal again; evict_local on the all-device
                 state; the row gather and scatter set measured at step 6's
                 demote and promote shapes (phase 5);
-     window   — the online-window twin's main() (5 windows of 120 steps):
+     window   — the online-window twin's main() (3 of its 5 windows of 120
+                steps):
                 pre-train evals, post-train losses, live rows after each
                 eviction, its launches; its first window on the card
                 against the CPU in FP32 (within 1e-5) and in MIXED;
-     delta    — delta checkpoints and crash recovery at the train
-                driver's sizes (published widths, vocab 50,000, batch
-                8,192): a row for each of the 1.3 M ids imported, the
+     delta    — delta checkpoints and crash recovery (published widths,
+                vocab 10,000, batch 1,024): a row for each of the 0.26 M
+                ids imported, the
                 Trainer with ft_mode="delta" and FTTrainerHooks from step
                 1,000 for 12 steps, a save every 2 (a base, 4 deltas, a
                 compaction base, the final save), one evict_to_host discard
@@ -133,23 +137,25 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 each persistence site (a mid-shard crash, a torn frame, a
                 crash before the manifest and before HEAD), each recovery
                 bit-equal to the writer at the save before, the run ending
-                bit-equal; the chain recovered into a tiered engine (262,144
+                bit-equal; the chain recovered into a tiered engine (131,072
                 device rows) that trains 4 steps bit-equal to the
                 all-device run with delta saves, that chain recovered
                 bit-equal onto an all-device and a tiered engine, no
                 discarded id back anywhere; the CLI with --ckpt-mode delta
                 crashed at step 6 in a fresh process (exit 42) and resumed
-                from step 5 within 1e-5; the row gather measured at the
+                from step 5 within 1e-5 (its first two processes run beside
+                the crash matrix and the tiered part); the row gather
+                measured at the
                 delta read (phase 5, path delta_read);
      recsys   — Wide & Deep, SASRec and MIND at published widths (their
                 vocabs too): serve_p99 (batch 512, 3 warm-up and 20 timed
                 requests over rows imported for the ids they touch) and
                 train_batch (batch 65,536 from a fresh state: 3 warm-up and
-                10 timed steps, the launches of every step held to what the
+                3 timed steps, the launches of every step held to what the
                 engine's groups and inserts imply, zero overflow, a
-                torch.profiler trace of three steps, ten steps on one
+                torch.profiler trace of three steps, three steps on one
                 repeated batch); then retrieval_cand (batch 1, 1,000,000
-                candidates, 2 warm-up and 10 timed requests, finite scores,
+                candidates, 2 warm-up and 5 timed requests, finite scores,
                 over 100 distinct) for all four recsys archs (dlrm-mlperf's
                 vocab cut as above); then the serve_retrieval twin's main();
                 the D-50 gather, tile, untile and scatter, the grouped sum
@@ -158,9 +164,10 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
      multi_rank — dlrm-mlperf train_batch (batch 65,536) at published
                 widths (vocab cut as above) over two gloo ranks that share
                 the card (spawned processes, each holding half of every
-                table; the all_to_alls staged through pinned host memory):
+                table; the all_to_alls staged through pinned host memory;
+                spawned at the phase's start, they wait for their turn):
                 the one-rank cell first, in this process, on the same
-                global batches, then 3 warm-up and 5 timed steps on the
+                global batches, then 1 warm-up and 2 timed steps on the
                 ranks, all in FP32: losses, the summed counters, the
                 launches of every step on every rank, the ranks' exports
                 against the one-rank export (ids bit-equal, each on its
@@ -185,24 +192,51 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 step; (c) the segment sum and its gradient (the row gather)
                 on ogb_products' recorded inputs against their plain
                 versions, timed (path gnn_ogb); (d) ogb_products
-                edge-parallel over two gloo ranks sharing the card, FP32,
-                after step 1 against the one-rank run, all-reduce bytes and
-                ms a step, and molecule with compress_grads over the ranks
+                edge-parallel over two gloo ranks sharing the card (spawned
+                at the phase's start, waiting for their turn), FP32, after
+                step 1 against the one-rank run, a timed step with its
+                all-reduce bytes and ms, and molecule with compress_grads
+                over the ranks
                 against one rank on the same global batch; (e) the train
                 driver with --arch gin-tu, checkpointed and resumed;
      lm train — full-width qwen2.5-3b train_4k (T 4,096, batch cut to 1)
-                from a fresh state on an emptied card: 2 warm-up and 5
+                from a fresh state (weights drawn on the card) on an
+                emptied card: 2 warm-up and 5
                 timed steps with the kernels' launch counts, state and
                 memory checks, layer 0's attention gradients against the
                 plain backward on every row, a torch.profiler trace of one
                 step, three steps on one repeated batch (the loss falls);
                 then the scatter on its D-2,048 inputs and the fp32 flash
                 kernels at T 1,024, H 16, Hk 2, hd 128 are measured;
+     moe      — (after the LM train, on an emptied card) the MoE family:
+                the smoke prefill (T 64, B 2) and decode (S 64, B 4) cells
+                of both archs on the card against the CPU (integers equal,
+                logits and caches within MIXED_PREFILL_TOL at the tokens
+                off a near-tie of the router, exact launches);
+                qwen2-moe-a2.7b prefill_32k at published widths and its 24
+                layers (batch cut to 1, rows for all 151,936 tokens, the
+                56.0 GB of weights drawn on the card): 1 warm-up and 3
+                timed requests, a flash launch a layer and a gather a
+                request, one wait for the expert group sizes a layer, peak
+                memory, a torch.profiler trace, layer 0's attention against
+                the plain formula on every row and layer 0's MoE against the
+                dense plain version (every expert on every token, in
+                1,024-token pieces), a zero output and one with two
+                experts' weights swapped shown to fail; its decode_32k at
+                batch 1 (cut from 128: 825 GB of cache): the decode of token
+                2,048 after a 2,048-token prefill held to the 2,049-token
+                prefill's last logits, then 3 warm-up and 10 timed steps
+                from a cache filled at S - 16, no wait for the device in a
+                step; moonshot-v1-16b-a3b prefill_32k at published widths
+                and 12 of its 48 layers (110.9 GB of fp32 weights at 48),
+                as qwen2-moe's; the row gather and the flash kernel on the
+                paths' recorded inputs (paths moe_prefill, moe_decode);
      decode   — (before the LM train) qwen2.5-3b decode: the smoke
                 decode_32k (S 128, B 4) and long_500k (S 256, B 1) cells,
                 three steps each on the card against the CPU; at published
                 widths decode_32k (S 32,768, batch cut to 32) three steps
-                from the cell's fresh state, then rows for every token
+                from the cell's fresh state (weights drawn on the card), then
+                rows for every token
                 imported, a prefill of 2,048 tokens whose cache a decode
                 cell takes, its decode of token 2,048 held to the last
                 logits of a 2,049-token prefill; decode_32k timed from a
@@ -241,6 +275,7 @@ JSON object per line; the last is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -251,6 +286,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -260,13 +296,15 @@ import torch
 import torch.multiprocessing as mp
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()  # each phase line's "t_s": seconds since the script started
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
 VOCAB = 250_000             # per feature; the published 4,000,000 needs 240 GB
 N_P99_REQUESTS, N_WARMUP = 20, 3
-N_TRAIN_WARMUP, N_TRAIN_STEPS, N_REPEAT = 3, 10, 10
+N_TRAIN_WARMUP, N_TRAIN_STEPS, N_REPEAT = 3, 5, 5
+N_RM_STEPS, N_RM_REPEAT = 3, 3   # W&D, SASRec and MIND train_batch: 3 warm-up, 3 timed, 3 repeated
 MIXED_TOL = dict(rtol=2e-2, atol=2e-2)  # bf16 logits and loss, card against CPU
 # Train state, card against CPU after 3 smoke steps (bf16 dense compute; the
 # reasons are in tests/test_torch_train.py): rows and params within
@@ -298,6 +336,9 @@ FLASH_CASES = [  # B, T, H, Hk, hd, dtype, causal
     (1, 64, 16, 2, 128, torch.bfloat16, True), (1, 127, 16, 2, 128, torch.bfloat16, True),
     (1, 129, 16, 2, 128, torch.bfloat16, True), (1, 4096, 16, 2, 128, torch.bfloat16, True),
     (2, 300, 8, 2, 128, torch.bfloat16, False), (2, 256, 8, 1, 64, torch.bfloat16, True),
+    # the same edges at the MoE archs' heads (H = Hk = 16: G = 1)
+    (1, 64, 16, 16, 128, torch.bfloat16, True), (1, 127, 16, 16, 128, torch.bfloat16, True),
+    (1, 129, 16, 16, 128, torch.bfloat16, True), (1, 4096, 16, 16, 128, torch.bfloat16, True),
 ]
 # strided layouts: q, k, v as head slices of one fused projection (and, in
 # the backward, a dO with strides of its own), in fp32 and in bf16
@@ -375,9 +416,9 @@ MSE_LATER_MOMENT_FRAC = 0.25    # the rows' moments after 3 steps, of their larg
 # 100 columns of 2,000 values, column widths 8-63
 OP_COLS, OP_VALS = 100, 2_000
 # The train driver (repro_torch.launch.train) at published widths, its vocab
-# cut so that the engine (1.95 M rows: emb, m and v, about 3 GB) checkpoints
-# in seconds; the ColumnIO table holds 8 batches (loop mode)
-DRIVER_VOCAB, DRIVER_BATCH, DRIVER_ROWS = 50_000, 8_192, 65_536
+# cut so that the engine (0.78 M rows: emb, m and v, about 1.2 GB)
+# checkpoints in seconds; the ColumnIO table holds 8 batches (loop mode)
+DRIVER_VOCAB, DRIVER_BATCH, DRIVER_ROWS = 20_000, 8_192, 65_536
 DRIVER_STEPS, DRIVER_PREEMPT_STEPS, DRIVER_SIGTERM_AT = 40, 30, 15
 DRIVER_CRASH_STEPS, DRIVER_CRASH_AT = 12, 6
 # The tiered train (full_tiered_train): dlrm-mlperf train_batch at published
@@ -390,21 +431,24 @@ DRIVER_CRASH_STEPS, DRIVER_CRASH_AT = 12, 6
 # of a card path that ignores MIXED), which each run also holds above it
 # (scripts/window_precision_spread.py)
 TIER_ROWS, TIER_STEPS, TIER_MID_STEP, TIER_EVICT_AT = 524_288, 12, 6, 10
-# The delta checkpoints (delta_ckpt) at the train driver's sizes: a row for
-# each of the 26 x 50,000 ids the vocab gives (1.3 M rows: emb, m and v,
-# 2.0 GB), the Trainer from step 1,000 with a save every 2 steps over 12
+# The delta checkpoints (delta_ckpt) at published widths, vocab 10,000 and
+# batch 1,024 (two steps dirty about 7.4% of the rows, under the 10% the
+# check asks): a row for each of the 26 x 10,000 ids the vocab gives (0.26 M
+# rows: emb, m and v, 0.4 GB), the Trainer from step 1,000 with a save every 2 steps over 12
 # steps (a base, 4 deltas, a compaction base past depth 4, the run's final
 # save), imported last uses in [0, 1,000) and one discard of the rows idle
 # since before step 64 after step 1,010; a crash at each persistence site
 # (4 frames a save: the 3rd frame of the 2nd save, a torn 3rd frame of the
 # 3rd, the 4th manifest, the 5th HEAD), each recovery landing on the save
-# before; a tiered engine of 262,144 device rows for 4 more steps
+# before; a tiered engine of 131,072 device rows (half the rows) for 4 more
+# steps
 DELTA_START, DELTA_STEPS, DELTA_EVERY, DELTA_EVICT_AT, DELTA_CUTOFF, DELTA_MAX_DEPTH = 1_000, 12, 2, 10, 64, 4
 DELTA_CHAOS = "crash@frame:7,torn@frame:14,crash@manifest:4,crash@head:5"
 DELTA_RECOVERED = [1_002, 1_004, 1_006, 1_008]
-DELTA_TIER_ROWS, DELTA_TIER_STEPS = 262_144, 4
+DELTA_VOCAB, DELTA_BATCH, DELTA_TIER_ROWS, DELTA_TIER_STEPS = 10_000, 1_024, 131_072, 4
 DELTA_CLI_STEPS, DELTA_CLI_CRASH_AT = 12, 6
 WINDOW_LOSS_TOL, MIXED_WINDOW_LOSS_TOL = 1e-5, 8e-4
+WINDOWS = 3  # the online window example's main() over 3 of its 5 windows
 # The multi-rank phase: dlrm-mlperf train_batch (batch 65,536) at published
 # widths over two gloo ranks sharing the one card (host-staged all_to_alls),
 # each holding half the table, against the one-rank cell on the same global
@@ -423,7 +467,7 @@ WINDOW_LOSS_TOL, MIXED_WINDOW_LOSS_TOL = 1e-5, 8e-4
 # rounding step by step, so the values' drift is reported beside that of
 # the one-rank run with its dense params perturbed by MR_PERTURB (about an
 # FP32 rounding) after its first step
-MR_RANKS, MR_WARMUP, MR_STEPS, MR_SERVE, MR_NCCL_STEPS = 2, 3, 5, 2, 3
+MR_RANKS, MR_WARMUP, MR_STEPS, MR_SERVE, MR_NCCL_STEPS = 2, 1, 2, 2, 3
 MR_SEED = 40_000
 MR_REL_TOL = 1e-4
 MR_PERTURB = 1e-7
@@ -458,6 +502,26 @@ BUCKET_CASES = [  # column widths, N, value type, column-id layout (bucket_case)
     ([3_000] * 5, 20_000, np.float32, "out_of_range", False),
     ([0, 5, 0, 17, 0], 10_000, np.float32, "out_of_range", False),  # width-0 columns
 ]
+
+
+_CHILDREN: list = []  # the CLI processes started (``cli_process``)
+
+
+def cli_process(cmd: list, env: dict) -> subprocess.Popen:
+    """A fresh process of the train driver's CLI, its output piped; one
+    still running when this script exits (a phase failed beside it) is
+    killed then."""
+    p = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    _CHILDREN.append(p)
+    return p
+
+
+@atexit.register
+def _kill_children() -> None:
+    for p in _CHILDREN:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
 
 
 def kernel_counts() -> dict:
@@ -499,6 +563,8 @@ def reset_kernel_counts() -> None:
 
 
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -558,6 +624,27 @@ def flash_bwd_readings(got, want, dtype) -> dict:
     dk = want[1]
     out["dk_other_kv_head_err_over_tol"] = flash_excess(dk.flip(2), dk, dtype) if dk.shape[2] > 1 else None
     return out
+
+
+def _attention_layer0(fa_ops, fa_ref, q0, k0, v0, what: str) -> dict:
+    """Layer 0's attention of a long prefill on every query row against the
+    plain formula (in pieces: its whole (H, T, T) score tensor would take
+    68 GB at T 32,768), and what a zero output or one from another kv head
+    (the heads reversed) would read; checked."""
+    o0, lse0 = fa_ops.flash_fwd(q0, k0, v0)
+    want_o, want_l = plain_flash_chunked(fa_ref, q0, k0, v0)
+    wrong_o, _ = plain_flash_chunked(fa_ref, q0, k0.flip(2), v0.flip(2))
+    layer0 = {"max_abs_o": float(want_o.float().abs().max()),
+              "o_max_abs_err": float((o0.float() - want_o.float()).abs().max()),
+              "o_err_over_tol": flash_excess(o0, want_o, q0.dtype),
+              "lse_max_abs_err": float((lse0 - want_l).abs().max()),
+              "zero_output_err_over_tol": flash_excess(torch.zeros_like(want_o), want_o, q0.dtype),
+              "other_kv_head_err_over_tol": flash_excess(wrong_o, want_o, q0.dtype)}
+    check(layer0["o_err_over_tol"] <= 1.0 and torch.allclose(lse0, want_l, rtol=LSE_TOL, atol=LSE_TOL),
+          f"{what} layer 0 attention {layer0}")
+    check(layer0["zero_output_err_over_tol"] > 1.0 and layer0["other_kv_head_err_over_tol"] > 1.0,
+          f"the {what} layer 0 check cannot tell a wrong output: {layer0}")
+    return layer0
 
 
 def plain_flash_chunked(ref, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rows: int = PLAIN_ROWS):
@@ -651,6 +738,16 @@ def bound_ms(n_bytes: float, n_ops: float = 0.0, ops_per_s: float = FP32_OPS_PER
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def card_model(cfg, dev):
+    """A transformer at ``cfg``'s widths, built and drawn on the card from
+    a CUDA generator seeded SEED with the package's law
+    (``transformer.init``'s ``gen``): well under a second where the
+    package's CPU draw of a full-width model takes 20-45 s."""
+    from repro_torch.models import transformer as tfm
+
+    return tfm.init(cfg, device=dev, gen=torch.Generator(device=dev).manual_seed(SEED))
+
+
 def save_inputs(where: Path | None, kname: str, path: str, args: list) -> None:
     """The row gather's, the untile's or the bucketize's recorded inputs on
     one path, as ``scripts/gather_untile_ab.py`` and
@@ -696,6 +793,7 @@ def main() -> None:
     from repro_torch.launch import recsys_cell
     from repro_torch.launch.cells import build_cell
     from repro_torch.launch.common import local_view
+    from repro_torch.optim import adamw
 
     counts, reset_counts = kernel_counts, reset_kernel_counts
 
@@ -1256,9 +1354,8 @@ def main() -> None:
     n_rows = all_ids.numel()
     check(n_rows == mcfg.n_sparse * VOCAB, "engine ids")
     check(torch.unique(all_ids).numel() == n_rows, "engine ids of distinct raw ids collide")
-    emb = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
-        (n_rows, mcfg.embed_dim), dtype=np.float32))
-    emb.mul_(0.05)
+    emb = torch.randn((n_rows, mcfg.embed_dim), generator=torch.Generator(device=dev).manual_seed(SEED),
+                      device=dev).mul_(0.05)  # drawn on the card: the host draw took 8-10 s
     zeros = torch.zeros((n_rows, mcfg.embed_dim), dtype=torch.float32, device=dev)
     rows = {"dim128": {"ids": all_ids, "emb": emb, "slots": {"m": zeros, "v": zeros},
                        "last_use": torch.zeros(n_rows, dtype=torch.int32, device=dev)}}
@@ -1483,7 +1580,9 @@ def main() -> None:
     t0 = time.perf_counter()
     pre = build_cell("qwen2.5-3b", "prefill_32k", shape_override=pshape, device=dev)
     gkey = f"dim{d_model}"
-    pstate = pre.init_state()  # weights from a seeded generator
+    # the cell's init_state, its weights drawn on the card (``card_model``)
+    pstate = {"step": torch.zeros((), dtype=torch.int32, device=dev), "dense": card_model(lm_cfg, dev),
+              "sparse": pre.engine.init_state()}
     vocab = {"tokens": Ragged(torch.arange(V, dtype=torch.int64, device=dev),
                               torch.tensor([0, V], dtype=torch.int32, device=dev))}
     all_ids = pre.engine.engine_ids(vocab)[gkey]
@@ -1546,24 +1645,7 @@ def main() -> None:
         check(got == want, f"prefill: {got} of {want} distinct tokens found")
         found.append(got)
         del plans
-    # layer 0's attention on every query row against the plain formula (in
-    # pieces: its whole (H, T, T) score tensor would take 68 GB), and what a
-    # zero output or one from the other kv head would read
-    q0, k0, v0 = recorded[("flash_attention", "prefill")][0]
-    o0, lse0 = fa_ops.flash_fwd(q0, k0, v0)
-    want_o, want_l = plain_flash_chunked(fa_ref, q0, k0, v0)
-    wrong_o, _ = plain_flash_chunked(fa_ref, q0, k0.flip(2), v0.flip(2))
-    layer0 = {"max_abs_o": float(want_o.float().abs().max()),
-              "o_max_abs_err": float((o0.float() - want_o.float()).abs().max()),
-              "o_err_over_tol": flash_excess(o0, want_o, q0.dtype),
-              "lse_max_abs_err": float((lse0 - want_l).abs().max()),
-              "zero_output_err_over_tol": flash_excess(torch.zeros_like(want_o), want_o, q0.dtype),
-              "other_kv_head_err_over_tol": flash_excess(wrong_o, want_o, q0.dtype)}
-    check(layer0["o_err_over_tol"] <= 1.0 and torch.allclose(lse0, want_l, rtol=LSE_TOL, atol=LSE_TOL),
-          f"prefill layer 0 attention {layer0}")
-    check(layer0["zero_output_err_over_tol"] > 1.0 and layer0["other_kv_head_err_over_tol"] > 1.0,
-          f"the layer 0 check cannot tell a wrong output: {layer0}")
-    del o0, lse0, want_o, want_l, wrong_o, q0, k0, v0
+    layer0 = _attention_layer0(fa_ops, fa_ref, *recorded[("flash_attention", "prefill")][0], "prefill")
     pm = np.array(prefill_ms)
     emit({"phase": "full_prefill", "arch": "qwen2.5-3b", "shape": "prefill_32k", "widths": {
               "n_layers": L_lm, "d_model": d_model, "n_heads": lm_cfg.n_heads, "n_kv_heads": lm_cfg.n_kv_heads,
@@ -1985,16 +2067,16 @@ def main() -> None:
     tiered_launches = tiered_train_phase(counts, reset_counts, phase, recorded, recorder,
                                          {e["name"]: e for e in entries}, dev, arch, arch.shape("train_batch")["batch"],
                                          device_info)
-    window_launches = online_window_phase(counts, reset_counts, dev, device_info)
+    window_launches = online_window_phase(counts, reset_counts, dev, device_info, n_windows=WINDOWS)
     for e in entries:
         e["launches_by_path"].update(tiered_train=tiered_launches[e["name"]],
                                      online_window=window_launches[e["name"]])
     torch.cuda.empty_cache()
 
-    # ------------------ 4 delta checkpoints and crash recovery (train driver sizes)
-    delta_arch = dataclasses.replace(arch, model=dataclasses.replace(arch.model, vocab_per_feature=DRIVER_VOCAB))
+    # ------------------------------------- 4 delta checkpoints and crash recovery
+    delta_arch = dataclasses.replace(arch, model=dataclasses.replace(arch.model, vocab_per_feature=DELTA_VOCAB))
     delta_launches = delta_ckpt_phase(counts, reset_counts, phase, recorded, recorder,
-                                      {e["name"]: e for e in entries}, dev, delta_arch, DRIVER_BATCH, device_info)
+                                      {e["name"]: e for e in entries}, dev, delta_arch, DELTA_BATCH, device_info)
     for e in entries:
         e["launches_by_path"]["delta_ckpt"] = delta_launches[e["name"]]
     torch.cuda.empty_cache()
@@ -2012,14 +2094,6 @@ def main() -> None:
         e["launches_by_path"]["multi_rank"] = mr_launches[e["name"]]
     torch.cuda.empty_cache()
 
-    # the decode phase's seed-0 qwen2.5-3b weights, drawn on the host while
-    # the GNN phase runs (the draw takes 30-45 s)
-    import threading
-
-    drawn: dict = {}
-    draw = threading.Thread(target=_draw_lm_weights, args=(drawn,), daemon=True)
-    draw.start()
-
     # ------------ 4 the GNN family (gin-tu): smoke, published widths, two ranks
     gnn_launches = gnn_phase(counts, reset_counts, phase, recorded, recorder, {e["name"]: e for e in entries}, dev,
                              device_info)
@@ -2028,11 +2102,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ------------- 4 LM decode (qwen2.5-3b decode_32k and long_500k), two ranks
-    draw.join()
-    if "error" in drawn:
-        raise drawn["error"]
     dec_launches = decode_phase(counts, reset_counts, phase, recorded, recorder, {e["name"]: e for e in entries},
-                                dev, device_info, drawn.pop("model"))
+                                dev, device_info)
     for e in entries:
         e["launches_by_path"]["decode"] = dec_launches[e["name"]]
     torch.cuda.empty_cache()
@@ -2045,7 +2116,11 @@ def main() -> None:
     t0 = time.perf_counter()
     ltrain = build_cell("qwen2.5-3b", "train_4k", device=dev, shape_override=ShapeCell(
         "train_4k", "train", {"seq_len": LM_TRAIN_T, "global_batch": 1}))
-    lstate = ltrain.init_state()  # weights from a seeded generator, zero moments, an empty engine
+    # the cell's init_state (zero moments, an empty engine), its weights drawn on the card
+    ldense = card_model(lm_cfg, dev)
+    lstate = {"step": torch.zeros((), dtype=torch.int32, device=dev), "dense": ldense,
+              "opt": adamw.init(dict(ldense.named_parameters())), "sparse": ltrain.engine.init_state()}
+    del ldense
     torch.cuda.synchronize()
     lsetup_s = time.perf_counter() - t0
     lstate_bytes = {"dense_params": sum(p.numel() * p.element_size() for p in lstate["dense"].parameters()),
@@ -2184,8 +2259,14 @@ def main() -> None:
         "host_us",
         "library_ms", "two_launches_bit_equal")})
     del q32, k32, v32, do32, o32, lse32, fp32_bargs
+    torch.cuda.empty_cache()
+
+    # ------- 4 the MoE family (qwen2-moe-a2.7b, moonshot-v1-16b-a3b) serving
+    moe_launches = moe_phase(counts, reset_counts, phase, recorded, recorder, by_name, flash_at, dev, device_info)
+    check(not recorded, f"recorded inputs left unmeasured: {list(recorded)}")
     for e in entries:
         e["launches_by_path"]["lm_train"] = lm_launches[e["name"]]
+        e["launches_by_path"]["moe"] = moe_launches[e["name"]]
         e["launches"] = sum(e["launches_by_path"].values())
     fwd_by_path = {"csr_op": csr_launches["flash_attention.flash_fwd"],
                    "gnn": gnn_launches["flash_attention.flash_fwd"],
@@ -2202,7 +2283,8 @@ def main() -> None:
                    "train": train_launches["flash_attention.flash_fwd"],
                    "prefill": prefill_launches["flash_attention.flash_fwd"],
                    "mse_train": mse_launches["flash_attention.flash_fwd"],
-                   "lm_train": lm_launches["flash_attention.flash_fwd"]}
+                   "lm_train": lm_launches["flash_attention.flash_fwd"],
+                   "moe": moe_launches["flash_attention.flash_fwd"]}
     entries.append({
         "name": "flash_attention.flash_fwd", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:83", "ok": True,
@@ -2228,7 +2310,8 @@ def main() -> None:
                    "train": train_launches["flash_attention.flash_bwd"],
                    "prefill": prefill_launches["flash_attention.flash_bwd"],
                    "mse_train": mse_launches["flash_attention.flash_bwd"],
-                   "lm_train": lm_launches["flash_attention.flash_bwd"]}
+                   "lm_train": lm_launches["flash_attention.flash_bwd"],
+                   "moe": moe_launches["flash_attention.flash_bwd"]}
     entries.append({
         "name": "flash_attention.flash_bwd", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:210", "ok": True,
@@ -2353,6 +2436,24 @@ def train_driver_phase(counts, reset_counts) -> dict:
     del cell, held, host_batches
     torch.cuda.empty_cache()
 
+    # (c)'s first two processes start now and run beside (b): an injected
+    # crash of the CLI in a fresh process (exit 42), then a resume, against
+    # an uninterrupted run of the CLI, at smoke width. Every step is saved
+    # and a save waits for the one before it, so the crash at step 6 leaves
+    # step 4 committed for certain, and step 5 perhaps.
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "dlrm-mlperf", "--device", "cuda",
+           "--steps", str(DRIVER_CRASH_STEPS), "--log-every", "1"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    ck_c = base / "ckpt_c"
+
+    def cli(extra: list) -> subprocess.Popen:
+        return cli_process(cmd + extra, env)
+
+    t_cli = time.perf_counter()
+    procs = [cli(["--telemetry", str(base / "c_u.jsonl")]),
+             cli(["--chaos-schedule", f"crash@step:{DRIVER_CRASH_AT}", "--ckpt-dir", str(ck_c),
+                  "--ckpt-every", "1", "--telemetry", str(base / "c_a.jsonl")])]
+
     # (b) preemption: SIGTERM at step 15 (final checkpoint), then a resume
     # to 30, against an uninterrupted run on the same synthetic batches
     ck = base / "ckpt_b"
@@ -2402,27 +2503,12 @@ def train_driver_phase(counts, reset_counts) -> dict:
     check(b_err is not None and b_err <= 1e-5, f"resumed losses differ by {b_err}")
     shutil.rmtree(ck, ignore_errors=True)
 
-    # (c) an injected crash of the CLI in a fresh process (exit 42), then a
-    # resume, against an uninterrupted run of the CLI, at smoke width. Every
-    # step is saved and a save waits for the one before it, so the crash at
-    # step 6 leaves step 4 committed for certain, and step 5 perhaps.
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "dlrm-mlperf", "--device", "cuda",
-           "--steps", str(DRIVER_CRASH_STEPS), "--log-every", "1"]
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    ck = base / "ckpt_c"
-
-    def cli(extra: list) -> subprocess.Popen:
-        return subprocess.Popen(cmd + extra, env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                text=True)
-
-    t0 = time.perf_counter()
-    procs = [cli(["--telemetry", str(base / "c_u.jsonl")]),
-             cli(["--chaos-schedule", f"crash@step:{DRIVER_CRASH_AT}", "--ckpt-dir", str(ck),
-                  "--ckpt-every", "1", "--telemetry", str(base / "c_a.jsonl")])]
+    # (c) the CLI's crash and its uninterrupted run (started before (b)),
+    # then the resume
     (out_u, err_u), (out_a, err_a) = (p.communicate(timeout=300) for p in procs)
-    resume = cli(["--resume", "--ckpt-dir", str(ck), "--ckpt-every", "1", "--telemetry", str(base / "c_r.jsonl")])
+    resume = cli(["--resume", "--ckpt-dir", str(ck_c), "--ckpt-every", "1", "--telemetry", str(base / "c_r.jsonl")])
     out_r, err_r = resume.communicate(timeout=300)
-    cli_s = time.perf_counter() - t0
+    cli_s = time.perf_counter() - t_cli
     rcs = [procs[0].returncode, procs[1].returncode, resume.returncode]
     cu, ca, cr = ({k: r["metrics"]["loss"] for k, r in _step_records(base / f).items()}
                   for f in ("c_u.jsonl", "c_a.jsonl", "c_r.jsonl"))
@@ -2441,7 +2527,8 @@ def train_driver_phase(counts, reset_counts) -> dict:
           "losses_resumed": [cr[k] for k in sorted(cr)], "crashed_steps_max_rel_err": err_crashed,
           "resumed_steps_max_rel_err": err_resumed,
           "bit_equal": all(d.get(k) == cu.get(k) for d in (ca, cr) for k in d),
-          "three_processes_s": cli_s, "part_s": time.perf_counter() - phase_t0,
+          "three_processes_s": cli_s, "three_processes_s_note": "the first two beside (b)",
+          "part_s": time.perf_counter() - phase_t0,
           "stderr_tail": [e.strip().splitlines()[-3:] for e in (err_u, err_a, err_r) if e.strip()]})
     check(rcs == [0, drv.CHAOS_EXIT, 0], f"CLI return codes {rcs}: {err_a[-2000:]}")
     check(f"CHAOS: chaos: crash@step:{DRIVER_CRASH_AT}" in out_a, "the crash was not the injected one")
@@ -2681,8 +2768,9 @@ def tiered_train_phase(counts, reset_counts, phase: dict, recorded: dict, record
 
 def online_window_phase(counts, reset_counts, dev, device_info: dict, **main_kw) -> dict:
     """The twin of examples/online_window.py: its ``main()`` on the card at
-    the example's settings (5 windows of 120 steps, eviction age 150, rows
-    per shard 4,096), with each window's pre-train eval and last loss and
+    the example's settings (windows of 120 steps, eviction age 150, rows
+    per shard 4,096; ``main_kw`` may cut the 5 windows), with each window's
+    pre-train eval and last loss and
     each eviction's live rows checked and the launches counted (the sets 3
     for each train step whose insert placed rows); then its first window on
     the card and on the CPU, in FP32 and in the example's MIXED, each held
@@ -2749,6 +2837,7 @@ def online_window_phase(counts, reset_counts, dev, device_info: dict, **main_kw)
           f"the card's FP32 run against it {control_diff})")
     emit({"phase": "online_window", **device_info, "entry": "repro_torch.examples.online_window.main",
           "settings": {"windows": len(wins), "steps_per_window": main_kw.get("steps_per_window", 120),
+                       "reduced": {"windows": [5, len(wins)]},
                        "batch": ow.BATCH, "rows_per_shard": ow.ROWS_PER_SHARD,
                        "evict_age": main_kw.get("evict_age", 150)},
           "pre_eval_loss": pre, "post_train_loss": post, "evictions": evictions,
@@ -2803,8 +2892,9 @@ DIGEST_KEYS = ("ids", "emb", "m", "v", "last_use")
 
 def delta_ckpt_phase(counts, reset_counts, phase: dict, recorded: dict, recorder, by_name: dict, dev, arch,
                      batch: int, device_info: dict, tier_rows: int = DELTA_TIER_ROWS) -> dict:
-    """Incremental checkpoints and crash recovery on the card at the train
-    driver's sizes (dlrm-mlperf at published widths, ``arch``'s vocab):
+    """Incremental checkpoints and crash recovery on the card (dlrm-mlperf
+    at published widths, ``arch``'s vocab DELTA_VOCAB, ``batch``
+    DELTA_BATCH):
     (a) the Trainer with ``ft_mode="delta"`` and ``FTTrainerHooks`` over
     DELTA_STEPS steps from a state that holds a row for every id the vocab
     gives, a save every 2 steps, a chain at most DELTA_MAX_DEPTH deltas
@@ -3005,6 +3095,21 @@ def delta_ckpt_phase(counts, reset_counts, phase: dict, recorded: dict, recorder
     del st, met, res_a, tr, cell
     release()
 
+    # (d)'s first two processes start now and run beside (b) and (c): the
+    # CLI with --ckpt-mode delta, uninterrupted and crashed
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "dlrm-mlperf", "--device", "cuda",
+           "--steps", str(DELTA_CLI_STEPS), "--log-every", "1", "--batch", "64", "--ckpt-mode", "delta",
+           "--ckpt-every", "1"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+    def cli(extra: list) -> subprocess.Popen:
+        return cli_process(cmd + extra, env)
+
+    t_cli = time.perf_counter()
+    procs = [cli(["--ckpt-dir", str(base / "d_u"), "--telemetry", str(base / "d_u.jsonl")]),
+             cli(["--ckpt-dir", str(base / "d_c"), "--chaos-schedule", f"crash@step:{DELTA_CLI_CRASH_AT}",
+                  "--telemetry", str(base / "d_a.jsonl")])]
+
     # ----------------------------------------------------- (b) crash matrix
     io_b = t_ft.ChaosIO(t_ft.ChaosSchedule.parse(DELTA_CHAOS))  # no fsync, as the chaos tests run it
     dir_b = base / "b"
@@ -3106,23 +3211,10 @@ def delta_ckpt_phase(counts, reset_counts, phase: dict, recorded: dict, recorder
     c_s = time.perf_counter() - t0
 
     # ------------------------------------------- (d) the CLI, fresh processes
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "dlrm-mlperf", "--device", "cuda",
-           "--steps", str(DELTA_CLI_STEPS), "--log-every", "1", "--batch", "64", "--ckpt-mode", "delta",
-           "--ckpt-every", "1"]
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-
-    def cli(extra: list) -> subprocess.Popen:
-        return subprocess.Popen(cmd + extra, env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                text=True)
-
-    t0 = time.perf_counter()
-    procs = [cli(["--ckpt-dir", str(base / "d_u"), "--telemetry", str(base / "d_u.jsonl")]),
-             cli(["--ckpt-dir", str(base / "d_c"), "--chaos-schedule", f"crash@step:{DELTA_CLI_CRASH_AT}",
-                  "--telemetry", str(base / "d_a.jsonl")])]
     (out_u, err_u), (out_a, err_a) = (p.communicate(timeout=300) for p in procs)
     resume = cli(["--ckpt-dir", str(base / "d_c"), "--resume", "--telemetry", str(base / "d_r.jsonl")])
     out_r, err_r = resume.communicate(timeout=300)
-    d_s = time.perf_counter() - t0
+    d_s = time.perf_counter() - t_cli
     rcs = [procs[0].returncode, procs[1].returncode, resume.returncode]
     cu, ca, cr = ({k: r["metrics"]["loss"] for k, r in _step_records(base / f).items()}
                   for f in ("d_u.jsonl", "d_a.jsonl", "d_r.jsonl"))
@@ -3176,7 +3268,7 @@ def delta_ckpt_phase(counts, reset_counts, phase: dict, recorded: dict, recorder
           "cli": {"cmd": " ".join(cmd[1:]), "crash_at": DELTA_CLI_CRASH_AT, "returncodes": rcs,
                   "resumed_from": d_start, "max_rel_err": d_err, "chain": cli_chain,
                   "losses_uninterrupted": [cu[k] for k in sorted(cu)], "losses_resumed": [cr[k] for k in sorted(cr)],
-                  "three_processes_s": d_s},
+                  "three_processes_s": d_s, "three_processes_s_note": "the first two beside (b) and (c)"},
           "delta_read_gather": {k: read_at[k] for k in ("shape", "ms", "kernel_device_ms", "plain_ms",
                                                       "library_ms", "bound_ms", "bound_by", "host_us")},
           "phase_s": time.perf_counter() - phase_t0})
@@ -3189,7 +3281,7 @@ def delta_ckpt_phase(counts, reset_counts, phase: dict, recorded: dict, recorder
 
 RECSYS_MODELS = ("wide-deep", "sasrec", "mind")
 RETRIEVAL_ARCHS = ("dlrm-mlperf", "wide-deep", "sasrec", "mind")
-N_RETR_WARMUP, N_RETR = 2, 10
+N_RETR_WARMUP, N_RETR = 2, 5
 # The models keep their published vocabs in every cell; dlrm-mlperf keeps
 # VOCAB (its published 4,000,000 needs 240 GB). A retrieval cell holds two
 # engines, each sized for the whole table (emb, m, v: 12 D bytes a row, and
@@ -3399,8 +3491,8 @@ def recsys_models_phase(counts, reset_counts, phase: dict, recorded: dict, recor
     """Wide & Deep, SASRec and MIND at published widths: each model's
     ``serve_p99`` (batch 512, 3 warm-up and 20 timed requests over rows
     imported for the ids they touch) and ``train_batch`` (batch 65,536 from
-    a fresh state: 3 warm-up and 10 timed steps with exact launches a step,
-    zero overflow, finite losses, a torch.profiler trace of three steps, ten
+    a fresh state: 3 warm-up and 5 timed steps with exact launches a step,
+    zero overflow, finite losses, a torch.profiler trace of three steps, five
     steps on one repeated batch); then ``retrieval_cand`` (1,000,000
     candidates, 2 warm-up and 10 timed requests) for the four recsys archs
     and the serve_retrieval twin's ``main()``. The kernels are measured on
@@ -3515,7 +3607,7 @@ def recsys_models_phase(counts, reset_counts, phase: dict, recorded: dict, recor
 
             # ------------------------------------------------ train_batch
             cell = recsys_cell.build(arch, arch.shape("train_batch"), device=dev)
-            n_steps = N_TRAIN_WARMUP + N_TRAIN_STEPS
+            n_steps = N_TRAIN_WARMUP + N_RM_STEPS
             tbatches = [cell.make_batch(50_000 + s, vocab=vocab) for s in range(n_steps + 3 + 1)]
             ids_per_step = {k: int(v.numel()) for k, v in cell.engine.engine_ids(cell.ids_fn(tbatches[0])).items()}
             tstate = cell.init_state()
@@ -3560,13 +3652,13 @@ def recsys_models_phase(counts, reset_counts, phase: dict, recorded: dict, recor
             prof = profile_requests(f"{arch_id}_train_batch", run_step, tbatches[n_steps:n_steps + 3])
             emit(prof)
             repeat = []
-            for _ in range(N_REPEAT):
+            for _ in range(N_RM_REPEAT):
                 tstate, out = cell.step_fn(tstate, tbatches[-1])
                 repeat.append(float(out["loss"]))
             check(all(np.isfinite(repeat)) and repeat[-1] < repeat[0], f"{arch_id} loss on one repeated batch: {repeat}")
             st_a = np.array(step_ms)
             models[arch_id] = {"serve_p99": serve, "train_batch": {
-                "batch": cell.shape["batch"], "warmup": N_TRAIN_WARMUP, "steps": N_TRAIN_STEPS,
+                "batch": cell.shape["batch"], "warmup": N_TRAIN_WARMUP, "steps": N_RM_STEPS,
                 "engine_ids_per_step": ids_per_step, "step_ms_p50": float(np.percentile(st_a, 50)),
                 "step_ms_p99": float(np.percentile(st_a, 99)), "step_ms_mean": float(st_a.mean()), "step_ms": step_ms,
                 "loss": losses, "idmap_inserted": inserted, "loss_on_one_repeated_batch": repeat,
@@ -4139,9 +4231,10 @@ def profile_requests(cell_name: str, run, batches) -> dict:
 # machine has two cards)
 # ---------------------------------------------------------------------------
 def _mr_rank(rank: int, world: int, backend: str, store: str, arch, n_warmup: int, n_steps: int,
-             full: bool, q) -> None:
+             full: bool, turn, q) -> None:
     """One rank of the multi-rank phase (a spawned process): joins the
-    group, runs ``_mr_run`` and reports its result, or its traceback."""
+    group, waits for its ``turn`` (``_await_turn``), runs ``_mr_run`` and
+    reports its result, or its traceback."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.launch import mesh
 
@@ -4149,6 +4242,7 @@ def _mr_rank(rank: int, world: int, backend: str, store: str, arch, n_warmup: in
         group = mesh.init_group(backend, rank=rank, world_size=world, store_path=store)
         dev = torch.device("cuda", rank if backend == "nccl" else 0)
         torch.cuda.set_device(dev)
+        _await_turn(turn)
         q.put((rank, True, _mr_run(rank, group, dev, arch, n_warmup, n_steps, full)))
     except BaseException:
         q.put((rank, False, traceback.format_exc()))
@@ -4160,8 +4254,8 @@ def _mr_rank(rank: int, world: int, backend: str, store: str, arch, n_warmup: in
 def _mr_spawn(backend: str, store: Path, arch, n_warmup: int, n_steps: int, full: bool) -> list:
     """Run ``_mr_rank`` on MR_RANKS spawned processes; stop them all, and
     fail with the first failing rank's traceback."""
-    return _spawn_ranks(_mr_rank, MR_RANKS, (backend, str(store), arch, n_warmup, n_steps, full), MR_TIMEOUT_S,
-                        "multi-rank")
+    return _spawn_ranks(_mr_rank, MR_RANKS, (backend, str(store), arch, n_warmup, n_steps, full, None),
+                        MR_TIMEOUT_S, "multi-rank")
 
 
 def _to_host(a, whole: bool):
@@ -4196,7 +4290,8 @@ def _measure_in_turns(rank: int, group, plains: dict, recorded: dict, real: dict
     from repro_torch.core import comm
 
     # a process's first profiler trace takes 11-13 s on the card: every
-    # rank takes its own at once, not in its turn
+    # rank takes its own at once (before its turn, if ``_await_turn`` has
+    # not), not in its turn
     kernel_device_ms(lambda: None, "", iters=1, tries=1)
     dist.barrier(group)
     out = {}
@@ -4443,56 +4538,64 @@ def multi_rank_phase(arch, dev, device_info: dict, by_name: dict) -> dict:
     out_dir.mkdir(parents=True)
     n_all = MR_WARMUP + MR_STEPS
 
-    # (a) one rank, in this process, on the same global batches, in FP32
-    recsys_cell.MIXED = layers.FP32
-    one = recsys_cell.build(arch, arch.shape("train_batch"), device=dev)
-    state = one.init_state()
-    np.savez(out_dir / "one_rank_dense0.npz",
-             **{k: v.detach().cpu().numpy() for k, v in state["dense"].state_dict().items()})
-    serve = recsys_cell.build(arch, arch.shape("serve_p99"), device=dev)
-    one_ms, one_loss, one_met = [], [], []
-    for s in range(n_all):
-        batch = one.make_batch(MR_SEED + s, vocab=VOCAB)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, o = one.step_fn(state, batch)
-        torch.cuda.synchronize()
-        if s >= MR_WARMUP:
-            one_ms.append((time.perf_counter() - t0) * 1e3)
-        one_loss.append(float(o["loss"]))
-        one_met.append({k: int(v) for k, v in o.items() if k != "loss"})
-        check(all(v == 0 for k, v in one_met[-1].items() if "overflow" in k), f"one-rank overflow: {one_met[-1]}")
-        if s == 0:
-            _mr_save(one.engine, state, out_dir, "one_step1")
-            one_logits = [serve.step_fn(state, serve.make_batch(MR_SEED + 100 + i, vocab=VOCAB))["logits"].cpu().numpy()
-                          for i in range(MR_SERVE)]
-    n_rows = _mr_save(one.engine, state, out_dir, "one_final")
-    del state, batch, o
-    torch.cuda.empty_cache()
+    # the ranks of (b) start now: they reach the card and take their first
+    # trace while (a) runs, then wait for their turn
+    early = EarlyRanks(_mr_rank, MR_RANKS, ("gloo", str(out_dir / "store"), arch, MR_WARMUP, MR_STEPS, True),
+                       MR_TIMEOUT_S, "multi-rank")
+    try:
+        # (a) one rank, in this process, on the same global batches, in FP32
+        recsys_cell.MIXED = layers.FP32
+        one = recsys_cell.build(arch, arch.shape("train_batch"), device=dev)
+        state = one.init_state()
+        np.savez(out_dir / "one_rank_dense0.npz",
+                 **{k: v.detach().cpu().numpy() for k, v in state["dense"].state_dict().items()})
+        serve = recsys_cell.build(arch, arch.shape("serve_p99"), device=dev)
+        one_ms, one_loss, one_met = [], [], []
+        for s in range(n_all):
+            batch = one.make_batch(MR_SEED + s, vocab=VOCAB)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, o = one.step_fn(state, batch)
+            torch.cuda.synchronize()
+            if s >= MR_WARMUP:
+                one_ms.append((time.perf_counter() - t0) * 1e3)
+            one_loss.append(float(o["loss"]))
+            one_met.append({k: int(v) for k, v in o.items() if k != "loss"})
+            check(all(v == 0 for k, v in one_met[-1].items() if "overflow" in k), f"one-rank overflow: {one_met[-1]}")
+            if s == 0:
+                _mr_save(one.engine, state, out_dir, "one_step1")
+                one_logits = [serve.step_fn(state, serve.make_batch(MR_SEED + 100 + i, vocab=VOCAB))["logits"].cpu().numpy()
+                              for i in range(MR_SERVE)]
+        n_rows = _mr_save(one.engine, state, out_dir, "one_final")
+        del state, batch, o
+        torch.cuda.empty_cache()
 
-    # (a') the drift a rounding alone makes: the same one-rank run with its
-    # dense params scaled by 1 + MR_PERTURB * N(0, 1) after its first step
-    state = one.init_state()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    for s in range(n_all):
-        state, _ = one.step_fn(state, one.make_batch(MR_SEED + s, vocab=VOCAB))
-        if s == 0:
-            with torch.no_grad():
-                for p in state["dense"].parameters():
-                    p.mul_(1 + MR_PERTURB * torch.randn(p.shape, generator=gen, device=dev))
-    perturbed = _mr_compare(one.engine, state, dev, out_dir, "one_final", None)
-    recsys_cell.MIXED = layers.MIXED
-    del one, serve, state
-    gc.collect()
-    torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated()
-    check(held < (1 << 30), f"{held} bytes still allocated before the ranks start")
+        # (a') the drift a rounding alone makes: the same one-rank run with its
+        # dense params scaled by 1 + MR_PERTURB * N(0, 1) after its first step
+        state = one.init_state()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for s in range(n_all):
+            state, _ = one.step_fn(state, one.make_batch(MR_SEED + s, vocab=VOCAB))
+            if s == 0:
+                with torch.no_grad():
+                    for p in state["dense"].parameters():
+                        p.mul_(1 + MR_PERTURB * torch.randn(p.shape, generator=gen, device=dev))
+        perturbed = _mr_compare(one.engine, state, dev, out_dir, "one_final", None)
+        recsys_cell.MIXED = layers.MIXED
+        del one, serve, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        check(held < (1 << 30), f"{held} bytes still allocated before the ranks start")
+    except BaseException:
+        early.stop()
+        raise
     one_s = time.perf_counter() - phase_t0
 
     # (b) two ranks on this card over gloo
     t0 = time.perf_counter()
-    ranks = _mr_spawn("gloo", out_dir / "store", arch, MR_WARMUP, MR_STEPS, True)
-    ranks_s = time.perf_counter() - t0
+    ranks = early.results()
+    ranks_s = time.perf_counter() - t0  # after their start
     for r in ranks:
         check(r["transport"] == "gloo, host-staged", f"rank {r['rank']}: transport {r['transport']}")
         check(np.allclose(r["loss"], one_loss, **MR_FP32_TOL), f"rank {r['rank']} losses {r['loss']} vs {one_loss}")
@@ -4586,7 +4689,7 @@ def multi_rank_phase(arch, dev, device_info: dict, by_name: dict) -> dict:
 GNN_SMOKE_SHAPES = {"full_graph_sm": {}, "minibatch_lg": {"batch_nodes": 16},
                     "ogb_products": {"n_nodes": 4_000, "n_edges": 30_001}, "molecule": {}}
 GNN_SHAPE_NAMES = ("ogb_products", "minibatch_lg", "molecule", "full_graph_sm")
-GNN_WARMUP, GNN_STEPS, GNN_RANK_STEPS, GNN_SMOKE_STEPS = 3, 5, 2, 3
+GNN_WARMUP, GNN_STEPS, GNN_RANK_STEPS, GNN_SMOKE_STEPS = 3, 5, 1, 3
 GNN_LR = 1e-3
 GNN_MIXED_LOSS_ATOL = 1e-2  # about one bf16 ulp of a loss near 1.6 (tests/test_torch_gnn.py)
 # MIXED: the params' update after step 1 against the CPU's as a relative
@@ -4762,10 +4865,10 @@ def _gnn_train(arch, name: str, dev, counts, reset_counts, phase: dict | None = 
     return line, launches, (st, batch)
 
 
-def _gnn_rank(rank: int, world: int, store: str, q) -> None:
+def _gnn_rank(rank: int, world: int, store: str, turn, q) -> None:
     """One rank of the GNN phase's two-rank run (a spawned process): joins
-    the gloo group, runs ``_gnn_rank_run`` and reports its result, or its
-    traceback."""
+    the gloo group, waits for its ``turn`` (``_await_turn``), runs
+    ``_gnn_rank_run`` and reports its result, or its traceback."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.launch import mesh
 
@@ -4773,6 +4876,7 @@ def _gnn_rank(rank: int, world: int, store: str, q) -> None:
         group = mesh.init_group("gloo", rank=rank, world_size=world, store_path=store)
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
+        _await_turn(turn)
         torch.backends.cuda.matmul.allow_tf32 = False
         q.put((rank, True, _gnn_rank_run(rank, group, dev)))
     except BaseException:
@@ -4876,6 +4980,54 @@ def _gnn_rank_run(rank: int, group, dev) -> dict:
         comm.all_reduce = real_all_reduce
         sr_ops.segment_sum, fg_ops.gather_rows = real["segment_sum"], real["gather_rows"]
         gnn_cell.MIXED = layers.MIXED
+
+
+def _await_turn(turn) -> None:
+    """In a rank spawned ahead of its turn (``turn``: the (go, stop) pair of
+    ``EarlyRanks``; None: no wait): the card reached and the process's first
+    profiler trace (11-13 s) taken now, then the wait for ``go``; a set
+    ``stop`` sends the rank home."""
+    if turn is None:
+        return
+    go, stop = turn
+    kernel_device_ms(lambda: None, "", iters=1, tries=1)
+    go.wait()
+    if stop.value:
+        raise SystemExit("stopped before its turn")
+
+
+class EarlyRanks:
+    """The ranks of ``target`` (``_spawn_ranks`` in a thread) spawned now,
+    so that their start, their reach of the card and their first profiler
+    trace overlap this process's work; each waits in ``_await_turn`` until
+    ``results()`` lets it run, or ``stop()`` sends it home. ``target``
+    takes the (go, stop) pair before its result queue."""
+
+    def __init__(self, target, n: int, args: tuple, timeout: float, what: str):
+        ctx = mp.get_context("spawn")
+        self.go, self.stop_flag, self.out = ctx.Event(), ctx.Value("b", 0), {}
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       args=(target, n, (*args, (self.go, self.stop_flag)), timeout, what))
+        self.thread.start()
+
+    def _run(self, *a) -> None:
+        try:
+            self.out["ranks"] = _spawn_ranks(*a)
+        except BaseException as e:  # re-raised by results()
+            self.out["error"] = e
+
+    def results(self) -> list:
+        self.go.set()
+        self.thread.join()
+        if "error" in self.out:
+            raise self.out["error"]
+        return self.out["ranks"]
+
+    def stop(self) -> None:
+        if not self.go.is_set():
+            self.stop_flag.value = 1
+            self.go.set()
+        self.thread.join(timeout=120)
 
 
 def _spawn_ranks(target, n: int, args: tuple, timeout: float, what: str) -> list:
@@ -4988,77 +5140,84 @@ def gnn_phase(counts, reset_counts, phase: dict, recorded: dict, recorder, by_na
         for k, v in d.items():
             launches[k] = launches.get(k, 0) + v
 
-    reset_counts()
-    smoke = _gnn_smoke(dev)
-    add(counts())
-    emit({"phase": "gnn_smoke", **device_info, "steps": GNN_SMOKE_STEPS, "cells": smoke,
-          "shapes": GNN_SMOKE_SHAPES, "phase_s": time.perf_counter() - phase_t0})
-
-    arch = get_config("gin-tu")
-    real = {"segment_sum": recorder(sr_ops, "segment_sum"), "gather_rows": recorder(fg_ops, "gather_rows")}
-    line, n, (st, ogb_batch) = _gnn_train(arch, "ogb_products", dev, counts, reset_counts, phase=phase,
-                                          profile=True)
-    sr_ops.segment_sum, fg_ops.gather_rows = real["segment_sum"], real["gather_rows"]  # no more records
-    add(n)
-    emit({**line, **device_info})
-    del st
-    torch.cuda.empty_cache()
-
-    # (c) the two kernels on ogb_products' recorded inputs
-    t0 = time.perf_counter()
-    at = {}
-    args, kw = recorded.pop(("segment_sum", "gnn_ogb"))
-    vals, ids, _ = args
-    check(vals.shape == (arch.shape("ogb_products")["n_edges"], arch.model.d_hidden) and ids.dtype == torch.int32
-          and kw == {"sorted_ids": True} and bool((ids[1:] >= ids[:-1]).all()),
-          f"gnn: recorded segment sum {tuple(vals.shape)} {ids.dtype} {kw}")
-    del vals, ids
-    at[entry["segment_sum"]] = _measure("segment_sum", real["segment_sum"], sr_ref.segment_sum, args, kw, 5, dev)
-    del args
-    torch.cuda.empty_cache()
-    args, kw = recorded.pop(("gather_rows", "gnn_ogb"))
-    at[entry["gather_rows"]] = _measure("gather_rows", real["gather_rows"], fg_ref.gather_rows, args, kw, 5, dev)
-    del args
-    torch.cuda.empty_cache()
-    for k, m in at.items():
-        _add_path(by_name[k], "gnn_ogb", m)
-    seg = by_name["segment_reduce.segment_sum"]  # on a path again: the GIN aggregation
-    seg["main_path"] = "gnn"
-    seg.pop("main_path_note", None)
-    m = at["segment_reduce.segment_sum"]
-    seg.update(ms=m["ms"], kernel_ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
-               bound_by=m["bound_by"], kernel_device_ms=m["kernel_device_ms"], host_us=m["host_us"],
-               library_ms=m["library_ms"], library_call="zeros.index_add_")
-    kernels_s = time.perf_counter() - t0
-    for name in GNN_SHAPE_NAMES[1:]:
-        line, n, _ = _gnn_train(arch, name, dev, counts, reset_counts)
-        add(n)
-        emit({**line, **device_info})
-        torch.cuda.empty_cache()
-
-    # (d) one rank in this process, then two gloo ranks sharing the card, FP32
-    t0 = time.perf_counter()
-    gnn_cell.MIXED = layers.FP32
-    try:
-        one = build_arch_cell(arch, arch.shape("ogb_products"), device=dev)
-        st = one.init_state()
-        p0 = {k: v.detach().cpu().clone() for k, v in st["dense"].named_parameters()}
-        reset_counts()
-        st, o = one.step_fn(st, ogb_batch)
-        torch.cuda.synchronize()
-        add(counts())
-        one_loss, one1 = float(o["loss"]), _gnn_state(st)
-        del st, ogb_batch, one
-        torch.cuda.empty_cache()
-        mol = build_arch_cell(arch, arch.shape("molecule"), CellOptions(compress_grads=True), device=dev)
-    finally:
-        gnn_cell.MIXED = layers.MIXED
-    held = torch.cuda.memory_allocated()
-    check(held < (1 << 30), f"{held} bytes still allocated before the GNN ranks start")
+    # the ranks of (d) start now: they reach the card and take their first
+    # trace while (a)-(c) run, then wait for their turn
     out_dir = ROOT / "build" / "gnn_ranks"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
-    ranks = _spawn_ranks(_gnn_rank, GNN_RANKS, (str(out_dir / "store"),), GNN_TIMEOUT_S, "gnn ranks")
+    early = EarlyRanks(_gnn_rank, GNN_RANKS, (str(out_dir / "store"),), GNN_TIMEOUT_S, "gnn ranks")
+    try:
+        reset_counts()
+        smoke = _gnn_smoke(dev)
+        add(counts())
+        emit({"phase": "gnn_smoke", **device_info, "steps": GNN_SMOKE_STEPS, "cells": smoke,
+              "shapes": GNN_SMOKE_SHAPES, "phase_s": time.perf_counter() - phase_t0})
+
+        arch = get_config("gin-tu")
+        real = {"segment_sum": recorder(sr_ops, "segment_sum"), "gather_rows": recorder(fg_ops, "gather_rows")}
+        line, n, (st, ogb_batch) = _gnn_train(arch, "ogb_products", dev, counts, reset_counts, phase=phase,
+                                              profile=True)
+        sr_ops.segment_sum, fg_ops.gather_rows = real["segment_sum"], real["gather_rows"]  # no more records
+        add(n)
+        emit({**line, **device_info})
+        del st
+        torch.cuda.empty_cache()
+
+        # (c) the two kernels on ogb_products' recorded inputs
+        t0 = time.perf_counter()
+        at = {}
+        args, kw = recorded.pop(("segment_sum", "gnn_ogb"))
+        vals, ids, _ = args
+        check(vals.shape == (arch.shape("ogb_products")["n_edges"], arch.model.d_hidden) and ids.dtype == torch.int32
+              and kw == {"sorted_ids": True} and bool((ids[1:] >= ids[:-1]).all()),
+              f"gnn: recorded segment sum {tuple(vals.shape)} {ids.dtype} {kw}")
+        del vals, ids
+        at[entry["segment_sum"]] = _measure("segment_sum", real["segment_sum"], sr_ref.segment_sum, args, kw, 5, dev)
+        del args
+        torch.cuda.empty_cache()
+        args, kw = recorded.pop(("gather_rows", "gnn_ogb"))
+        at[entry["gather_rows"]] = _measure("gather_rows", real["gather_rows"], fg_ref.gather_rows, args, kw, 5, dev)
+        del args
+        torch.cuda.empty_cache()
+        for k, m in at.items():
+            _add_path(by_name[k], "gnn_ogb", m)
+        seg = by_name["segment_reduce.segment_sum"]  # on a path again: the GIN aggregation
+        seg["main_path"] = "gnn"
+        seg.pop("main_path_note", None)
+        m = at["segment_reduce.segment_sum"]
+        seg.update(ms=m["ms"], kernel_ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+                   bound_by=m["bound_by"], kernel_device_ms=m["kernel_device_ms"], host_us=m["host_us"],
+                   library_ms=m["library_ms"], library_call="zeros.index_add_")
+        kernels_s = time.perf_counter() - t0
+        for name in GNN_SHAPE_NAMES[1:]:
+            line, n, _ = _gnn_train(arch, name, dev, counts, reset_counts)
+            add(n)
+            emit({**line, **device_info})
+            torch.cuda.empty_cache()
+
+        # (d) one rank in this process, then two gloo ranks sharing the card, FP32
+        t0 = time.perf_counter()
+        gnn_cell.MIXED = layers.FP32
+        try:
+            one = build_arch_cell(arch, arch.shape("ogb_products"), device=dev)
+            st = one.init_state()
+            p0 = {k: v.detach().cpu().clone() for k, v in st["dense"].named_parameters()}
+            reset_counts()
+            st, o = one.step_fn(st, ogb_batch)
+            torch.cuda.synchronize()
+            add(counts())
+            one_loss, one1 = float(o["loss"]), _gnn_state(st)
+            del st, ogb_batch, one
+            torch.cuda.empty_cache()
+            mol = build_arch_cell(arch, arch.shape("molecule"), CellOptions(compress_grads=True), device=dev)
+        finally:
+            gnn_cell.MIXED = layers.MIXED
+        held = torch.cuda.memory_allocated()
+        check(held < (1 << 30), f"{held} bytes still allocated before the GNN ranks start")
+    except BaseException:
+        early.stop()
+        raise
+    ranks = early.results()
     ranks_s = time.perf_counter() - t0
 
     def rel(part: str, r: dict) -> float:
@@ -5222,12 +5381,18 @@ def _dec_token_rows(engine, gkey: str, V: int, d: int, dev) -> dict:
 
 def _dec_bytes(cfg, B: int, S: int) -> dict:
     """What one decode step must move: the whole K and V caches read (the
-    step reads every position, masked), and the dense params; the MIXED
-    cast of each fp32 weight reads 4 bytes a param and writes 2, and the
-    bf16 product reads those 2 again."""
+    step reads every position, masked), and the dense params it uses; the
+    MIXED cast of each fp32 weight reads 4 bytes a param and writes 2, and
+    the bf16 product reads those 2 again. A MoE layer uses its router, the
+    experts of the step's B·k assignments (k distinct ones a token: exact at
+    batch 1, at most all of them) and its shared experts."""
     cache = 2 * cfg.n_layers * B * S * cfg.n_kv_heads * cfg.head_dim * 2
-    hd, d = cfg.head_dim, cfg.d_model
-    per_layer = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d + 3 * d * cfg.d_ff
+    hd, d, m = cfg.head_dim, cfg.d_model, cfg.moe
+    per_layer = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d
+    if m is None:
+        per_layer += 3 * d * cfg.d_ff
+    else:
+        per_layer += d * m.n_experts + 3 * d * m.d_ff * (min(m.n_experts, B * m.top_k) + m.n_shared)
     n_weights = cfg.n_layers * per_layer + d * cfg.vocab_size
     return {"cache_read": cache, "weights_fp32_read": 4 * n_weights, "weights_bf16_written": 2 * n_weights,
             "weights_bf16_read": 2 * n_weights, "weight_params": n_weights,
@@ -5351,7 +5516,7 @@ def _dec_timed(cell, st: dict, label: str, S: int, fill_seed: int, counts, reset
     warm_rows = _dec_written(st["cache"], written[:N_DEC_WARMUP])
     nbytes = _dec_bytes(cfg, B, S)
     msa = np.array(ms)
-    line = {"phase": f"full_{label}", "arch": "qwen2.5-3b", "shape": label, "seq_len": S, "batch": B,
+    line = {"phase": f"full_{label}", "arch": cell.arch.arch_id, "shape": cell.shape.name, "seq_len": S, "batch": B,
             "from_pos": p0, "warmup": N_DEC_WARMUP, "steps": N_DEC_STEPS, "fill_s": fill_s,
             "step_ms_p50": float(np.percentile(msa, 50)), "step_ms_p99": float(np.percentile(msa, 99)),
             "step_ms_mean": float(msa.mean()), "step_ms": ms, "tokens_per_s": B / (float(np.percentile(msa, 50)) / 1e3),
@@ -5487,26 +5652,63 @@ def _dec_rank_run(rank: int, group, dev, fill_seed: int, model) -> dict:
         fg_ops.gather_rows = real["gather_rows"]
 
 
-def _draw_lm_weights(out: dict) -> None:
-    """qwen2.5-3b's seed-0 weights on the host (``tfm.init``: the draw a
-    decode cell's ``init_state`` makes) into ``out["model"]``, or the
-    failure into ``out["error"]``; for a thread beside an earlier phase."""
-    from repro_torch.configs import qwen2_5_3b
+def _dec_after_prefill(arch, model, sparse: dict, dev, counts, reset_counts) -> dict:
+    """A prefill of DEC_T0 tokens (the flash kernel) whose cache a decode
+    cell takes at [0, DEC_T0), and that cell's decode of token DEC_T0 held
+    to the last logits of a prefill of DEC_T0 + 1 tokens: within
+    DEC_PREFILL_FRAC of their largest magnitude, and the logits of the
+    position before (what a decode that read the wrong position or cache
+    gives) beyond it. ``model`` and ``sparse`` (rows for every token) are
+    shared by the three cells. Returns the numbers, the launches among them."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.cells import build_arch_cell
     from repro_torch.models import transformer as tfm
 
-    try:
-        out["model"] = tfm.init(qwen2_5_3b.ARCH.model, seed=0, device="cpu")
-    except BaseException as e:  # re-raised by the caller
-        out["error"] = e
+    cfg = arch.model
+    V, L = cfg.vocab_size, cfg.n_layers
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    pre = {T: build_arch_cell(arch, ShapeCell("prefill_32k", "prefill", {"seq_len": T, "global_batch": 1}),
+                              device=dev) for T in (DEC_T0, DEC_T0 + 1)}
+    chk = build_arch_cell(arch, ShapeCell("decode_32k", "decode", {"seq_len": DEC_CHECK_S, "global_batch": 1}),
+                          device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(DEC_SEED + 1).integers(0, V, (1, DEC_T0 + 1))).to(
+        torch.int32).to(dev)
+    pst = {"step": zero, "dense": model, "sparse": sparse}
+    reset_counts()
+    out_a = pre[DEC_T0].step_fn(pst, tokens[:, :DEC_T0])
+    out_b = pre[DEC_T0 + 1].step_fn(pst, tokens)
+    cst = {"step": zero, "pos": torch.tensor(DEC_T0, dtype=torch.int32, device=dev), "dense": model,
+           "sparse": sparse, "cache": tfm.init_cache(cfg, 1, DEC_CHECK_S, dev)}
+    for k in ("k", "v"):
+        cst["cache"][k][:, :, :DEC_T0].copy_(out_a[f"cache_{k}"])
+    cst, out_d = chk.step_fn(cst, tokens[:, DEC_T0])
+    torch.cuda.synchronize()
+    n = counts()
+    want_n = {k: {"fused_gather.gather_rows": 3, "flash_attention.flash_fwd": 2 * L}.get(k, 0) for k in n}
+    check(n == want_n, f"prefill then decode: launches {n}, expected {want_n}")
+    got, want, prev = out_d["logits"][0], out_b["logits"][0], out_a["logits"][0]
+    scale = float(want.abs().max())
+    pd = {"t0": DEC_T0, "cache_seq_len": DEC_CHECK_S, "logits_max_abs": scale,
+          "max_abs_err": float((got - want).abs().max()), "tolerance": DEC_PREFILL_FRAC * scale,
+          "previous_position_max_abs_diff": float((got - prev).abs().max()),
+          "argmax_equal": bool(int(got.argmax()) == int(want.argmax())), "launches": n,
+          "s": time.perf_counter() - t0}
+    check(bool(torch.isfinite(got).all()) and pd["max_abs_err"] <= pd["tolerance"],
+          f"decode of token T0 against the prefill of T0 + 1 tokens: {pd}")
+    check(pd["previous_position_max_abs_diff"] > pd["tolerance"], f"the prefill-then-decode check cannot tell a "
+          f"position apart: {pd}")
+    return pd
 
 
 def decode_phase(counts, reset_counts, phase: dict, recorded: dict, recorder, by_name: dict, dev,
-                 device_info: dict, host_model) -> dict:
+                 device_info: dict) -> dict:
     """LM decode on the card: (a) ``_dec_smoke``; (b) qwen2.5-3b
     ``decode_32k`` at published widths, batch DEC_BATCH, three steps from
     the cell's fresh state (pos 0, a zero cache, an empty engine: the
-    tokens read zero rows; the state its ``init_state`` makes, with the
-    seed-0 weights ``host_model`` drawn on the host beforehand); (c) prefill then decode at full width: rows for
+    tokens read zero rows; the state its ``init_state`` makes, its weights
+    drawn on the card by ``card_model``); (c) prefill then decode at full
+    width: rows for
     all tokens imported, a prefill of DEC_T0 tokens (the flash kernel) whose
     cache a decode cell takes at [0, DEC_T0), the decode of token DEC_T0
     held to the last logits of a prefill of DEC_T0 + 1 tokens; (d)
@@ -5531,8 +5733,6 @@ def decode_phase(counts, reset_counts, phase: dict, recorded: dict, recorder, by
 
     # the ranks start now: they reach the card and take their first trace
     # while this process runs the one-card parts, then wait for the weights
-    import threading
-
     out_dir = ROOT / "build" / "decode_ranks"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
@@ -5549,10 +5749,8 @@ def decode_phase(counts, reset_counts, phase: dict, recorded: dict, recorder, by
     ranks_thread = threading.Thread(target=spawn, daemon=True)
     ranks_thread.start()
     try:
-        box = [host_model]  # no frame but the callee's keeps the model
-        del host_model
         return _decode_one_card(counts, reset_counts, phase, recorded, recorder, by_name, dev, device_info,
-                                launches, per_step, add, phase_t0, weights, ranks_thread, spawned, box)
+                                launches, per_step, add, phase_t0, weights, ranks_thread, spawned)
     finally:
         if not spawned["sent"]:  # a failure before the ranks' turn: they stop
             for _ in range(DEC_RANKS):
@@ -5562,7 +5760,7 @@ def decode_phase(counts, reset_counts, phase: dict, recorded: dict, recorder, by
 
 
 def _decode_one_card(counts, reset_counts, phase, recorded, recorder, by_name, dev, device_info, launches, per_step,
-                     add, phase_t0, weights, ranks_thread, spawned, box: list) -> dict:
+                     add, phase_t0, weights, ranks_thread, spawned) -> dict:
     """``decode_phase``'s parts in this process, then the ranks' turn."""
     from repro_torch.configs import qwen2_5_3b
     from repro_torch.configs.base import ShapeCell
@@ -5596,7 +5794,7 @@ def _decode_one_card(counts, reset_counts, phase, recorded, recorder, by_name, d
     c32 = build_cell("qwen2.5-3b", "decode_32k", device=dev, shape_override=ShapeCell(
         "decode_32k", "decode", {"seq_len": s32, "global_batch": DEC_BATCH}))
     zero = torch.zeros((), dtype=torch.int32, device=dev)
-    st = {"step": zero, "pos": zero.clone(), "dense": box.pop().to(dev), "sparse": c32.engine.init_state(),
+    st = {"step": zero, "pos": zero.clone(), "dense": card_model(cfg, dev), "sparse": c32.engine.init_state(),
           "cache": tfm.init_cache(cfg, DEC_BATCH, s32, dev)}
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -5625,41 +5823,10 @@ def _decode_one_card(counts, reset_counts, phase, recorded, recorder, by_name, d
     check(int(st["sparse"][gkey]["idmap"].n_live()) == V, "not every token's row is live")
 
     # (c) prefill then decode
-    t0 = time.perf_counter()
-    pre = {T: build_cell("qwen2.5-3b", "prefill_32k", device=dev, shape_override=ShapeCell(
-        "prefill_32k", "prefill", {"seq_len": T, "global_batch": 1})) for T in (DEC_T0, DEC_T0 + 1)}
-    chk = build_cell("qwen2.5-3b", "decode_32k", device=dev, shape_override=ShapeCell(
-        "decode_32k", "decode", {"seq_len": DEC_CHECK_S, "global_batch": 1}))
-    tokens = torch.from_numpy(np.random.default_rng(DEC_SEED + 1).integers(0, V, (1, DEC_T0 + 1))).to(
-        torch.int32).to(dev)
-    pst = {"step": zero, "dense": model, "sparse": st["sparse"]}
-    reset_counts()
-    out_a = pre[DEC_T0].step_fn(pst, tokens[:, :DEC_T0])
-    out_b = pre[DEC_T0 + 1].step_fn(pst, tokens)
-    cst = {"step": zero, "pos": torch.tensor(DEC_T0, dtype=torch.int32, device=dev), "dense": model,
-           "sparse": st["sparse"], "cache": tfm.init_cache(cfg, 1, DEC_CHECK_S, dev)}
-    for k in ("k", "v"):
-        cst["cache"][k][:, :, :DEC_T0].copy_(out_a[f"cache_{k}"])
-    cst, out_d = chk.step_fn(cst, tokens[:, DEC_T0])
-    torch.cuda.synchronize()
-    n = counts()
-    want_n = {k: {"fused_gather.gather_rows": 3, "flash_attention.flash_fwd": 2 * L}.get(k, 0) for k in n}
-    check(n == want_n, f"prefill then decode: launches {n}, expected {want_n}")
-    add(n)
-    got, want, prev = out_d["logits"][0], out_b["logits"][0], out_a["logits"][0]
-    scale = float(want.abs().max())
-    pd = {"t0": DEC_T0, "cache_seq_len": DEC_CHECK_S, "logits_max_abs": scale,
-          "max_abs_err": float((got - want).abs().max()), "tolerance": DEC_PREFILL_FRAC * scale,
-          "previous_position_max_abs_diff": float((got - prev).abs().max()),
-          "argmax_equal": bool(int(got.argmax()) == int(want.argmax())), "launches": n,
-          "s": time.perf_counter() - t0}
-    check(bool(torch.isfinite(got).all()) and pd["max_abs_err"] <= pd["tolerance"],
-          f"decode of token T0 against the prefill of T0 + 1 tokens: {pd}")
-    check(pd["previous_position_max_abs_diff"] > pd["tolerance"], f"the prefill-then-decode check cannot tell a "
-          f"position apart: {pd}")
-    emit({"phase": "decode_after_prefill", **device_info, "arch": "qwen2.5-3b", "widths": widths, **pd,
+    pd = _dec_after_prefill(arch, model, st["sparse"], dev, counts, reset_counts)
+    add(pd["launches"])
+    emit({"phase": "decode_after_prefill", **device_info, "arch": arch.arch_id, "widths": widths, **pd,
           "tolerance_frac_of_largest": DEC_PREFILL_FRAC})
-    del pre, chk, cst, out_a, out_b, out_d, pst, got, want, prev
     torch.cuda.empty_cache()
 
     # (d) decode_32k timed from a filled cache
@@ -5779,6 +5946,474 @@ def _decode_one_card(counts, reset_counts, phase, recorded, recorder, by_name, d
     emit({"phase": "decode_kernels", **device_info,
           "gather_rows": {**{p: {k: m[k] for k in keep} for p, m in at.items()},
                           **{f"decode_r{r['rank']}": {k: r["kernels"]["gather_rows"][k] for k in keep} for r in ranks}},
+          "launches": launches, "phase_s": time.perf_counter() - phase_t0})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 4 the MoE family: qwen2-moe-a2.7b and moonshot-v1-16b-a3b serve on one card
+# ---------------------------------------------------------------------------
+MOE_ARCHS = ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b")
+MOE_SMOKE = {"prefill_32k": {"seq_len": 64, "global_batch": 2},
+             "decode_32k": {"seq_len": 64, "global_batch": 4}}
+# moonshot-v1-16b-a3b at its 48 layers holds 27.7 B fp32 params (110.9 GB):
+# 12 layers (28.7 GB) beside its 8.05 GB engine; qwen2-moe-a2.7b at its 24
+# (56.0 GB) beside a 7.47 GB engine
+MOE_LAYERS = {"qwen2-moe-a2.7b": 24, "moonshot-v1-16b-a3b": 12}
+MOE_PIECE = 1_024   # tokens a piece of the dense plain MoE at T 32,768 (whole, its (E, T, d) output takes 8.05 GB)
+MOE_SEED = 60_000
+# Card against CPU under MIXED, as tests/test_torch_moe.py holds the port to
+# JAX: a token whose k-th and (k+1)-th router probabilities lie within 2% of
+# the k-th (twice the largest drift that bf16 hidden states an ulp apart
+# gave there) may rightly take another expert on each side; its values are
+# left out, and at most a quarter of the tokens may be so.
+MOE_NEAR_TIE_REL, MOE_MAX_TIE_SHARE = 2e-2, 0.25
+
+
+def _moe_near_ties(calls: list, n: int) -> np.ndarray:
+    """(n,) bool: the tokens whose k-th and (k+1)-th routing probabilities
+    lie within MOE_NEAR_TIE_REL of the k-th, and are not equal, in any of
+    ``calls`` ((probs, k) a MoE call)."""
+    tie = np.zeros(n, bool)
+    for probs, k in calls:
+        p = -np.sort(-probs, axis=-1)
+        gap = p[:, k - 1] - p[:, k]
+        tie |= (gap > 0) & (gap < MOE_NEAR_TIE_REL * p[:, k - 1])
+    return tie
+
+
+@contextlib.contextmanager
+def _moe_routes(moe_lib, calls: list):
+    """Keeps the CPU-side routing probabilities of every MoE call in ``calls``."""
+    real = moe_lib.route
+
+    def recorded(router, x, top_k):
+        out = real(router, x, top_k)
+        if x.device.type == "cpu":
+            calls.append((out[0].numpy(), top_k))
+        return out
+
+    moe_lib.route = recorded
+    try:
+        yield
+    finally:
+        moe_lib.route = real
+
+
+def _moe_smoke(dev, counts, reset_counts) -> tuple[dict, dict]:
+    """(a) The MoE archs' smoke prefill (T 64, batch 2: two requests) and
+    decode (S 64, batch 4: three steps from a cache filled at S - 3) cells
+    on the card against the CPU, from the same rows, weights and cache:
+    integers equal, logits, caches and written cache rows within
+    MIXED_PREFILL_TOL at the tokens off a near-tie of the CPU's routing,
+    the cache unchanged where no step wrote; a flash launch a layer and a
+    gather a request or step. Returns the numbers and the card's launches."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.models import moe as moe_lib
+
+    out, launches = {}, {}
+
+    def add(d):
+        for k, v in d.items():
+            launches[k] = launches.get(k, 0) + v
+
+    for arch_id in MOE_ARCHS:
+        res = {}
+        for name, params in MOE_SMOKE.items():
+            shape = ShapeCell(name, name.split("_")[0], params)
+            cells = {d: build_cell(arch_id, name, smoke=True, shape_override=shape, device=d) for d in ("cpu", dev)}
+            cfg = cells["cpu"].arch.model
+            gkey, S, B = f"dim{cfg.d_model}", params["seq_len"], params["global_batch"]
+            rows = _dec_token_rows(cells["cpu"].engine, gkey, cfg.vocab_size, cfg.d_model, "cpu")
+            states = {}
+            for d, c in cells.items():
+                states[d] = c.init_state()
+                states[d]["sparse"] = c.engine.import_rows(rows)
+            states[dev]["dense"].load_state_dict(states["cpu"]["dense"].state_dict())
+            decode = shape.kind == "decode"
+            if decode:
+                for d in cells:
+                    states[d]["pos"] = torch.tensor(S - DEC_SMOKE_STEPS, dtype=torch.int32, device=d)
+                _dec_fill(states["cpu"]["cache"], MOE_SEED, S, 0)
+                for k in ("k", "v"):
+                    states[dev]["cache"][k].copy_(states["cpu"]["cache"][k])
+            err, ties_all, steps = {}, [], DEC_SMOKE_STEPS if decode else 2
+            for s in range(steps):
+                outs, calls = {}, []
+                with _moe_routes(moe_lib, calls):
+                    for d, c in cells.items():
+                        before = counts()
+                        if decode:
+                            states[d], outs[d] = c.step_fn(states[d], c.make_batch(s))
+                        else:
+                            outs[d] = c.step_fn(states[d], c.make_batch(s))
+                        torch.cuda.synchronize()
+                        n = {k: v - before[k] for k, v in counts().items()}
+                        if d == dev:
+                            want = {k: {"fused_gather.gather_rows": 1,
+                                        "flash_attention.flash_fwd": 0 if decode else cfg.n_layers}.get(k, 0)
+                                    for k in n}
+                            check(n == want, f"smoke {arch_id} {name}: launches {n}, expected {want}")
+                            add(n)
+                met = {d: {k: int(v) for k, v in o.items() if "/" in k} for d, o in outs.items()}
+                check(met[dev] == met["cpu"], f"smoke {arch_id} {name} metrics differ: {met}")
+                ties = _moe_near_ties(calls, B * (1 if decode else S)).reshape(B, -1)
+                ties_all.append(ties)
+                rows_off = ~ties[:, -1]  # logits: rows whose (last) token is off a near-tie
+                check(bool(rows_off.any()), f"smoke {arch_id} {name}: every row's last token at a near-tie")
+                got, want = outs[dev]["logits"].cpu(), outs["cpu"]["logits"]
+                check(bool(torch.isfinite(got).all()) and torch.allclose(got[rows_off], want[rows_off],
+                                                                         **MIXED_PREFILL_TOL),
+                      f"smoke {arch_id} {name} logits differ by {(got - want)[rows_off].abs().max()} at step {s + 1}")
+                err["logits"] = max(err.get("logits", 0.0), float((got - want)[rows_off].abs().max()))
+                for k in ("k", "v"):
+                    if decode:  # the row this step wrote
+                        p = S - DEC_SMOKE_STEPS + s
+                        g, w = states[dev]["cache"][k][:, :, p].float().cpu(), states["cpu"]["cache"][k][:, :, p].float()
+                        g, w = g[:, ~ties[:, 0]], w[:, ~ties[:, 0]]
+                    else:
+                        g, w = outs[dev][f"cache_{k}"].float().cpu()[:, ~ties], outs["cpu"][f"cache_{k}"].float()[:, ~ties]
+                    check(torch.allclose(g, w, **MIXED_PREFILL_TOL), f"smoke {arch_id} {name}: cache {k} differs")
+                    err[f"cache_{k}"] = max(err.get(f"cache_{k}", 0.0), float((g - w).abs().max()))
+            tie_share = float(np.mean(ties_all))  # over the cell's requests or steps
+            check(tie_share <= MOE_MAX_TIE_SHARE, f"smoke {arch_id} {name}: near-ties {ties_all}")
+            if decode:
+                keep = torch.ones(S, dtype=torch.bool)
+                keep[S - DEC_SMOKE_STEPS:] = False
+                for k in ("k", "v"):
+                    check(torch.equal(states[dev]["cache"][k].cpu()[:, :, keep], states["cpu"]["cache"][k][:, :, keep]),
+                          f"smoke {arch_id} {name}: cache {k} changed where no step wrote")
+                check(int(states[dev]["pos"]) == int(states["cpu"]["pos"]) == S, f"smoke {arch_id} {name} pos")
+            res[name] = {"params": params, "steps": steps, "max_abs_diff": err, "near_tie_share": tie_share,
+                         "metrics": met[dev]}
+        out[arch_id] = res
+    return out, launches
+
+
+def _moe_model(arch_id: str, dev):
+    """The arch at published widths with MOE_LAYERS layers, built and drawn
+    on the card (``card_model``)."""
+    from repro_torch.configs import get_config
+
+    arch = get_config(arch_id)
+    arch = dataclasses.replace(arch, model=dataclasses.replace(arch.model, n_layers=MOE_LAYERS[arch_id]))
+    t0 = time.perf_counter()
+    model = card_model(arch.model, dev)
+    torch.cuda.synchronize()
+    return arch, model, time.perf_counter() - t0
+
+
+def _moe_prefill_bound(cfg, T: int) -> dict:
+    """The least time of a prefill request (batch 1), term by term: the
+    flash kernel's operations over the causal triangle each layer, every
+    other product (projections, the routed experts' k and the shared
+    experts' SwiGLUs, the router; the head for the last token) at the bf16
+    peak, and the MIXED cast of every fp32 weight (read 4 bytes, write 2,
+    read 2) at the HBM rate."""
+    d, hd, m = cfg.d_model, cfg.head_dim, cfg.moe
+    attn = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d
+    flash_ops = 4.0 * hd * cfg.n_heads * T * (T + 1) / 2
+    tok_ops = 2.0 * (attn + 3 * d * m.d_ff * (m.top_k + m.n_shared) + d * m.n_experts)
+    prod_ops = cfg.n_layers * T * tok_ops + 2.0 * d * cfg.vocab_size
+    n_weights = cfg.n_layers * (attn + d * m.n_experts + 3 * d * m.d_ff * (m.n_experts + m.n_shared)) \
+        + d * cfg.vocab_size
+    terms = {"flash_ms": cfg.n_layers * flash_ops / BF16_OPS_PER_S * 1e3,
+             "products_ms": prod_ops / BF16_OPS_PER_S * 1e3,
+             "weight_cast_ms": 8.0 * n_weights / HBM_BYTES_PER_S * 1e3}
+    return {"bound_ms": sum(terms.values()), **terms, "flash_flops": cfg.n_layers * flash_ops,
+            "product_flops": prod_ops, "weight_params": n_weights}
+
+
+def _moe_excess(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| over MIXED_TOL's bound at each element."""
+    tol = MIXED_TOL["atol"] + MIXED_TOL["rtol"] * want.float().abs()
+    return float(((got.float() - want.float()).abs() / tol).max())
+
+
+@torch.inference_mode()
+def _moe_layer0(moe_lib, m, x0: torch.Tensor, y0: torch.Tensor, what: str) -> dict:
+    """Layer 0's MoE output of a prefill request, on its recorded input,
+    held against the dense plain version (``moe_dense_ref``: every expert on
+    every token, in MOE_PIECE-token pieces) within MIXED_TOL, and what a
+    zero output or one with the two busiest experts' weights swapped would
+    read; both timed."""
+    import types
+
+    N = x0.shape[0]
+    want = torch.cat([moe_lib.moe_dense_ref(m, x0[i:i + MOE_PIECE])[0] for i in range(0, N, MOE_PIECE)])
+    _, _, top_e = moe_lib.route(m.router, x0, m.cfg.top_k)
+    load = torch.bincount(top_e.reshape(-1), minlength=m.gate.shape[0])
+    e0, e1 = (int(e) for e in torch.topk(load, 2).indices)
+    perm = torch.arange(m.gate.shape[0], device=x0.device)
+    perm[e0], perm[e1] = e1, e0
+    swapped = types.SimpleNamespace(cfg=m.cfg, router=m.router, gate=m.gate[perm], up=m.up[perm],
+                                    down=m.down[perm], shared=m.shared)
+    y_sw = moe_lib.moe_apply(swapped, x0)[0]
+    del swapped
+    out = {"tokens": N, "max_abs_y": float(want.float().abs().max()),
+           "max_abs_err": float((y0.float() - want.float()).abs().max()), "err_over_tol": _moe_excess(y0, want),
+           "zero_output_err_over_tol": _moe_excess(torch.zeros_like(want), want),
+           "swapped_experts": [e0, e1], "swapped_err_over_tol": _moe_excess(y_sw, want),
+           "expert_rows_min_max": [int(load.min()), int(load.max())], "tolerance": MIXED_TOL}
+    del y_sw
+    check(out["err_over_tol"] <= 1.0, f"{what} layer 0 MoE against the dense plain version: {out}")
+    check(out["zero_output_err_over_tol"] > 1.0 and out["swapped_err_over_tol"] > 1.0,
+          f"the {what} layer 0 MoE check cannot tell a wrong output: {out}")
+    out["ms"] = time_ms(lambda: moe_lib.moe_apply(m, x0), 3)
+    out["plain_ms"] = time_ms(lambda: [moe_lib.moe_dense_ref(m, x0[i:i + MOE_PIECE]) for i in range(0, N, MOE_PIECE)],
+                              1)
+    c = m.cfg
+    n_ops = 2.0 * N * (3 * c.d_model * c.d_ff * (c.top_k + c.n_shared) + c.d_model * c.n_experts)
+    # x read, y written, the fp32 weights read once
+    n_bytes = 2 * x0.numel() * x0.element_size() + 4 * sum(p.numel() for p in m.parameters())
+    out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+    out["flops"], out["bytes"] = n_ops, n_bytes
+    return out
+
+
+def _moe_prefill(arch, model, sparse: dict, dev, label: str, counts, reset_counts, phase: dict, moe_lib,
+                 group_waits: list) -> tuple[dict, dict]:
+    """A prefill_32k request of ``arch`` (batch 1, rows for every token):
+    1 warm-up and N_PREFILL timed requests (CUDA events; the first timed one
+    runs as phase ``label``: its inputs recorded), a flash launch a layer
+    (on the tensor cores) and a gather a request, one wait for the group
+    sizes a MoE layer, outputs checked, peak memory, a torch.profiler trace
+    of one more request. Returns the line and the launches."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.cells import build_arch_cell
+
+    cfg = arch.model
+    V, L, gkey = cfg.vocab_size, cfg.n_layers, f"dim{cfg.d_model}"
+    pre = build_arch_cell(arch, ShapeCell("prefill_32k", "prefill", {"seq_len": PREFILL_T, "global_batch": 1}),
+                          device=dev)
+    st = {"step": torch.zeros((), dtype=torch.int32, device=dev), "dense": model, "sparse": sparse}
+    batches = [pre.make_batch(MOE_SEED + s) for s in range(2 + N_PREFILL)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    tc0 = fa_ops.tensor_core_launches()
+    waits0 = len(group_waits)
+    ms = []
+    for s, batch in enumerate(batches[:1 + N_PREFILL]):
+        phase["name"] = label if s == 1 else None
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        o = pre.step_fn(st, batch)
+        end.record()
+        end.synchronize()
+        phase["name"] = None
+        if s >= 1:
+            ms.append(start.elapsed_time(end))
+        met = {k: int(v) for k, v in o.items() if "/" in k}
+        check(all(v == 0 for k, v in met.items() if "overflow" in k) and met[f"{gkey}/dev_rows_live"] == V,
+              f"{label}: metrics {met}")
+        check(o["logits"].shape == (1, V) and o["logits"].dtype == torch.float32
+              and bool(torch.isfinite(o["logits"]).all()), f"{label}: logits")
+        for k in ("cache_k", "cache_v"):
+            check(o[k].shape == (L, 1, PREFILL_T, cfg.n_kv_heads, cfg.head_dim) and o[k].dtype == torch.bfloat16
+                  and bool(torch.isfinite(o[k]).all()), f"{label}: {k}")
+        del o
+    n = 1 + N_PREFILL
+    launches = counts()
+    tc = fa_ops.tensor_core_launches()[0] - tc0[0]
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: {"fused_gather.gather_rows": n, "flash_attention.flash_fwd": L * n}.get(k, 0) for k in launches}
+    check(launches == want and tc == L * n, f"{label}: launches {launches} ({tc} on the tensor cores), expected {want}")
+    check(len(group_waits) - waits0 == L * n and all(w == cfg.moe.n_experts for w in group_waits[waits0:]),
+          f"{label}: {len(group_waits) - waits0} waits for the group sizes, expected {L * n}")
+    prof = profile_requests(label, lambda b: pre.step_fn(st, b), batches[1 + N_PREFILL:])
+    msa = np.array(ms)
+    bound = _moe_prefill_bound(cfg, PREFILL_T)
+    line = {"phase": f"full_{label}", "arch": arch.arch_id, "shape": "prefill_32k", "seq_len": PREFILL_T, "batch": 1,
+            "warmup": 1, "requests": N_PREFILL, "request_ms_p50": float(np.percentile(msa, 50)),
+            "request_ms_p99": float(np.percentile(msa, 99)), "request_ms_mean": float(msa.mean()), "request_ms": ms,
+            "tokens_per_s": PREFILL_T / (float(np.percentile(msa, 50)) / 1e3), **bound,
+            "bound_share_p50": bound["bound_ms"] / float(np.percentile(msa, 50)),
+            "max_memory_allocated_bytes": peak, "launches": launches, "flash_fwd_tensor_core_launches": tc,
+            "group_size_waits_per_request": L,
+            "profile": {k: prof[k] for k in ("wall_ms_per_request", "device_busy_ms_per_request", "device_idle_share",
+                                              "device_events_per_request", "top_device_ms_per_request")}}
+    return line, launches
+
+
+def moe_phase(counts, reset_counts, phase: dict, recorded: dict, recorder, by_name: dict, flash_at: dict, dev,
+              device_info: dict) -> dict:
+    """The MoE family serving on the card (prefill and decode through the
+    dropless grouped and gathered dispatch): (a) ``_moe_smoke``; (b)
+    qwen2-moe-a2.7b ``prefill_32k`` at published widths and depth (batch 1,
+    rows for all 151,936 tokens, weights drawn on the card): ``_moe_prefill``
+    (phase ``moe_prefill``), layer 0's attention on every query row against
+    the plain formula and layer 0's MoE against the dense plain version
+    (``_moe_layer0``); (c) its ``decode_32k`` at batch 1 with the same
+    weights: the decode of token DEC_T0 after a prefill held to a longer
+    prefill's last logits (``_dec_after_prefill``; its first prefill's
+    layer-0 flash inputs recorded as phase ``moe_decode``), then timed from
+    a filled cache (``_dec_timed``, phase ``moe_decode``), no wait for the
+    device in any step; (d) moonshot-v1-16b-a3b ``prefill_32k`` at
+    published widths and 12 of its 48 layers, as (b); (e) the row gather
+    and the flash kernel on the paths' recorded inputs against their plain
+    versions, timed (paths ``moe_prefill``, ``moe_decode``). Returns the
+    launches of the main-path runs."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+    from repro_torch.kernels.fused_gather import ops as fg_ops, ref as fg_ref
+    from repro_torch.launch.cells import build_arch_cell
+    from repro_torch.models import moe as moe_lib, transformer as tfm
+
+    phase_t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    check(held < (1 << 30), f"{held} bytes still allocated before the MoE phase")
+    launches = dict.fromkeys(counts(), 0)
+
+    def add(d):
+        for k, v in d.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # (a) smoke cells, card against CPU
+    smoke, n = _moe_smoke(dev, counts, reset_counts)
+    add(n)
+    emit({"phase": "moe_smoke_card_vs_cpu", **device_info, "cells": smoke, "tolerance": MIXED_PREFILL_TOL,
+          "near_tie_rel": MOE_NEAR_TIE_REL, "phase_s": time.perf_counter() - phase_t0})
+
+    # the grouped dispatch's waits for the group sizes, and each request's
+    # layer-0 MoE input and output (its first MoE call)
+    waits, moe_io = [], {}
+    real_sizes, real_apply = moe_lib._group_sizes, moe_lib.moe_apply
+
+    def sizes(c):
+        out = real_sizes(c)
+        waits.append(len(out))
+        return out
+
+    def apply_rec(m, x, prec=moe_lib.MIXED, with_aux=True):
+        y, aux = real_apply(m, x, prec, with_aux)
+        if (phase["name"] or "").startswith("moe_prefill") and phase["name"] not in moe_io:
+            moe_io[phase["name"]] = (m, x.clone(), y.clone())
+        return y, aux
+
+    moe_lib._group_sizes, moe_lib.moe_apply = sizes, apply_rec
+    real = {"flash_attention": recorder(fa_ops, "flash_attention"), "gather_rows": recorder(fg_ops, "gather_rows")}
+    lines = {}
+    try:
+        # (b) qwen2-moe-a2.7b prefill_32k
+        arch, model, draw_s = _moe_model("qwen2-moe-a2.7b", dev)
+        cfg = arch.model
+        V, d, gkey = cfg.vocab_size, cfg.d_model, f"dim{cfg.d_model}"
+        check(arch.shape("prefill_32k")["seq_len"] == PREFILL_T and arch.shape("decode_32k")["seq_len"] == 32_768,
+              "the MoE shapes")
+        widths = {"n_layers": cfg.n_layers, "d_model": d, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                  "head_dim": cfg.head_dim, "vocab_size": V, "qkv_bias": cfg.qkv_bias,
+                  "moe": dataclasses.asdict(cfg.moe)}
+        t0 = time.perf_counter()
+        eng_cell = build_arch_cell(arch, ShapeCell("decode_32k", "decode", {"seq_len": 32_768, "global_batch": 1}),
+                                   device=dev)
+        sparse = eng_cell.engine.import_rows(_dec_token_rows(eng_cell.engine, gkey, V, d, dev))
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        check(int(sparse[gkey]["idmap"].n_live()) == V, "not every token's row is live")
+        state_bytes = {"dense_params": sum(p.numel() * p.element_size() for p in model.parameters()),
+                       "engine": sum(t.numel() * t.element_size() for t in _tensors(sparse))}
+        line, n = _moe_prefill(arch, model, sparse, dev, "moe_prefill", counts, reset_counts, phase, moe_lib, waits)
+        add(n)
+        fa_ops.flash_attention, fg_ops.gather_rows = real["flash_attention"], real["gather_rows"]
+        q0, k0, v0 = recorded[("flash_attention", "moe_prefill")][0]
+        line["layer0_attention_vs_plain"] = _attention_layer0(fa_ops, fa_ref, q0, k0, v0, "moe_prefill")
+        del q0, k0, v0
+        m0, x0, y0 = moe_io.pop("moe_prefill")
+        check(m0 is model.layers[0].moe, "moe_prefill: the recorded MoE call is not layer 0's")
+        line["layer0_moe_vs_plain"] = _moe_layer0(moe_lib, m0, x0, y0, "moe_prefill")
+        del m0, x0, y0
+        line.update(widths=widths, reduced={"global_batch": [32, 1]}, draw_on_card_s=draw_s, import_rows_s=import_s,
+                    state_bytes=state_bytes, **device_info)
+        emit(line)
+        lines["qwen2-moe-a2.7b"] = line
+        torch.cuda.empty_cache()
+
+        # (c) decode: after a prefill (its flash inputs recorded), then timed
+        # from a filled cache, batch 1 (its gather's inputs recorded)
+        recorder(fa_ops, "flash_attention")
+        phase["name"] = "moe_decode"
+        try:
+            pd = _dec_after_prefill(arch, model, sparse, dev, counts, reset_counts)
+        finally:
+            phase["name"] = None
+            fa_ops.flash_attention = real["flash_attention"]
+        add(pd["launches"])
+        emit({"phase": "moe_decode_after_prefill", **device_info, "arch": arch.arch_id, "widths": widths, **pd,
+              "tolerance_frac_of_largest": DEC_PREFILL_FRAC})
+        torch.cuda.empty_cache()
+        S = arch.shape("decode_32k")["seq_len"]
+        c32 = build_arch_cell(arch, ShapeCell("decode_32k", "decode", {"seq_len": S, "global_batch": 1}), device=dev)
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        st = {"step": zero, "pos": zero.clone(), "dense": model, "sparse": sparse,
+              "cache": tfm.init_cache(cfg, 1, S, dev)}
+        waits0 = len(waits)
+        per_step = {k: int(k == "fused_gather.gather_rows") for k in launches}
+        recorder(fg_ops, "gather_rows")
+        st, dline, _, _ = _dec_timed(c32, st, "moe_decode", S, MOE_SEED + 100, counts, reset_counts, phase,
+                                     per_step, V)
+        fg_ops.gather_rows = real["gather_rows"]
+        add(dline["launches"])
+        check(len(waits) == waits0, f"moe_decode: the steps waited for the device {len(waits) - waits0} times")
+        dline.update(widths=widths, reduced={"global_batch": [128, 1]}, group_size_waits=len(waits) - waits0,
+                     **device_info)
+        emit(dline)
+        lines["qwen2-moe-a2.7b decode"] = dline
+        del st, c32, model, sparse, eng_cell
+        torch.cuda.empty_cache()
+
+        # (d) moonshot-v1-16b-a3b prefill_32k, 12 of its 48 layers
+        arch, model, draw_s = _moe_model("moonshot-v1-16b-a3b", dev)
+        cfg = arch.model
+        V, d, gkey = cfg.vocab_size, cfg.d_model, f"dim{cfg.d_model}"
+        t0 = time.perf_counter()
+        eng_cell = build_arch_cell(arch, ShapeCell("decode_32k", "decode", {"seq_len": 32_768, "global_batch": 1}),
+                                   device=dev)
+        sparse = eng_cell.engine.import_rows(_dec_token_rows(eng_cell.engine, gkey, V, d, dev))
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        state_bytes = {"dense_params": sum(p.numel() * p.element_size() for p in model.parameters()),
+                       "engine": sum(t.numel() * t.element_size() for t in _tensors(sparse))}
+        line, n = _moe_prefill(arch, model, sparse, dev, "moe_prefill_moonshot", counts, reset_counts, phase,
+                               moe_lib, waits)
+        add(n)
+        m0, x0, y0 = moe_io.pop("moe_prefill_moonshot")
+        check(m0 is model.layers[0].moe, "moe_prefill_moonshot: the recorded MoE call is not layer 0's")
+        line["layer0_moe_vs_plain"] = _moe_layer0(moe_lib, m0, x0, y0, "moe_prefill_moonshot")
+        del m0, x0, y0
+        line.update(widths={"n_layers": cfg.n_layers, "d_model": d, "n_heads": cfg.n_heads,
+                            "n_kv_heads": cfg.n_kv_heads, "vocab_size": V, "moe": dataclasses.asdict(cfg.moe)},
+                    reduced={"global_batch": [32, 1], "n_layers": [48, cfg.n_layers]}, draw_on_card_s=draw_s,
+                    import_rows_s=import_s, state_bytes=state_bytes, **device_info)
+        emit(line)
+        lines["moonshot-v1-16b-a3b"] = line
+        del model, sparse, eng_cell
+    finally:
+        moe_lib._group_sizes, moe_lib.moe_apply = real_sizes, real_apply
+        fa_ops.flash_attention, fg_ops.gather_rows = real["flash_attention"], real["gather_rows"]
+        moe_io.clear()
+    torch.cuda.empty_cache()
+
+    # (e) the kernels on the paths' recorded inputs
+    gat = {}
+    for path in ("moe_prefill", "moe_decode"):
+        args, kw = recorded.pop(("gather_rows", path))
+        check(args[0].shape[1] == 2_048 and args[0].dtype == torch.float32, f"{path}: recorded gather {args[0].shape}")
+        gat[path] = _measure("gather_rows", real["gather_rows"], fg_ref.gather_rows, args, kw, 20, dev)
+        _add_path(by_name["fused_gather.gather_rows"], path, gat[path])
+        del args
+        torch.cuda.empty_cache()
+    for path in ("moe_prefill", "moe_decode"):
+        flash_at[path] = _measure_flash(real["flash_attention"], fa_ops.flash_fwd, fa_ref,
+                                        *recorded.pop(("flash_attention", path))[0], path=path)
+        torch.cuda.empty_cache()
+    keep = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "kernel_device_ms",
+            "host_us", "bytes")
+    emit({"phase": "moe_kernels", **device_info, "gather_rows": {p: {k: m[k] for k in keep} for p, m in gat.items()},
+          "flash_fwd": {p: {k: flash_at[p][k] for k in keep} for p in ("moe_prefill", "moe_decode")},
           "launches": launches, "phase_s": time.perf_counter() - phase_t0})
     return launches
 

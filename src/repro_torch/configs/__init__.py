@@ -11,6 +11,8 @@ _MODULES = {
     "sasrec": "sasrec",
     "mind": "mind",
     "qwen2.5-3b": "qwen2_5_3b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "gin-tu": "gin_tu",
 }
 

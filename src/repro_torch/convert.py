@@ -202,14 +202,24 @@ def train_state_from_tree(state: Mapping, tree: Mapping) -> dict:
 def transformer_from_numpy(tree: Mapping, cfg: TransformerConfig) -> dict[str, torch.Tensor]:
     """Reference transformer tree ``{"layers": {...stacked on axis 0},
     "final_norm": {"scale"}, "head": {"w"}}`` → state dict for
-    ``Transformer(cfg)``."""
+    ``Transformer(cfg)``. A MoE layer's ``moe`` subtree: ``router`` (d, E),
+    ``gate``, ``up`` (E, d, f) and ``down`` (E, f, d) kept as they are, the
+    shared experts' ``shared.{gate, up, down}`` matrices as ``nn.Linear``
+    weights; its expert count must be the config's (one device: unpadded)."""
     d, hd, L = cfg.d_model, cfg.head_dim, cfg.n_layers
     linears = {"attn.wq": (d, cfg.n_heads * hd, cfg.qkv_bias),
                "attn.wk": (d, cfg.n_kv_heads * hd, cfg.qkv_bias),
                "attn.wv": (d, cfg.n_kv_heads * hd, cfg.qkv_bias),
-               "attn.wo": (cfg.n_heads * hd, d, False),
-               "ffn.gate": (d, cfg.d_ff, False), "ffn.up": (d, cfg.d_ff, False),
-               "ffn.down": (cfg.d_ff, d, False)}
+               "attn.wo": (cfg.n_heads * hd, d, False)}
+    m = cfg.moe
+    if m is None:
+        linears.update({"ffn.gate": (d, cfg.d_ff, False), "ffn.up": (d, cfg.d_ff, False),
+                        "ffn.down": (cfg.d_ff, d, False)})
+    else:
+        experts = {"router": (d, m.n_experts), "gate": (m.n_experts, d, m.d_ff),
+                   "up": (m.n_experts, d, m.d_ff), "down": (m.n_experts, m.d_ff, d)}
+        fs = m.n_shared * m.d_ff
+        shared = {"gate": (d, fs), "up": (d, fs), "down": (fs, d)} if m.n_shared else {}
     layers = tree["layers"]
     n = np.asarray(layers["attn_norm"]["scale"]).shape[0]
     if n != L:
@@ -222,6 +232,16 @@ def transformer_from_numpy(tree: Mapping, cfg: TransformerConfig) -> dict[str, t
             part, leaf = name.split(".")
             p = {k: np.asarray(v)[i] for k, v in layers[part][leaf].items()}
             out.update(_linear(p, f"layers.{i}.{name}", d_in, d_out, bias))
+        if m is None:
+            continue
+        for leaf, shape in experts.items():
+            w = np.asarray(layers["moe"][leaf][i], np.float32)
+            if w.shape != shape:
+                raise ValueError(f"layers.{i}.moe.{leaf}: {w.shape}; expected {shape}")
+            out[f"layers.{i}.moe.{leaf}"] = torch.tensor(w)
+        for leaf, (d_in, d_out) in shared.items():
+            p = {"w": np.asarray(layers["moe"]["shared"][leaf])[i]}
+            out.update(_linear(p, f"layers.{i}.moe.shared.{leaf}", d_in, d_out, False))
     out["final_norm.scale"] = torch.tensor(np.asarray(tree["final_norm"]["scale"], np.float32))
     out.update(_linear(tree["head"], "head", d, cfg.vocab_size, False))
     return out

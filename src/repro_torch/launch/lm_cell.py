@@ -15,6 +15,8 @@ state's cache in place (the reference returns a new cache and donates the
 old one: two copies of a 38.7 GB cache do not fit a card) and returns the
 new state (``pos`` one on) and fp32 logits (B, V) with the engine's
 metrics. Decode reads the whole cache, masked, as the reference does.
+The MoE archs serve (prefill and decode) on one device; their train cell
+and their decode cells over a group are not ported yet (ROADMAP A7b, A7g).
 
 Over a group of D ranks the vocab table is sharded over the ranks as the
 reference shards it over its mesh. ``long_context`` cells (``long_500k``)
@@ -80,6 +82,9 @@ def _batch_maker(cfg: tfm.TransformerConfig, B: int, T: int, device):
 def make_train_cell(arch: ArchConfig, shape: ShapeCell, opts: CellOptions,
                     device: torch.device) -> Cell:
     cfg = arch.model
+    if cfg.moe is not None:
+        raise NotImplementedError(f"{arch.arch_id}: MoE training is not ported yet (ROADMAP A7b): "
+                                  "the loss would lack the router's aux term")
     B, T = shape["global_batch"], shape["seq_len"]
     engine, gkey = _engine_for(cfg, B * T, opts, device)
     espec = engine.groups[gkey].exchange
@@ -133,7 +138,7 @@ def make_prefill_cell(arch: ArchConfig, shape: ShapeCell, opts: CellOptions,
                 local_view(state["sparse"]), _tokens(tokens), state["step"], train=False)
             x_emb = exchange.route_rows(rows_r[gkey], plans[gkey], espec).view(B, T, cfg.d_model)
             del rows_r, plans
-            h, (k, v) = tfm.apply(state["dense"], x_emb, MIXED, collect_cache=True)
+            h, _, (k, v) = tfm.apply(state["dense"], x_emb, MIXED, collect_cache=True)
             logits = dense_apply(state["dense"].head, h[:, -1, :], MIXED).to(torch.float32)
         return {"logits": logits, "cache_k": k.to(torch.bfloat16),
                 "cache_v": v.to(torch.bfloat16), **met}
@@ -146,6 +151,9 @@ def make_prefill_cell(arch: ArchConfig, shape: ShapeCell, opts: CellOptions,
 def make_decode_cell(arch: ArchConfig, shape: ShapeCell, opts: CellOptions,
                      device: torch.device, group=None) -> Cell:
     cfg = arch.model
+    if cfg.moe is not None and group is not None:
+        raise NotImplementedError(f"{arch.arch_id}: MoE decode over a group is not ported yet "
+                                  "(its expert-parallel dispatch is ROADMAP A7g)")
     B, S = shape["global_batch"], shape["seq_len"]
     D, rank = comm.size(group), comm.rank(group)
     long_ctx = bool(shape.get("long_context"))

@@ -26,15 +26,21 @@ FP32 = Precision(compute_dtype=torch.float32)
 MIXED = Precision()
 
 
-def dense_init_(layer: nn.Linear, gen: torch.Generator) -> None:
-    """weight ~ U(-1/sqrt(d_in), 1/sqrt(d_in)), bias (if any) = 0, drawn on
-    the CPU from ``gen`` so every device gets the same numbers from one seed."""
-    d_out, d_in = layer.weight.shape
-    s = 1.0 / np.sqrt(d_in)
-    w = torch.empty((d_out, d_in), dtype=torch.float32).uniform_(-s, s, generator=gen)
+def uniform_(t: torch.Tensor, s: float, gen: torch.Generator) -> None:
+    """t ~ U(-s, s), drawn on ``gen``'s device and copied into t: from a
+    CPU generator (the package's default) every device gets the same
+    numbers from one seed; from a card's generator a model on that card is
+    drawn where it lies."""
+    w = torch.empty(t.shape, dtype=torch.float32, device=gen.device).uniform_(-s, s, generator=gen)
     with torch.no_grad():
-        layer.weight.copy_(w)
-        if layer.bias is not None:
+        t.copy_(w)
+
+
+def dense_init_(layer: nn.Linear, gen: torch.Generator) -> None:
+    """weight ~ U(-1/sqrt(d_in), 1/sqrt(d_in)) (``uniform_``), bias (if any) = 0."""
+    uniform_(layer.weight, 1.0 / np.sqrt(layer.weight.shape[1]), gen)
+    if layer.bias is not None:
+        with torch.no_grad():
             layer.bias.zero_()
 
 

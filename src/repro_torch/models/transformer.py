@@ -2,29 +2,30 @@
 and prefill forward, the next-token loss, and one decode step over a KV
 cache.
 
-Llama-family: RMSNorm → GQA attention → RMSNorm → SwiGLU with residuals,
-RoPE positions, vocab head. Token embeddings come from the Embedding Engine
-(sparse side) and enter here as dense activations. The reference scans
-stacked layer params over a mesh; here the layers are a Python loop over an
-``nn.ModuleList`` on one device, so its ``MeshCtx`` sharding constraints are
-the identity and are left out. With ``remat`` each layer is recomputed in the
-backward (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
+Llama-family: RMSNorm → GQA attention → RMSNorm → SwiGLU (or MoE,
+``models/moe.py``) with residuals, RoPE positions, vocab head. Token
+embeddings come from the Embedding Engine (sparse side) and enter here as
+dense activations. The reference scans stacked layer params over a mesh;
+here the layers are a Python loop over an ``nn.ModuleList`` on one device,
+so its ``MeshCtx`` sharding constraints are the identity and are left out.
+With ``remat`` each layer is recomputed in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
 A decode step over a ``torch.distributed`` group takes this rank's slice of
 the cache's sequence (the reference's ``cache_pspec`` with ``seq_shards``);
-everything but the attention's all-reduces runs on every rank alone. MoE
-layers, ``remat_policy="dots"`` and the chunked loss (ROADMAP A7) are not
-ported yet.
+everything but the attention's all-reduces runs on every rank alone. A MoE
+layer runs on one device, its experts unpadded; ``remat_policy="dots"`` and
+the chunked loss (ROADMAP A7c) are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import MIXED, Precision, RMSNorm, SwiGLU, dense, dense_apply
 
 
@@ -39,7 +40,7 @@ class TransformerConfig:
     vocab_size: int
     qkv_bias: bool = False
     rope_theta: float = 10000.0
-    moe: Any = None   # the reference's MoEConfig; not ported (ROADMAP A7b)
+    moe: moe_lib.MoEConfig | None = None
     remat: bool = True  # recompute each layer in the backward
 
     @property
@@ -60,44 +61,63 @@ class Layer(nn.Module):
         self.attn_norm = RMSNorm(cfg.d_model, device)
         self.attn = attn.Attention(cfg.attn_cfg, gen, device)
         self.ffn_norm = RMSNorm(cfg.d_model, device)
-        self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, gen, device)
+        if cfg.moe is None:
+            self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, gen, device)
+        else:
+            self.moe = moe_lib.MoE(cfg.moe, gen, device)
+
+    def ffn_out(self, h: torch.Tensor, prec: Precision,
+                with_aux: bool = True) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """h (B, T, d) → (the FFN's output, the MoE's aux loss, or None
+        without MoE or ``with_aux``)."""
+        if not hasattr(self, "moe"):
+            return self.ffn(h, prec), None
+        b, t, d = h.shape
+        y, aux = moe_lib.moe_apply(self.moe, h.reshape(b * t, d), prec, with_aux)
+        return y.view(b, t, d), aux
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, prec: Precision
-                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Returns (x', k after RoPE, v)."""
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor | None]:
+        """Returns (x', k after RoPE, v, the MoE's aux loss or None)."""
         a, k, v = self.attn(self.attn_norm(x), positions, prec)
         x = x + a
-        return x + self.ffn(self.ffn_norm(x), prec), k, v
+        f, aux = self.ffn_out(self.ffn_norm(x), prec)
+        return x + f, k, v, aux
 
 
 class Transformer(nn.Module):
     """``layers.{i}``, ``final_norm`` and ``head`` (d_model → vocab, no bias);
     weights U(±1/√d_in), biases 0 and norm scales 1, as the reference draws
-    them (from a seeded ``torch.Generator``, not from its keys)."""
+    them (from a seeded ``torch.Generator``, not from its keys). ``gen``,
+    when given, takes the place of a CPU generator seeded ``seed`` and
+    draws on its own device: a card's generator draws a model on that card
+    where it lies (seconds for 56 GB, where the host takes minutes)."""
 
-    def __init__(self, cfg: TransformerConfig, seed: int = 0, device=None):
+    def __init__(self, cfg: TransformerConfig, seed: int = 0, device=None,
+                 gen: torch.Generator | None = None):
         super().__init__()
-        if cfg.moe is not None:
-            raise NotImplementedError(f"{cfg.name}: MoE layers are not ported yet (ROADMAP A7b)")
         self.cfg = cfg
-        gen = torch.Generator().manual_seed(seed)
+        gen = torch.Generator().manual_seed(seed) if gen is None else gen
         self.layers = nn.ModuleList(Layer(cfg, gen, device) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, device)
         self.head = dense(cfg.d_model, cfg.vocab_size, gen, bias=False, device=device)
 
 
-def init(cfg: TransformerConfig, seed: int = 0, device=None) -> Transformer:
-    return Transformer(cfg, seed, device).eval()
+def init(cfg: TransformerConfig, seed: int = 0, device=None,
+         gen: torch.Generator | None = None) -> Transformer:
+    return Transformer(cfg, seed, device, gen).eval()
 
 
-def _layer_x(layer: Layer, x: torch.Tensor, positions: torch.Tensor, prec: Precision) -> torch.Tensor:
-    return layer(x, positions, prec)[0]
+def _layer_x(layer: Layer, x: torch.Tensor, positions: torch.Tensor, prec: Precision):
+    x, _, _, aux = layer(x, positions, prec)
+    return x, aux
 
 
 def apply(model: Transformer, x_emb: torch.Tensor, prec: Precision = MIXED,
           collect_cache: bool = False):
     """x_emb (B, T, d) token embeddings → (hidden (B, T, d) after the final
-    norm, cache). With ``collect_cache`` the cache is (k, v), each
+    norm, aux, cache): aux the sum of the MoE layers' aux losses (fp32 0-d;
+    0 without MoE). With ``collect_cache`` the cache is (k, v), each
     (L, B, T, Hk, hd) in the compute type: every layer's K after RoPE and
     V, the values its attention used; else None. With ``cfg.remat``, grad
     enabled and no cache, each layer keeps only its input for the backward
@@ -107,19 +127,21 @@ def apply(model: Transformer, x_emb: torch.Tensor, prec: Precision = MIXED,
     positions = torch.arange(t, dtype=torch.int32, device=x_emb.device).expand(b, t)
     x = prec.cast(x_emb)
     remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
-    cache = None
+    cache, aux = None, torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer in enumerate(model.layers):
         if remat:
-            x = checkpoint(_layer_x, layer, x, positions, prec, use_reentrant=False)
-            continue
-        x, k, v = layer(x, positions, prec)
+            x, a = checkpoint(_layer_x, layer, x, positions, prec, use_reentrant=False)
+        else:
+            x, k, v, a = layer(x, positions, prec)
+        if a is not None:
+            aux = aux + a
         if collect_cache:
             if cache is None:
                 cache = tuple(torch.empty((cfg.n_layers, *c.shape), dtype=c.dtype, device=c.device)
                               for c in (k, v))
             cache[0][i].copy_(k)
             cache[1][i].copy_(v)
-    return model.final_norm(x), cache
+    return model.final_norm(x), aux, cache
 
 
 def lm_loss(model: Transformer, x_emb: torch.Tensor, labels: torch.Tensor,
@@ -127,8 +149,9 @@ def lm_loss(model: Transformer, x_emb: torch.Tensor, labels: torch.Tensor,
     """Next-token cross entropy, the mean over the B·T positions of
     logsumexp(logits) − logits[label], with the head's logits (B, T, V) in
     the compute type cast to fp32 (the reference's plain path, ``fused_ce``
-    off). The reference also returns an aux loss, which is 0 without MoE."""
-    h, _ = apply(model, x_emb, prec)
+    off). The reference also returns the aux loss, which its train cell adds:
+    0 without MoE (MoE training waits for ROADMAP A7b's train cell)."""
+    h, _, _ = apply(model, x_emb, prec)
     logits = dense_apply(model.head, h, prec).to(torch.float32)
     gold = logits.gather(-1, labels[..., None].long())[..., 0]
     return torch.mean(torch.logsumexp(logits, dim=-1) - gold)
@@ -159,6 +182,6 @@ def decode_step(model: Transformer, x_emb: torch.Tensor, cache: dict[str, torch.
     for i, layer in enumerate(model.layers):
         h = layer.attn_norm(x)
         x = x + attn.attn_decode_apply(layer.attn, h, cache["k"][i], cache["v"][i], pos, group, prec)
-        x = x + layer.ffn(layer.ffn_norm(x), prec)
+        x = x + layer.ffn_out(layer.ffn_norm(x), prec, with_aux=False)[0]  # the reference drops a MoE's aux
     x = model.final_norm(x)
     return dense_apply(model.head, x, prec)[:, 0, :].to(torch.float32)

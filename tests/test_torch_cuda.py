@@ -922,6 +922,158 @@ def test_smoke_decode_cell_card_matches_cpu(cuda, name, params):
                                    rtol=3e-2, atol=3e-2)
 
 
+MOE_ARCHS = ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b")
+MOE_NEAR_TIE_REL = 2e-2  # as tests/test_torch_moe.py: a near-tie may take another expert on each side
+
+
+def _moe_smoke_states(arch_id, name, params):
+    """The smoke MoE cell on the card and on the CPU over the same rows
+    (every 7th token left out) and weights."""
+    shape = ShapeCell(name, name.split("_")[0], params)
+    cells = {d: build_cell(arch_id, name, smoke=True, shape_override=shape, device=d) for d in ("cpu", "cuda")}
+    cfg = cells["cpu"].arch.model
+    vocab = torch.arange(cfg.vocab_size, dtype=torch.int64)
+    ids = cells["cpu"].engine.engine_ids(
+        {"tokens": Ragged(vocab, torch.tensor([0, cfg.vocab_size], dtype=torch.int32))})["dim64"]
+    ids = ids[torch.arange(ids.numel()) % 7 != 0]
+    n = ids.numel()
+    r = np.random.default_rng(1)
+    rows = {"dim64": {"ids": ids.numpy(), "emb": r.normal(size=(n, 64)).astype(np.float32),
+                      "slots": {k: np.zeros((n, 64), np.float32) for k in ("m", "v")},
+                      "last_use": np.ones(n, np.int32)}}
+    states = {}
+    for d, c in cells.items():
+        states[d] = c.init_state()
+        states[d]["sparse"] = c.engine.import_rows(rows)
+    states["cuda"]["dense"].load_state_dict(states["cpu"]["dense"].state_dict())
+    return cells, states, cfg, r
+
+
+class _CpuRoutes:
+    """The CPU side's routing probabilities of each MoE call (``moe.route``)
+    and the card's waits for the group sizes (``moe._group_sizes``)."""
+
+    def __init__(self, monkeypatch):
+        from repro_torch.models import moe
+
+        self.calls, self.card_waits = [], 0
+        route, sizes = moe.route, moe._group_sizes
+
+        def recorded(router, x, top_k):
+            out = route(router, x, top_k)
+            if x.device.type == "cpu":
+                self.calls.append((out[0].numpy(), top_k))
+            return out
+
+        def counted(counts):
+            self.card_waits += counts.device.type == "cuda"
+            return sizes(counts)
+
+        monkeypatch.setattr(moe, "route", recorded)
+        monkeypatch.setattr(moe, "_group_sizes", counted)
+
+    def near_ties(self, n: int) -> np.ndarray:
+        tie = np.zeros(n, bool)
+        for probs, k in self.calls:
+            p = -np.sort(-probs, axis=-1)
+            gap = p[:, k - 1] - p[:, k]
+            tie |= (gap > 0) & (gap < MOE_NEAR_TIE_REL * p[:, k - 1])
+        self.calls = []
+        return tie
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", MOE_ARCHS)
+def test_smoke_moe_prefill_cell_card_matches_cpu(cuda, monkeypatch, arch_id):
+    """The MoE smoke prefill (T 64, B 2: the grouped dispatch) on the card
+    and on the CPU: metrics equal, logits and cache within bf16 tolerances at
+    the tokens off a near-tie of the CPU's routing (at most a quarter), one
+    flash launch a layer, one row gather and one wait for the group sizes
+    a MoE layer a request."""
+    cells, states, cfg, _ = _moe_smoke_states(arch_id, "prefill_32k", {"seq_len": 64, "global_batch": 2})
+    routes = _CpuRoutes(monkeypatch)
+    for s in range(2):
+        before = (t_fg.LAUNCHES, t_fa.LAUNCHES, routes.card_waits)
+        outs = {d: c.step_fn(states[d], c.make_batch(s)) for d, c in cells.items()}
+        torch.cuda.synchronize()
+        assert (t_fg.LAUNCHES - before[0], t_fa.LAUNCHES - before[1], routes.card_waits - before[2]) == \
+            (1, cfg.n_layers, cfg.n_layers)
+        ties = routes.near_ties(2 * 64).reshape(2, 64)
+        assert ties.mean() <= 0.25 and not ties[:, -1].all()
+        met = {d: {k: int(v) for k, v in o.items() if "/" in k} for d, o in outs.items()}
+        assert met["cuda"] == met["cpu"]
+        got, want = outs["cuda"]["logits"].cpu().numpy(), outs["cpu"]["logits"].numpy()
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got[~ties[:, -1]], want[~ties[:, -1]], rtol=3e-2, atol=3e-2)
+        for k in ("cache_k", "cache_v"):
+            got, want = outs["cuda"][k].float().cpu().numpy(), outs["cpu"][k].float().numpy()
+            np.testing.assert_allclose(got[:, ~ties], want[:, ~ties], rtol=3e-2, atol=3e-2, err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", MOE_ARCHS)
+def test_smoke_moe_decode_cell_card_matches_cpu(cuda, monkeypatch, arch_id):
+    """Three MoE smoke decode steps (S 64, B 4: the gathered dispatch) on the
+    card and on the CPU from the same rows, weights and filled cache: metrics
+    and ``pos`` equal, logits and written cache rows within bf16 tolerances
+    at the rows off a near-tie, the cache unchanged elsewhere; one row
+    gather a step, no flash launch and no wait for the device."""
+    S, B = 64, 4
+    cells, states, cfg, r = _moe_smoke_states(arch_id, "decode_32k", {"seq_len": S, "global_batch": B})
+    fill = {k: torch.from_numpy(r.normal(size=(cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)).astype(
+        np.float32)).to(torch.bfloat16) for k in ("k", "v")}
+    for d in cells:
+        for k in ("k", "v"):
+            states[d]["cache"][k].copy_(fill[k])
+        states[d]["pos"] = torch.tensor(S - 3, dtype=torch.int32, device=d)
+    routes = _CpuRoutes(monkeypatch)
+    ties_all = []
+    for s in range(3):
+        before = (t_fg.LAUNCHES, t_fa.LAUNCHES)
+        outs = {}
+        for d, c in cells.items():
+            states[d], outs[d] = c.step_fn(states[d], c.make_batch(s))
+        torch.cuda.synchronize()
+        assert (t_fg.LAUNCHES - before[0], t_fa.LAUNCHES - before[1]) == (1, 0)
+        ties = routes.near_ties(B)
+        ties_all.append(ties)
+        met = {d: {k: int(v) for k, v in o.items() if "/" in k} for d, o in outs.items()}
+        assert met["cuda"] == met["cpu"]
+        got, want = outs["cuda"]["logits"].cpu().numpy(), outs["cpu"]["logits"].numpy()
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got[~ties], want[~ties], rtol=3e-2, atol=3e-2)
+        for k in ("k", "v"):
+            p = S - 3 + s
+            np.testing.assert_allclose(states["cuda"]["cache"][k][:, ~torch.from_numpy(ties), p].float().cpu().numpy(),
+                                       states["cpu"]["cache"][k][:, ~torch.from_numpy(ties), p].float().numpy(),
+                                       rtol=3e-2, atol=3e-2)
+    assert routes.card_waits == 0 and np.mean(ties_all) <= 0.25
+    assert int(states["cuda"]["pos"]) == int(states["cpu"]["pos"]) == S
+    for k in ("k", "v"):
+        assert torch.equal(states["cuda"]["cache"][k].cpu()[:, :, :S - 3], fill[k][:, :, :S - 3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (4096, 2))
+def test_moe_dispatch_on_the_card_matches_dense(cuda, n):
+    """qwen2-moe-a2.7b's MoE at its published widths on the card: the
+    grouped (n 4,096) and gathered (n 2) dispatch against the dense plain
+    version on the same input within bf16 tolerances; the routing is the
+    same call on the same input, so the experts agree."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    m = moe.MoE(get_config("qwen2-moe-a2.7b").model.moe, torch.Generator().manual_seed(0), device="cuda")
+    x = torch.randn(n, 2048, generator=torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    x = (x * torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-6)).to(torch.bfloat16)
+    with torch.inference_mode():
+        got, aux = moe.moe_apply(m, x)
+        want, want_aux = moe.moe_dense_ref(m, x)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-6)
+
+
 @pytest.mark.cuda
 def test_smoke_lm_train_cell_card_matches_cpu(cuda):
     """Three qwen2.5 smoke train steps (T = 256, B = 2) on the card and on

@@ -196,7 +196,7 @@ def test_decode_over_a_prompt_equals_prefill():
     b, t = 2, 12
     x = torch.from_numpy((r.normal(size=(b, t, tcfg.d_model)) * 0.5).astype(np.float32))
     with torch.no_grad():
-        h, _ = t_tfm.apply(model, x, t_layers.FP32)
+        h, _, _ = t_tfm.apply(model, x, t_layers.FP32)
         full = t_layers.dense_apply(model.head, h, t_layers.FP32)
         cache = t_tfm.init_cache(tcfg, b, t)
         dec = torch.stack([t_tfm.decode_step(model, x[:, i:i + 1], cache, torch.tensor(i, dtype=torch.int32),

@@ -144,10 +144,11 @@ def test_transformer_apply_fp32_matches_reference():
     jh, _, (jk, jv) = j_tfm.apply(jparams, jcfg, jnp.asarray(x), j_tfm.MeshCtx(), j_layers.FP32,
                                   attn_impl="pallas", collect_cache=True)
     with torch.no_grad():
-        th, (tk, tv) = t_tfm.apply(_transformer(jparams, tcfg), torch.from_numpy(x), t_layers.FP32,
-                                   collect_cache=True)
+        th, taux, (tk, tv) = t_tfm.apply(_transformer(jparams, tcfg), torch.from_numpy(x), t_layers.FP32,
+                                         collect_cache=True)
     L, hk, hd = tcfg.n_layers, tcfg.n_kv_heads, tcfg.head_dim
     assert tk.shape == tv.shape == (L, B, T, hk, hd) and tk.dtype == torch.float32
+    assert float(taux) == 0.0  # no MoE layer
     for got, want, what in [(th, jh, "hidden"), (tk, jk, "cache k"), (tv, jv, "cache v")]:
         _within_frac(got.numpy(), _np(want), 1e-4, what)
 
@@ -254,14 +255,6 @@ def test_prefill_logits_and_cache_match_reference(prefill):
             assert to[k].shape == (cfg.n_layers, B, T, cfg.n_kv_heads, cfg.head_dim)
             assert to[k].dtype == torch.bfloat16
             np.testing.assert_allclose(to[k].float().numpy(), jo[k].astype(np.float32), **MIXED_TOL)
-
-
-def test_moe_config_raises():
-    import dataclasses
-
-    cfg = dataclasses.replace(t_get_config("qwen2.5-3b", smoke=True).model, moe=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        t_tfm.init(cfg)
 
 
 def test_build_lm_cell_without_card_raises(monkeypatch):
