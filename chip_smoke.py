@@ -7,9 +7,9 @@ Wide & Deep, SASRec and MIND, scoring 1,000,000 retrieval candidates for
 the four recsys archs, training GIN (gin-tu) in its four shape cells (one
 of them edge-parallel over two ranks), serving the qwen2.5-3b prefill and
 its decode (decode_32k, and long_500k also sequence-sharded over two
-ranks), training qwen2.5-3b, and serving the MoE archs (qwen2-moe-a2.7b
-and moonshot-v1-16b-a3b: prefill and decode), on one NVIDIA card, through
-its own CUDA kernels.
+ranks), training qwen2.5-3b, and serving and training the MoE archs
+(qwen2-moe-a2.7b and moonshot-v1-16b-a3b: prefill, decode and train_4k),
+on one NVIDIA card, through its own CUDA kernels.
 
     python3 chip_smoke.py [--save-inputs DIR]
 
@@ -108,18 +108,18 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 (the autoscaler on a calibrated SimPipeline, the telemetry
                 overhead at the MSE cell's batch of 128);
      tiered   — full-width train_batch with a tiered engine (a device tier
-                of 524,288 rows over the host-DRAM tier, LRU), 12 steps
+                of 524,288 rows over the host-DRAM tier, LRU), 8 steps
                 through the Trainer and the cell's storage hooks against the
                 all-device cell on the same batches: losses and the union
                 export (ids, emb, m, v, last use) bit-equal, zero overflow
                 and unplaceable ids, the launches held to what the store's
                 demote and promote calls and the steps imply; evict_to_host
-                at steps 10 and 12, each spilling exactly the device rows the
-                export counts; a 13th step that promotes the spilled rows it
+                at steps 6 and 8, each spilling exactly the device rows the
+                export counts; a 9th step that promotes the spilled rows it
                 touches, bit-equal again; evict_local on the all-device
-                state; the row gather and scatter set measured at step 6's
+                state; the row gather and scatter set measured at step 4's
                 demote and promote shapes (phase 5);
-     window   — the online-window twin's main() (3 of its 5 windows of 120
+     window   — the online-window twin's main() (2 of its 5 windows of 120
                 steps):
                 pre-train evals, post-train losses, live rows after each
                 eviction, its launches; its first window on the card
@@ -153,7 +153,7 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 train_batch (batch 65,536 from a fresh state: 3 warm-up and
                 3 timed steps, the launches of every step held to what the
                 engine's groups and inserts imply, zero overflow, a
-                torch.profiler trace of three steps, three steps on one
+                torch.profiler trace of one step, three steps on one
                 repeated batch); then retrieval_cand (batch 1, 1,000,000
                 candidates, 2 warm-up and 5 timed requests, finite scores,
                 over 100 distinct) for all four recsys archs (dlrm-mlperf's
@@ -231,6 +231,24 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 and 12 of its 48 layers (110.9 GB of fp32 weights at 48),
                 as qwen2-moe's; the row gather and the flash kernel on the
                 paths' recorded inputs (paths moe_prefill, moe_decode);
+     moe train — (after the MoE serving, on an emptied card) qwen2-moe-a2.7b
+                train_4k at published widths and 4 of its 24 layers (T
+                4,096, batch cut to 1, weights drawn on the card, a fresh
+                engine and zero moments): 2 warm-up and 5 timed steps, each
+                checked (no overflow, a finite loss and params, the rows
+                live equal to the distinct tokens seen, exact launches, two
+                waits for the expert group sizes a MoE layer: the forward
+                and its recompute), peak memory, a torch.profiler trace of
+                one step, three steps on one repeated batch (the loss
+                falls); layer 0's attention gradients on every row against
+                the plain backward and its MoE output and gradients against
+                the dense plain version under autograd (a zero gradient and
+                two experts swapped shown to fail); the flash kernels, the
+                row gather and the scatters on the path's recorded inputs
+                (path moe_train); the same weights with fused_ce and
+                remat_policy="dots" for one step (its loss within MIXED_TOL
+                of the default's, its peak); moonshot-v1-16b-a3b train_4k at
+                4 of its 48 layers, 1 warm-up and 2 timed steps;
      decode   — (before the LM train) qwen2.5-3b decode: the smoke
                 decode_32k (S 128, B 4) and long_500k (S 256, B 1) cells,
                 three steps each on the card against the CPU; at published
@@ -422,15 +440,15 @@ DRIVER_VOCAB, DRIVER_BATCH, DRIVER_ROWS = 20_000, 8_192, 65_536
 DRIVER_STEPS, DRIVER_PREEMPT_STEPS, DRIVER_SIGTERM_AT = 40, 30, 15
 DRIVER_CRASH_STEPS, DRIVER_CRASH_AT = 12, 6
 # The tiered train (full_tiered_train): dlrm-mlperf train_batch at published
-# widths over a device tier of 524,288 rows (about 22% of the 2.4 M rows live
-# after 12 steps), the kernels measured at step 6's demote and promote, the
-# stale spill at step 10; the online window's first window, card against CPU:
-# within 1e-5 in FP32, and in the example's MIXED (bf16 sums in another
-# order) within 8e-4, set between the largest of four sound dense seeds
+# widths over a device tier of 524,288 rows (the 2.4 M rows live after 12
+# steps would fill it 4.6 times), 8 steps, the kernels measured at step 4's
+# demote and promote, the stale spill at step 6; the online window's first
+# window, card against CPU: within 1e-5 in FP32, and in the example's MIXED
+# (bf16 sums in another order) within 8e-4, set between the largest of four sound dense seeds
 # (3.51e-4) and the same run in the other compute type (1.74e-3, the fault
 # of a card path that ignores MIXED), which each run also holds above it
 # (scripts/window_precision_spread.py)
-TIER_ROWS, TIER_STEPS, TIER_MID_STEP, TIER_EVICT_AT = 524_288, 12, 6, 10
+TIER_ROWS, TIER_STEPS, TIER_MID_STEP, TIER_EVICT_AT = 524_288, 8, 4, 6
 # The delta checkpoints (delta_ckpt) at published widths, vocab 10,000 and
 # batch 1,024 (two steps dirty about 7.4% of the rows, under the 10% the
 # check asks): a row for each of the 26 x 10,000 ids the vocab gives (0.26 M
@@ -448,7 +466,7 @@ DELTA_RECOVERED = [1_002, 1_004, 1_006, 1_008]
 DELTA_VOCAB, DELTA_BATCH, DELTA_TIER_ROWS, DELTA_TIER_STEPS = 10_000, 1_024, 131_072, 4
 DELTA_CLI_STEPS, DELTA_CLI_CRASH_AT = 12, 6
 WINDOW_LOSS_TOL, MIXED_WINDOW_LOSS_TOL = 1e-5, 8e-4
-WINDOWS = 3  # the online window example's main() over 3 of its 5 windows
+WINDOWS = 2  # the online window example's main() over 2 of its 5 windows
 # The multi-rank phase: dlrm-mlperf train_batch (batch 65,536) at published
 # widths over two gloo ranks sharing the one card (host-staged all_to_alls),
 # each holding half the table, against the one-rank cell on the same global
@@ -792,7 +810,7 @@ def main() -> None:
     from repro_torch.kernels.sequence_tile import ops as st_ops, ref as st_ref
     from repro_torch.launch import recsys_cell
     from repro_torch.launch.cells import build_cell
-    from repro_torch.launch.common import local_view
+    from repro_torch.launch.common import CellOptions, local_view
     from repro_torch.optim import adamw
 
     counts, reset_counts = kernel_counts, reset_kernel_counts
@@ -2112,26 +2130,6 @@ def main() -> None:
     torch.cuda.synchronize()
     start_bytes = torch.cuda.memory_allocated()  # what earlier phases still hold: near zero
     check(start_bytes < (1 << 30), f"{start_bytes} bytes still allocated before the LM train phase")
-    check(qwen2_5_3b.ARCH.shape("train_4k")["seq_len"] == LM_TRAIN_T, "train_4k seq_len")
-    t0 = time.perf_counter()
-    ltrain = build_cell("qwen2.5-3b", "train_4k", device=dev, shape_override=ShapeCell(
-        "train_4k", "train", {"seq_len": LM_TRAIN_T, "global_batch": 1}))
-    # the cell's init_state (zero moments, an empty engine), its weights drawn on the card
-    ldense = card_model(lm_cfg, dev)
-    lstate = {"step": torch.zeros((), dtype=torch.int32, device=dev), "dense": ldense,
-              "opt": adamw.init(dict(ldense.named_parameters())), "sparse": ltrain.engine.init_state()}
-    del ldense
-    torch.cuda.synchronize()
-    lsetup_s = time.perf_counter() - t0
-    lstate_bytes = {"dense_params": sum(p.numel() * p.element_size() for p in lstate["dense"].parameters()),
-                    "adamw_moments": sum(t.numel() * t.element_size() for t in _tensors(lstate["opt"])),
-                    "engine": sum(t.numel() * t.element_size() for t in _tensors(lstate["sparse"]))}
-    n_lm = N_LM_WARMUP + N_LM_STEPS
-    lbatches = [ltrain.make_batch(40_000 + s) for s in range(n_lm + 2)]  # then one profiled, one repeated
-    lexpect_live, seen = [], torch.empty(0, dtype=torch.int32, device=dev)
-    for b in lbatches[:n_lm]:  # distinct tokens seen up to each step: the rows it must hold
-        seen = torch.unique(torch.cat([seen, b.reshape(-1)]))
-        lexpect_live.append(seen.numel())
     recorder(fa_ops, "flash_attention")  # layer 0's forward: the step's first call
     for fn_name in ("scatter_add_rows", "scatter_set_rows"):  # D 2,048; the table (2.5 GB) kept as it is
         real[fn_name] = recorder(fs_ops, fn_name)
@@ -2144,90 +2142,20 @@ def main() -> None:
 
     real["flash_bwd"] = fa_ops.flash_bwd
     fa_ops.flash_bwd = record_last_bwd
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    tc0 = fa_ops.tensor_core_launches()
-    lstep_ms, llosses, linserted = [], [], []
-    for s in range(n_lm):
-        phase["name"] = "lm_train" if s == N_LM_WARMUP - 1 else None  # the last warm-up step
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        lstate, out = ltrain.step_fn(lstate, lbatches[s])
-        end.record()
-        end.synchronize()
-        phase["name"] = None
-        if s >= N_LM_WARMUP:
-            lstep_ms.append(start.elapsed_time(end))
-        met = {k: int(v) for k, v in out.items() if k != "loss"}
-        llosses.append(float(out["loss"]))
-        linserted.append(met[f"{gkey}/idmap_inserted"])
-        check(all(v == 0 for k, v in met.items() if "overflow" in k), f"LM train overflow at step {s + 1}: {met}")
-        check(np.isfinite(llosses[-1]), f"LM train loss {llosses[-1]} at step {s + 1}")
-        check(met[f"{gkey}/dev_rows_live"] == lexpect_live[s],
-              f"LM step {s + 1}: {met[f'{gkey}/dev_rows_live']} rows live, {lexpect_live[s]} tokens seen")
-    lm_peak = torch.cuda.max_memory_allocated()
-    lm_launches = counts()
-    lm_tc = [a - b for a, b in zip(fa_ops.tensor_core_launches(), tc0)]
-    fa_ops.flash_attention, fa_ops.flash_bwd = real["flash_attention"], real["flash_bwd"]
-    fs_ops.scatter_add_rows, fs_ops.scatter_set_rows = real["scatter_add_rows"], real["scatter_set_rows"]
-    fg_ops.gather_rows = real["gather_rows"]
-    n_new = sum(1 for x in linserted if x > 0)
-    want_launches = {"fused_gather.gather_rows": 4 * n_lm, "fused_gather.gather_rows_slab": 0,
-                     "segment_reduce.segment_sum": 0, "segment_reduce.segment_expand_csr": 0,
-                     "segment_reduce.segment_sum_csr_group": 0, "segment_reduce.segment_expand_csr_group": 0,
-                     "fused_scatter.scatter_add_rows": 3 * n_lm,
-                     "fused_scatter.scatter_set_rows": 3 * n_new,
-                     "flash_attention.flash_fwd": 2 * L_lm * n_lm, "flash_attention.flash_bwd": L_lm * n_lm,
-                     "fused_transform.fused_bucketize": 0, "sequence_tile.sequence_tile": 0,
-                     "sequence_tile.sequence_untile": 0}
-    check(lm_launches == want_launches, f"LM train launches {lm_launches}, expected {want_launches}")
-    check(lm_tc == [lm_launches["flash_attention.flash_fwd"], lm_launches["flash_attention.flash_bwd"]],
-          f"LM train: tensor-core launches {lm_tc} of {lm_launches}")
-    check(linserted[0] > 0, "LM step 1 inserted nothing")
-    check(all(bool(torch.isfinite(p).all()) for p in lstate["dense"].parameters()), "LM params not finite")
-
-    def lm_step(b):
-        nonlocal lstate
-        lstate, _ = ltrain.step_fn(lstate, b)
-
-    emit(profile_requests("lm_train", lm_step, [lbatches[n_lm]]))
-    lrepeat = []
-    for _ in range(N_LM_REPEAT):  # one batch again and again: the loss must fall
-        lstate, out = ltrain.step_fn(lstate, lbatches[-1])
-        lrepeat.append(float(out["loss"]))
-    check(all(np.isfinite(lrepeat)) and lrepeat[-1] < lrepeat[0], f"LM loss on one repeated batch: {lrepeat}")
-    del lstate, ltrain, lbatches, seen, out
+    try:
+        lline, lm_launches, lstate = _lm_train(qwen2_5_3b.ARCH, None, CellOptions(), dev, counts, reset_counts,
+                                               phase, "lm_train", N_LM_WARMUP, N_LM_STEPS, 40_000,
+                                               repeat=N_LM_REPEAT)
+    finally:
+        fa_ops.flash_attention, fa_ops.flash_bwd = real["flash_attention"], real["flash_bwd"]
+        fs_ops.scatter_add_rows, fs_ops.scatter_set_rows = real["scatter_add_rows"], real["scatter_set_rows"]
+        fg_ops.gather_rows = real["gather_rows"]
+    del lstate
     torch.cuda.empty_cache()
-    # layer 0's attention gradients on all 4,096 rows against the plain
-    # backward (its (H, T, T) fp32 scores are 1.07 GB), and what a zero
-    # gradient or the dK of the other kv head would read
     bargs = recorded.pop(("flash_bwd", "lm_train"))[0]
-    got = real["flash_bwd"](*bargs)
-    want = fa_ref.flash_bwd(*bargs)
-    lm_layer0 = flash_bwd_readings(got, want, bargs[0].dtype)
-    check(all(bool(torch.isfinite(g).all()) for g in got), "layer 0 gradients not finite")
-    check(max(lm_layer0[f"{n}_err_over_tol"] for n in GRAD_NAMES) <= 1.0,
-          f"LM train layer 0 attention gradients {lm_layer0}")
-    check(min(lm_layer0[f"{n}_zero_err_over_tol"] for n in GRAD_NAMES) > 1.0
-          and lm_layer0["dk_other_kv_head_err_over_tol"] > 1.0,
-          f"the layer 0 gradient check cannot tell a wrong gradient: {lm_layer0}")
-    del got, want
-    lsm = np.array(lstep_ms)
-    emit({"phase": "full_lm_train", "arch": "qwen2.5-3b", "shape": "train_4k", "widths": {
-              "n_layers": L_lm, "d_model": d_model, "n_heads": lm_cfg.n_heads, "n_kv_heads": lm_cfg.n_kv_heads,
-              "d_ff": lm_cfg.d_ff, "vocab_size": V, "qkv_bias": lm_cfg.qkv_bias, "rope_theta": lm_cfg.rope_theta},
-          "seq_len": LM_TRAIN_T, "reduced": {"global_batch": [256, 1]}, "remat": lm_cfg.remat,
-          "warmup": N_LM_WARMUP, "steps": N_LM_STEPS, "setup_s": lsetup_s,
-          "step_ms_p50": float(np.percentile(lsm, 50)), "step_ms_p99": float(np.percentile(lsm, 99)),
-          "step_ms_mean": float(lsm.mean()), "step_ms": lstep_ms,
-          "tokens_per_s": LM_TRAIN_T / (float(np.percentile(lsm, 50)) / 1e3),
-          "loss": llosses, "idmap_inserted": linserted, "rows_live": lexpect_live,
-          "loss_on_one_repeated_batch": lrepeat, "layer0_attention_grads_vs_plain": lm_layer0,
-          "allocated_at_phase_start_bytes": start_bytes, "state_bytes": lstate_bytes,
-          "max_memory_allocated_bytes": lm_peak, "launches": lm_launches,
-          "flash_tensor_core_launches": {"fwd": lm_tc[0], "bwd": lm_tc[1]},
-          "launches_per_step": {k: v / n_lm for k, v in lm_launches.items()}})
+    lm_layer0 = _layer0_attention(real["flash_bwd"], fa_ref, bargs, "lm_train")
+    emit({**lline, "allocated_at_phase_start_bytes": start_bytes, "layer0_attention_grads_vs_plain": lm_layer0,
+          **device_info})
 
     # ------------------------------------ 5 the flash kernels on the LM inputs
     flash_at["lm_train"] = _measure_flash(real["flash_attention"], fa_ops.flash_fwd, fa_ref,
@@ -2263,10 +2191,15 @@ def main() -> None:
 
     # ------- 4 the MoE family (qwen2-moe-a2.7b, moonshot-v1-16b-a3b) serving
     moe_launches = moe_phase(counts, reset_counts, phase, recorded, recorder, by_name, flash_at, dev, device_info)
+
+    # ---------- 4 the MoE family trains (train_4k of qwen2-moe and moonshot)
+    mt_launches, mt_bwd = moe_train_phase(counts, reset_counts, phase, recorded, recorder, by_name, flash_at, dev,
+                                          device_info)
     check(not recorded, f"recorded inputs left unmeasured: {list(recorded)}")
     for e in entries:
         e["launches_by_path"]["lm_train"] = lm_launches[e["name"]]
         e["launches_by_path"]["moe"] = moe_launches[e["name"]]
+        e["launches_by_path"]["moe_train"] = mt_launches[e["name"]]
         e["launches"] = sum(e["launches_by_path"].values())
     fwd_by_path = {"csr_op": csr_launches["flash_attention.flash_fwd"],
                    "gnn": gnn_launches["flash_attention.flash_fwd"],
@@ -2284,7 +2217,8 @@ def main() -> None:
                    "prefill": prefill_launches["flash_attention.flash_fwd"],
                    "mse_train": mse_launches["flash_attention.flash_fwd"],
                    "lm_train": lm_launches["flash_attention.flash_fwd"],
-                   "moe": moe_launches["flash_attention.flash_fwd"]}
+                   "moe": moe_launches["flash_attention.flash_fwd"],
+                   "moe_train": mt_launches["flash_attention.flash_fwd"]}
     entries.append({
         "name": "flash_attention.flash_fwd", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:83", "ok": True,
@@ -2311,7 +2245,8 @@ def main() -> None:
                    "prefill": prefill_launches["flash_attention.flash_bwd"],
                    "mse_train": mse_launches["flash_attention.flash_bwd"],
                    "lm_train": lm_launches["flash_attention.flash_bwd"],
-                   "moe": moe_launches["flash_attention.flash_bwd"]}
+                   "moe": moe_launches["flash_attention.flash_bwd"],
+                   "moe_train": mt_launches["flash_attention.flash_bwd"]}
     entries.append({
         "name": "flash_attention.flash_bwd", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:210", "ok": True,
@@ -2321,6 +2256,8 @@ def main() -> None:
         "library_call": "torch.autograd.grad of F.scaled_dot_product_attention(is_causal=True), kv expanded",
         **bwd, "bf16_route": "tensor cores (wgmma, TMA)", **flash_build["flash_attention.flash_bwd"]})
     entries[-1]["at"]["fp32"] = bwd_fp32["at"]["fp32"]
+    entries[-1]["at"]["moe_train"] = mt_bwd
+    entries[-1]["max_abs_err"] = max(entries[-1]["max_abs_err"], mt_bwd["max_abs_err"])
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
 
@@ -3491,10 +3428,10 @@ def recsys_models_phase(counts, reset_counts, phase: dict, recorded: dict, recor
     """Wide & Deep, SASRec and MIND at published widths: each model's
     ``serve_p99`` (batch 512, 3 warm-up and 20 timed requests over rows
     imported for the ids they touch) and ``train_batch`` (batch 65,536 from
-    a fresh state: 3 warm-up and 5 timed steps with exact launches a step,
-    zero overflow, finite losses, a torch.profiler trace of three steps, five
+    a fresh state: 3 warm-up and 3 timed steps with exact launches a step,
+    zero overflow, finite losses, a torch.profiler trace of one step, three
     steps on one repeated batch); then ``retrieval_cand`` (1,000,000
-    candidates, 2 warm-up and 10 timed requests) for the four recsys archs
+    candidates, 2 warm-up and 5 timed requests) for the four recsys archs
     and the serve_retrieval twin's ``main()``. The kernels are measured on
     the inputs these paths gave them (the D-50 scalar path of the gather,
     tile, untile and scatter; the grouped sum at D 32 and 8 and at D 64; the
@@ -3649,7 +3586,7 @@ def recsys_models_phase(counts, reset_counts, phase: dict, recorded: dict, recor
                 nonlocal tstate
                 tstate, _ = cell.step_fn(tstate, b)
 
-            prof = profile_requests(f"{arch_id}_train_batch", run_step, tbatches[n_steps:n_steps + 3])
+            prof = profile_requests(f"{arch_id}_train_batch", run_step, tbatches[n_steps:n_steps + 1])
             emit(prof)
             repeat = []
             for _ in range(N_RM_REPEAT):
@@ -3774,6 +3711,37 @@ KERNEL_NAMES = {"gather_rows": "gather_rows_kernel", "segment_sum_csr": "segment
                 "segment_expand_csr_group": "segment_expand_group_kernel"}
 
 
+def writeback_device_ms(fn, iters: int = 30) -> float:
+    """The device time of ``fn`` with the write-back of what it writes
+    inside the window: CUDA events around ``fn`` and then a 256 MB read
+    (buffer B), which evicts the lines ``fn`` left dirty in the 50 MB
+    write-back L2, less the events around B's read alone; the median of
+    ``iters`` pairs. Before each window a 1 GB read (buffer A) leaves the
+    L2 cold and clean and gives the host time to enqueue the window. A
+    scatter's trace event ends while its writes still sit in the L2, so
+    ``kernel_device_ms`` can read it under its HBM bound."""
+    pre = torch.zeros(1 << 28, dtype=torch.float32, device=torch.device("cuda"))
+    post = torch.zeros(1 << 26, dtype=torch.float32, device=torch.device("cuda"))
+    fn()
+    torch.cuda.synchronize()
+    diffs = []
+    for _ in range(iters):
+        ms = []
+        for with_fn in (True, False):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            pre.amax()
+            start.record()
+            if with_fn:
+                fn()
+            post.amax()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        diffs.append(ms[0] - ms[1])
+    del pre, post
+    return float(np.median(diffs))
+
+
 def _measure(kname: str, real, plain, args: list, kw: dict, iters: int, dev) -> dict:
     """One kernel on one recorded input: checked against its plain version
     (bit-equal, or rtol = atol = 1e-5 for the sums, the grouped sum also
@@ -3860,9 +3828,12 @@ def _measure(kname: str, real, plain, args: list, kw: dict, iters: int, dev) -> 
     k_ms = time_ms(run_kernel, iters)
     p_ms = time_ms(run_plain, iters)
     b_ms, b_by = bound_ms(n_bytes, n_ops)
-    return {"shape": shape, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "host_us": host_us(run_kernel),
-            "kernel_device_ms": kernel_device_ms(run_kernel, KERNEL_NAMES[kname])}
+    out = {"shape": shape, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "host_us": host_us(run_kernel),
+           "kernel_device_ms": kernel_device_ms(run_kernel, KERNEL_NAMES[kname])}
+    if kname.startswith("scatter"):  # its writes' write-back, which the trace event leaves out
+        out["writeback_device_ms"] = writeback_device_ms(run_kernel)
+    return out
 
 
 def _measure_group(kname: str, real, plain, args: list, iters: int, dev) -> dict:
@@ -6114,7 +6085,8 @@ def _moe_prefill_bound(cfg, T: int) -> dict:
     d, hd, m = cfg.d_model, cfg.head_dim, cfg.moe
     attn = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d
     flash_ops = 4.0 * hd * cfg.n_heads * T * (T + 1) / 2
-    tok_ops = 2.0 * (attn + 3 * d * m.d_ff * (m.top_k + m.n_shared) + d * m.n_experts)
+    ffn = 3 * d * cfg.d_ff if m is None else 3 * d * m.d_ff * (m.top_k + m.n_shared) + d * m.n_experts
+    tok_ops = 2.0 * (attn + ffn)
     prod_ops = cfg.n_layers * T * tok_ops + 2.0 * d * cfg.vocab_size
     n_weights = cfg.n_layers * (attn + d * m.n_experts + 3 * d * m.d_ff * (m.n_experts + m.n_shared)) \
         + d * cfg.vocab_size
@@ -6416,6 +6388,393 @@ def moe_phase(counts, reset_counts, phase: dict, recorded: dict, recorder, by_na
           "flash_fwd": {p: {k: flash_at[p][k] for k in keep} for p in ("moe_prefill", "moe_decode")},
           "launches": launches, "phase_s": time.perf_counter() - phase_t0})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# 4 the MoE family trains: train_4k of qwen2-moe-a2.7b and moonshot-v1-16b-a3b
+# ---------------------------------------------------------------------------
+# 4 layers of each (24 and 48 at their published depth): 2.59 B and 2.62 B
+# fp32 params, whose weights, gradients and AdamW moments take about 42 GB
+# beside a 7.47 (8.05) GB engine; the published 14.0 B (27.7 B) would take
+# 224 (443) GB. (warm-up, timed) steps a cell; qwen2-moe then takes one
+# profiled step and N_LM_REPEAT on one repeated batch.
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_STEPS = {"qwen2-moe-a2.7b": (2, 5), "moonshot-v1-16b-a3b": (1, 2)}
+MOE_TRAIN_SEED = 70_000
+
+
+def _lm_train_bound(cfg, T: int, n_params: int) -> dict:
+    """The least time of a train step (batch 1), term by term: the
+    products of the layers (their forward, its recompute and a backward of
+    twice the forward: the projections, the dense SwiGLU or the routed
+    experts' k and the shared experts' SwiGLUs and the router) and of the head (forward and
+    backward) and the flash kernels (the forward twice, the backward's five
+    products to the forward's two) at the bf16 peak; AdamW (p, g, m and v
+    read, p, m and v written, fp32) and the MIXED casts (every weight cast
+    in the forward and in the recompute, 4 bytes read and 2 written, its
+    bf16 gradient cast back, 2 read and 4 written) at the HBM rate."""
+    d, hd, m = cfg.d_model, cfg.head_dim, cfg.moe
+    attn = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d
+    ffn = 3 * d * cfg.d_ff if m is None else 3 * d * m.d_ff * (m.top_k + m.n_shared) + d * m.n_experts
+    tok_ops = 2.0 * (attn + ffn)
+    prod_ops = 4.0 * cfg.n_layers * T * tok_ops + 3.0 * 2.0 * T * d * cfg.vocab_size
+    flash_fwd = 4.0 * hd * cfg.n_heads * T * (T + 1) / 2
+    flash_ops = cfg.n_layers * (2.0 + 2.5) * flash_fwd
+    terms = {"products_ms": prod_ops / BF16_OPS_PER_S * 1e3, "flash_ms": flash_ops / BF16_OPS_PER_S * 1e3,
+             "adamw_ms": 28.0 * n_params / HBM_BYTES_PER_S * 1e3,
+             "cast_ms": 18.0 * n_params / HBM_BYTES_PER_S * 1e3}
+    return {"bound_ms": sum(terms.values()), **terms, "product_flops": prod_ops, "flash_flops": flash_ops,
+            "dense_params": n_params}
+
+
+def _grad_excess(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| over MIXED_TOL in units of want's largest
+    magnitude (atol · max|want| + rtol · |want|): a sum over 4,096 tokens
+    moves by about an ulp of its largest terms, not of each element."""
+    w = want.float()
+    tol = MIXED_TOL["atol"] * w.abs().max() + MIXED_TOL["rtol"] * w.abs()
+    return float(((got.float() - w).abs() / tol).max())
+
+
+def _moe_grads(moe_lib, fn, m, x: torch.Tensor, dy: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """``fn``'s (``moe_apply`` or ``moe_dense_ref``) output on x and the
+    gradients of sum(y · dy) / N + aux in x, the router, the three stacks
+    and the shared experts' weights."""
+    xg = x.detach().requires_grad_()
+    y, aux = fn(m, xg)
+    named = {"x": xg, "router": m.router, "gate": m.gate, "up": m.up, "down": m.down}
+    if m.shared is not None:
+        named.update({f"shared.{n}": getattr(m.shared, n).weight for n in ("gate", "up", "down")})
+    g = torch.autograd.grad(torch.sum(y.float() * dy) / x.shape[0] + aux, list(named.values()))
+    return y.detach(), dict(zip(named, g))
+
+
+def _moe_layer0_grads(moe_lib, m, x0: torch.Tensor, what: str) -> dict:
+    """Layer 0's MoE on its recorded train input (every token of the step):
+    the grouped dispatch's output and gradients (``GroupedSwiGLU``'s
+    backward, the gather's, the weighted sum's, the router's through the
+    top-k weights and the aux loss) against the dense plain version
+    (``moe_dense_ref``, every expert on every token) under autograd, for a
+    seeded output gradient; the output within MIXED_TOL, each gradient
+    within MIXED_TOL in units of its largest magnitude; what a zero
+    gradient and the two busiest experts' weights swapped read; both
+    timed."""
+    import types
+
+    N = x0.shape[0]
+    dy = torch.randn(x0.shape, generator=torch.Generator(device=x0.device).manual_seed(SEED), device=x0.device)
+    y, got = _moe_grads(moe_lib, moe_lib.moe_apply, m, x0, dy)
+    y_ref, want = _moe_grads(moe_lib, moe_lib.moe_dense_ref, m, x0, dy)
+    with torch.no_grad():
+        _, _, top_e = moe_lib.route(m.router, x0, m.cfg.top_k)
+    load = torch.bincount(top_e.reshape(-1), minlength=m.gate.shape[0])
+    e0, e1 = (int(e) for e in torch.topk(load, 2).indices)
+    perm = torch.arange(m.gate.shape[0], device=x0.device)
+    perm[e0], perm[e1] = e1, e0
+    swapped = types.SimpleNamespace(cfg=m.cfg, router=m.router, gate=m.gate[perm], up=m.up[perm],
+                                    down=m.down[perm], shared=m.shared)
+    _, sw = _moe_grads(moe_lib, moe_lib.moe_apply, swapped, x0, dy)
+    del swapped
+    out = {"tokens": N, "y_err_over_tol": _moe_excess(y, y_ref),
+           "grad_err_over_tol": {n: _grad_excess(got[n], want[n]) for n in want},
+           "grad_max_abs": {n: float(want[n].abs().max()) for n in want},
+           "grad_max_abs_err": {n: float((got[n].float() - want[n].float()).abs().max()) for n in want},
+           "zero_grad_err_over_tol": min(_grad_excess(torch.zeros_like(want[n]), want[n]) for n in want),
+           "swapped_experts": [e0, e1],
+           "swapped_grad_err_over_tol": {n: _grad_excess(sw[n], want[n]) for n in ("x", "gate", "up", "down")},
+           "expert_rows_min_max": [int(load.min()), int(load.max())], "tolerance": MIXED_TOL}
+    del got, want, sw, y, y_ref
+    check(out["y_err_over_tol"] <= 1.0 and max(out["grad_err_over_tol"].values()) <= 1.0,
+          f"{what} layer 0 MoE gradients against the dense plain version: {out}")
+    check(out["zero_grad_err_over_tol"] > 1.0 and min(out["swapped_grad_err_over_tol"].values()) > 1.0,
+          f"the {what} layer 0 MoE gradient check cannot tell a wrong gradient: {out}")
+    out["ms"] = time_ms(lambda: _moe_grads(moe_lib, moe_lib.moe_apply, m, x0, dy), 3)
+    out["plain_ms"] = time_ms(lambda: _moe_grads(moe_lib, moe_lib.moe_dense_ref, m, x0, dy), 1)
+    return out
+
+
+def _layer0_attention(real_bwd, fa_ref, bargs, label: str) -> dict:
+    """Layer 0's attention gradients on all of a train step's rows (its
+    recorded flash backward inputs) against the plain backward (at T 4,096
+    its (H, T, T) fp32 scores are 1.07 GB), and what a zero gradient or the
+    dK of the other kv head would read: ``flash_bwd_readings``."""
+    got, want = real_bwd(*bargs), fa_ref.flash_bwd(*bargs)
+    readings = flash_bwd_readings(got, want, bargs[0].dtype)
+    check(all(bool(torch.isfinite(g).all()) for g in got), f"{label} layer 0 gradients not finite")
+    check(max(readings[f"{g}_err_over_tol"] for g in GRAD_NAMES) <= 1.0,
+          f"{label} layer 0 attention gradients {readings}")
+    check(min(readings[f"{g}_zero_err_over_tol"] for g in GRAD_NAMES) > 1.0
+          and readings["dk_other_kv_head_err_over_tol"] > 1.0,
+          f"the {label} layer 0 gradient check cannot tell a wrong gradient: {readings}")
+    return readings
+
+
+def _lm_train(arch, n_layers: int | None, opts, dev, counts, reset_counts, phase: dict, label: str, n_warm: int,
+              n_timed: int, seed: int, waits: list | None = None, repeat: int = 0) -> tuple[dict, dict, dict]:
+    """``arch``'s ``train_4k`` at its published widths (T 4,096, batch 1;
+    ``n_layers`` layers, or all of them with None) with cell options
+    ``opts``, from a fresh state (its weights drawn on the card, zero
+    moments, an empty engine): ``n_warm`` warm-up and ``n_timed`` timed
+    steps on the batches of seeds ``seed``, ``seed + 1``, ... (the last
+    warm-up step runs as phase ``label``: the wrappers that record, record
+    it), each checked: no overflow, a finite loss and params, the rows live
+    equal to the distinct tokens seen, the exact launches and, for a MoE
+    arch, two waits for the group sizes a MoE layer (``waits``, the sizes
+    ``moe._group_sizes`` returned). With ``repeat`` one more step under the
+    profiler (its line emitted) and ``repeat`` steps on one repeated batch
+    (the loss falls). Returns the phase line, the launches and the state."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.cells import build_arch_cell
+    from repro_torch.optim import adamw
+
+    published = arch
+    if n_layers is not None:
+        arch = dataclasses.replace(arch, model=dataclasses.replace(arch.model, n_layers=n_layers))
+    check(arch.shape("train_4k")["seq_len"] == LM_TRAIN_T, f"{arch.arch_id} train_4k seq_len")
+    t0 = time.perf_counter()
+    cell = build_arch_cell(arch, ShapeCell("train_4k", "train", {"seq_len": LM_TRAIN_T, "global_batch": 1}),
+                           opts, dev)
+    cfg = cell.arch.model
+    dense = card_model(cfg, dev)
+    st = {"step": torch.zeros((), dtype=torch.int32, device=dev), "dense": dense,
+          "opt": adamw.init(dict(dense.named_parameters())), "sparse": cell.engine.init_state()}
+    del dense
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    L, gkey = cfg.n_layers, f"dim{cfg.d_model}"
+    n_params = sum(p.numel() for p in st["dense"].parameters())
+    state_bytes = {"dense_params": 4 * n_params,
+                   "adamw_moments": sum(t.numel() * t.element_size() for t in _tensors(st["opt"])),
+                   "engine": sum(t.numel() * t.element_size() for t in _tensors(st["sparse"]))}
+    n = n_warm + n_timed
+    batches = [cell.make_batch(seed + s) for s in range(n + (2 if repeat else 0))]
+    expect_live, seen = [], torch.empty(0, dtype=torch.int32, device=dev)
+    for b in batches[:n]:  # distinct tokens seen up to each step: the rows it must hold
+        seen = torch.unique(torch.cat([seen, b.reshape(-1)]))
+        expect_live.append(seen.numel())
+    del seen
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    tc0 = fa_ops.tensor_core_launches()
+    step_ms, losses, inserted, per_step = [], [], [], []
+    for s in range(n):
+        phase["name"] = label if s == n_warm - 1 else None
+        before, w0 = counts(), len(waits) if waits is not None else 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        st, out = cell.step_fn(st, batches[s])
+        end.record()
+        end.synchronize()
+        phase["name"] = None
+        if s >= n_warm:
+            step_ms.append(start.elapsed_time(end))
+        met = {k: int(v) for k, v in out.items() if k != "loss"}
+        losses.append(float(out["loss"]))
+        inserted.append(met[f"{gkey}/idmap_inserted"])
+        got = {k: v - before[k] for k, v in counts().items()}
+        want = {k: {"fused_gather.gather_rows": 4, "fused_scatter.scatter_add_rows": 3,
+                    "fused_scatter.scatter_set_rows": 3 * (inserted[-1] > 0), "flash_attention.flash_fwd": 2 * L,
+                    "flash_attention.flash_bwd": L}.get(k, 0) for k in got}
+        check(all(v == 0 for k, v in met.items() if "overflow" in k), f"{label} overflow at step {s + 1}: {met}")
+        check(np.isfinite(losses[-1]), f"{label} loss {losses[-1]} at step {s + 1}")
+        check(all(bool(torch.isfinite(p).all()) for p in st["dense"].parameters()),
+              f"{label} params not finite after step {s + 1}")
+        check(met[f"{gkey}/dev_rows_live"] == expect_live[s],
+              f"{label} step {s + 1}: {met[f'{gkey}/dev_rows_live']} rows live, {expect_live[s]} tokens seen")
+        check(got == want, f"{label} step {s + 1}: launches {got}, expected {want}")
+        if cfg.moe is not None:
+            per_step.append(len(waits) - w0)
+            check(per_step[-1] == 2 * L and all(w == cfg.moe.n_experts for w in waits[w0:]),
+                  f"{label} step {s + 1}: {per_step[-1]} waits for the group sizes, expected {2 * L}")
+    peak = torch.cuda.max_memory_allocated()
+    launches = counts()
+    tc = [a - b for a, b in zip(fa_ops.tensor_core_launches(), tc0)]
+    check(tc == [launches["flash_attention.flash_fwd"], launches["flash_attention.flash_bwd"]],
+          f"{label}: tensor-core launches {tc} of {launches}")
+    check(inserted[0] > 0, f"{label} step 1 inserted nothing")
+    sm = np.array(step_ms)
+    bound = _lm_train_bound(cfg, LM_TRAIN_T, n_params)
+    reduced = {"global_batch": [published.shape("train_4k")["global_batch"], 1]}
+    if n_layers is not None:
+        reduced["n_layers"] = [published.model.n_layers, L]
+    line = {"phase": f"full_{label}", "arch": arch.arch_id, "shape": "train_4k", "seq_len": LM_TRAIN_T,
+            "widths": {"n_layers": L, "d_model": cfg.d_model, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                       "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
+                       "qkv_bias": cfg.qkv_bias, "rope_theta": cfg.rope_theta,
+                       "moe": dataclasses.asdict(cfg.moe) if cfg.moe is not None else None},
+            "reduced": reduced,
+            "options": {"remat": cfg.remat, "remat_policy": cfg.remat_policy, "fused_ce": opts.fused_ce},
+            "warmup": n_warm, "steps": n_timed, "setup_s": setup_s,
+            "step_ms_p50": float(np.percentile(sm, 50)), "step_ms_p99": float(np.percentile(sm, 99)),
+            "step_ms_mean": float(sm.mean()), "step_ms": step_ms,
+            "tokens_per_s": LM_TRAIN_T / (float(np.percentile(sm, 50)) / 1e3), **bound,
+            "bound_share_p50": bound["bound_ms"] / float(np.percentile(sm, 50)),
+            "loss": losses, "idmap_inserted": inserted, "rows_live": expect_live, "state_bytes": state_bytes,
+            "max_memory_allocated_bytes": peak, "launches": launches,
+            "flash_tensor_core_launches": {"fwd": tc[0], "bwd": tc[1]},
+            "launches_per_step": {k: v / n for k, v in launches.items()}}
+    if cfg.moe is not None:
+        line["group_size_waits_per_step"] = per_step
+    if repeat:
+        def step(b):
+            nonlocal st
+            st, _ = cell.step_fn(st, b)
+
+        prof = profile_requests(label, step, [batches[n]])
+        emit(prof)
+        line["profile"] = {k: prof[k] for k in ("wall_ms_per_request", "device_busy_ms_per_request",
+                                                 "device_idle_share", "device_events_per_request",
+                                                 "fp32_add_ms_per_request", "fp32_fill_ms_per_request",
+                                                 "top_device_ms_per_request")}
+        losses_repeat = []
+        for _ in range(repeat):  # one batch again and again: the loss must fall
+            st, out = cell.step_fn(st, batches[-1])
+            losses_repeat.append(float(out["loss"]))
+        check(all(np.isfinite(losses_repeat)) and losses_repeat[-1] < losses_repeat[0],
+              f"{label} loss on one repeated batch: {losses_repeat}")
+        line["loss_on_one_repeated_batch"] = losses_repeat
+        launches = counts()  # the profiled and repeated steps are on the path too
+    return line, launches, st
+
+
+def moe_train_phase(counts, reset_counts, phase: dict, recorded: dict, recorder, by_name: dict, flash_at: dict, dev,
+                    device_info: dict) -> tuple[dict, dict]:
+    """The MoE family training on the card (``train_4k``, the grouped
+    dispatch and its backward, the aux loss): (a) qwen2-moe-a2.7b at
+    published widths and MOE_TRAIN_LAYERS layers (``_lm_train``, phase
+    ``moe_train``), then layer 0's attention gradients on all 4,096 rows
+    against the plain backward and layer 0's MoE output and gradients
+    against the dense plain version (``_moe_layer0_grads``); (b) the flash
+    kernels, the row gather and the scatters on (a)'s recorded inputs
+    against their plain versions, timed (path ``moe_train``); (c) the same
+    arch from the same drawn weights with ``fused_ce=True,
+    remat_policy="dots"`` for 1 step: its loss within MIXED_TOL of (a)'s
+    step 1, its peak; (d) moonshot-v1-16b-a3b as (a), 1 + 2 steps. Returns
+    the launches of the main-path runs and the flash backward's
+    measurement."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+    from repro_torch.kernels.fused_gather import ops as fg_ops, ref as fg_ref
+    from repro_torch.kernels.fused_scatter import ops as fs_ops, ref as fs_ref
+    from repro_torch.configs import get_config
+    from repro_torch.launch.common import CellOptions
+    from repro_torch.models import moe as moe_lib
+
+    phase_t0 = time.perf_counter()
+    qwen = get_config("qwen2-moe-a2.7b")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    check(held < (1 << 30), f"{held} bytes still allocated before the MoE train phase")
+    launches = dict.fromkeys(counts(), 0)
+
+    def add(d):
+        for k, v in d.items():
+            launches[k] = launches.get(k, 0) + v
+
+    waits, moe_io = [], {}
+    real_sizes, real_apply = moe_lib._group_sizes, moe_lib.moe_apply
+
+    def sizes(c):
+        out = real_sizes(c)
+        waits.append(len(out))
+        return out
+
+    def apply_rec(m, x, prec=moe_lib.MIXED, with_aux=True):  # layer 0's: a step's first MoE call
+        if phase["name"] and phase["name"] not in moe_io:
+            moe_io[phase["name"]] = (m, x.detach().clone())
+        return real_apply(m, x, prec, with_aux)
+
+    real = {"flash_attention": recorder(fa_ops, "flash_attention"), "gather_rows": recorder(fg_ops, "gather_rows"),
+            "scatter_add_rows": recorder(fs_ops, "scatter_add_rows"),
+            "scatter_set_rows": recorder(fs_ops, "scatter_set_rows"), "flash_bwd": fa_ops.flash_bwd}
+
+    def record_last_bwd(*args, **kw):  # layer 0's backward: the step's last call
+        if phase["name"]:
+            recorded[("flash_bwd", phase["name"])] = ([_keep(a, False) for a in args], kw)
+        return real["flash_bwd"](*args, **kw)
+
+    moe_lib._group_sizes, moe_lib.moe_apply, fa_ops.flash_bwd = sizes, apply_rec, record_last_bwd
+    try:
+        # (a) qwen2-moe-a2.7b train_4k, the main path
+        line, n, st = _lm_train(qwen, MOE_TRAIN_LAYERS, CellOptions(), dev, counts, reset_counts, phase, "moe_train",
+                                *MOE_TRAIN_STEPS["qwen2-moe-a2.7b"], MOE_TRAIN_SEED, waits, repeat=N_LM_REPEAT)
+        add(n)
+        for k, fn in real.items():  # the wrappers record no more
+            setattr(fa_ops if k.startswith("flash") else fs_ops if k.startswith("scatter") else fg_ops,
+                    k, fn)
+        m0, x0 = moe_io.pop("moe_train")
+        check(m0 is st["dense"].layers[0].moe, "moe_train: the recorded MoE call is not layer 0's")
+        del st
+        torch.cuda.empty_cache()
+        bargs = recorded.pop(("flash_bwd", "moe_train"))[0]
+        layer0 = _layer0_attention(real["flash_bwd"], fa_ref, bargs, "moe_train")
+        line["layer0_attention_grads_vs_plain"] = layer0
+        line["layer0_moe_grads_vs_plain"] = _moe_layer0_grads(moe_lib, m0, x0, "moe_train")
+        del m0, x0
+        line.update(device_info)
+        emit(line)
+        torch.cuda.empty_cache()
+
+        # (b) the kernels on (a)'s recorded inputs, which hold (a)'s engine tables
+        flash_at["moe_train"] = _measure_flash(real["flash_attention"], fa_ops.flash_fwd, fa_ref,
+                                               *recorded.pop(("flash_attention", "moe_train"))[0], path="moe_train")
+        bwd = _measure_flash_bwd(real["flash_bwd"], fa_ref, *bargs, path="moe_train")
+        bwd["at"]["moe_train"].update(readings=layer0, **{k: bwd[k] for k in (
+            "ms", "kernel_device_ms", "kernel_device_ms_by_kernel", "plain_ms", "bound_ms", "bound_by", "bound_share",
+            "host_us", "library_ms", "two_launches_bit_equal")})
+        bwd["at"]["moe_train"]["max_abs_err"] = max(layer0[f"{g}_max_abs_err"] for g in GRAD_NAMES)
+        del bargs
+        at = {}
+        for full, kname, plain in (("fused_gather.gather_rows", "gather_rows", fg_ref.gather_rows),
+                                   ("fused_scatter.scatter_add_rows", "scatter_add_rows", fs_ref.scatter_add_rows),
+                                   ("fused_scatter.scatter_set_rows", "scatter_set_rows", fs_ref.scatter_set_rows)):
+            if (kname, "moe_train") not in recorded:  # the set runs on a step that inserts rows
+                continue
+            args, kw = recorded.pop((kname, "moe_train"))
+            at[kname] = _measure(kname, real[kname], plain, args, kw, 20, dev)
+            _add_path(by_name[full], "moe_train", at[kname])
+            del args
+            torch.cuda.empty_cache()
+
+        # (c) the same weights with the chunked loss and the "dots" remat
+        vline, n, st = _lm_train(qwen, MOE_TRAIN_LAYERS, CellOptions(fused_ce=True, remat_policy="dots"), dev,
+                                 counts, reset_counts, phase, "moe_train_fused_dots", 0, 1, MOE_TRAIN_SEED, waits)
+        del st
+        add(n)
+        moe_io.clear()
+        check(abs(vline["loss"][0] - line["loss"][0]) <= MIXED_TOL["atol"] + MIXED_TOL["rtol"] * abs(line["loss"][0]),
+              f"moe_train with fused_ce and dots: step-1 loss {vline['loss'][0]}, default {line['loss'][0]}")
+        emit({**{k: vline[k] for k in ("phase", "arch", "options", "loss", "step_ms", "max_memory_allocated_bytes",
+                                        "launches", "group_size_waits_per_step")},
+              "default_step1_loss": line["loss"][0], "default_max_memory_allocated_bytes":
+                  line["max_memory_allocated_bytes"], "tolerance": MIXED_TOL, **device_info})
+        torch.cuda.empty_cache()
+
+        # (d) moonshot-v1-16b-a3b train_4k
+        mline, n, st = _lm_train(get_config("moonshot-v1-16b-a3b"), MOE_TRAIN_LAYERS, CellOptions(), dev, counts,
+                                 reset_counts, phase, "moe_train_moonshot", *MOE_TRAIN_STEPS["moonshot-v1-16b-a3b"],
+                                 MOE_TRAIN_SEED, waits)
+        add(n)
+        del st
+        moe_io.clear()
+        mline.update(device_info)
+        emit(mline)
+    finally:
+        moe_lib._group_sizes, moe_lib.moe_apply = real_sizes, real_apply
+        for k, fn in real.items():
+            setattr(fa_ops if k.startswith("flash") else fs_ops if k.startswith("scatter") else fg_ops, k, fn)
+        moe_io.clear()
+    torch.cuda.empty_cache()
+    keep = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "kernel_device_ms",
+            "writeback_device_ms", "host_us", "bytes")
+    emit({"phase": "moe_train_kernels", **device_info, **{k: {x: m[x] for x in keep if x in m} for k, m in at.items()},
+          "flash_fwd": {x: flash_at["moe_train"][x] for x in keep if x in flash_at["moe_train"]},
+          "flash_bwd": {x: bwd["at"]["moe_train"][x] for x in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+                                                               "bound_ms", "bound_by", "kernel_device_ms", "host_us",
+                                                               "bytes")},
+          "launches": launches, "phase_s": time.perf_counter() - phase_t0})
+    return launches, bwd["at"]["moe_train"]
 
 
 def _tensors(tree):

@@ -19,6 +19,11 @@ class CellOptions:
     recv_slack: float = 2.0       # owner recv-unique budget over U
     sparse_opt_lr: float = 1e-3   # SparseAdam on the embedding rows
     dense_opt_lr: float = 1e-3    # AdamW on the dense params
+    # the LM train cell: each layer recomputed in the backward, all of it
+    # ("full") or all but its plain products ("dots"); the chunked loss
+    remat: bool = True
+    remat_policy: str = "full"
+    fused_ce: bool = False
     # tiered embedding storage (storage.StorageConfig): non-None turns the
     # device tier into a row cache over a host-DRAM tier, and the train cell
     # gives the Trainer its step-edge hooks (``cell.storage_hooks``)

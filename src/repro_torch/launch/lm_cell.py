@@ -8,15 +8,19 @@ The vocab table lives in the Embedding Engine as one ``tokens`` feature
 takes. The train step inserts the batch's new tokens, takes the gradient of
 the next-token loss in the dense params and the fetched rows, and applies
 AdamW and SparseAdam; it returns the new state and the loss with the
-engine's metrics. The prefill step returns fp32 logits of the last position
-and the bf16 KV cache, with the engine's metrics. A decode step takes one
+engine's metrics. A MoE arch's gradient includes its routers' aux loss;
+the reported loss leaves it out, as the reference's does. The options
+``remat`` and ``remat_policy`` go onto the cell's config
+(``cell.arch.model``), ``fused_ce`` onto its loss. The prefill step
+returns fp32 logits of the last position and the bf16 KV cache, with the
+engine's metrics. A decode step takes one
 token a sequence at the state's ``pos``, writes its K and V into the
 state's cache in place (the reference returns a new cache and donates the
 old one: two copies of a 38.7 GB cache do not fit a card) and returns the
 new state (``pos`` one on) and fp32 logits (B, V) with the engine's
 metrics. Decode reads the whole cache, masked, as the reference does.
-The MoE archs serve (prefill and decode) on one device; their train cell
-and their decode cells over a group are not ported yet (ROADMAP A7b, A7g).
+The MoE archs train, prefill and decode on one device; their decode cells
+over a group are not ported yet (ROADMAP A7g).
 
 Over a group of D ranks the vocab table is sharded over the ranks as the
 reference shards it over its mesh. ``long_context`` cells (``long_500k``)
@@ -28,6 +32,8 @@ Batch convention: (B, T) int32 token ids on the cell's device; a decode
 batch is (B,) ids (over a group, this rank's slice).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -81,10 +87,8 @@ def _batch_maker(cfg: tfm.TransformerConfig, B: int, T: int, device):
 
 def make_train_cell(arch: ArchConfig, shape: ShapeCell, opts: CellOptions,
                     device: torch.device) -> Cell:
-    cfg = arch.model
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{arch.arch_id}: MoE training is not ported yet (ROADMAP A7b): "
-                                  "the loss would lack the router's aux term")
+    cfg = dataclasses.replace(arch.model, remat=opts.remat, remat_policy=opts.remat_policy)
+    arch = dataclasses.replace(arch, model=cfg)
     B, T = shape["global_batch"], shape["seq_len"]
     engine, gkey = _engine_for(cfg, B * T, opts, device)
     espec = engine.groups[gkey].exchange
@@ -107,9 +111,9 @@ def make_train_cell(arch: ArchConfig, shape: ShapeCell, opts: CellOptions,
         del rows_r
         params = dict(state["dense"].named_parameters())
         x_emb = exchange.route_rows(rows, plans[gkey], espec).view(B, T, cfg.d_model)
-        loss = tfm.lm_loss(state["dense"], x_emb, labels, MIXED)
+        loss, aux = tfm.lm_loss(state["dense"], x_emb, labels, MIXED, fused_ce=opts.fused_ce)
         del x_emb
-        grads = torch.autograd.grad(loss, [*params.values(), rows])
+        grads = torch.autograd.grad(loss + aux, [*params.values(), rows])
         opt = adamw.update(acfg, params, dict(zip(params, grads)), state["opt"], step)
         with torch.no_grad():
             local = engine.update_local(local, plans, {gkey: grads[-1]}, sopt, step)

@@ -13,10 +13,16 @@ made:
 * **grouped** (more assignments than experts: prefill and training): the
   N·k assignments sorted by expert (stable), their tokens gathered, one
   product per expert over its rows; the group sizes reach the host once a
-  call (``_group_sizes``);
-* **gathered** (no more assignments than experts: a decode step): each
-  assignment's expert weights gathered and one batched product over them;
-  the host never waits, and only the chosen experts' weights are read.
+  call (``_group_sizes``). The experts' SwiGLU is one autograd Function
+  (``GroupedSwiGLU``) whose backward reuses the forward's group sizes and
+  writes each expert's gradients with its own products, so no per-expert
+  select of the stacks is differentiated. A train step therefore waits
+  for the device once a MoE layer in the forward and, under ``remat``,
+  once more where the layer is recomputed in the backward;
+* **gathered** (no more assignments than experts: a decode step, which
+  runs under ``inference_mode``): each assignment's expert weights gathered
+  and one batched product over them; the host never waits, and only the
+  chosen experts' weights are read.
 
 Rounding is the reference's: the expert products come out in the compute
 type, the routing weight is rounded to it before it multiplies, the k
@@ -97,23 +103,108 @@ def _group_sizes(counts: torch.Tensor) -> list[int]:
     return counts.tolist()
 
 
+class GroupedSwiGLU(torch.autograd.Function):
+    """Each expert's SwiGLU over its own rows of the expert-sorted ``xs``
+    (N·k, d): rows ``[lo, hi)`` of span ``(e, lo, hi)`` go through
+    ``gate[e]``, ``up[e]`` (d, f) and ``down[e]`` (f, d), one product per
+    expert and weight written into a preallocated output (the stacks are
+    the cast ones). Saves ``xs``, the stacks and the gate and up
+    pre-activations; the backward writes dxs and the stacks' gradients,
+    each expert's slice by its own products, with zeros only for the
+    experts that got no rows, and takes the forward's ``spans`` (no second
+    wait). The elementwise steps are autograd's own for ``silu(g) * u``
+    (the product's gradient rounded to the compute type, then
+    ``silu_backward``); dxs adds its up product, rounded to the compute
+    type, onto its gate product, rounded too (``addmm_``), so it rounds
+    twice. Without a gradient to take ``_grouped_swiglu`` runs instead."""
+
+    @staticmethod
+    def forward(ctx, xs, gate, up, down, spans: list[tuple[int, int, int]]):
+        g, u = _gate_up(xs, gate, up, spans)
+        ys = _down(F.silu(g).mul_(u), down, spans, xs)
+        ctx.save_for_backward(xs, gate, up, down, g, u)
+        ctx.spans = spans
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        xs, gate, up, down, g, u = ctx.saved_tensors
+        spans = ctx.spans
+        sg = F.silu(g)
+        h = sg * u
+        dh = torch.empty_like(g)
+        dgate, dup, ddown = torch.empty_like(gate), torch.empty_like(up), torch.empty_like(down)
+        for e, lo, hi in spans:
+            torch.mm(dys[lo:hi], down[e].t(), out=dh[lo:hi])
+            torch.mm(h[lo:hi].t(), dys[lo:hi], out=ddown[e])
+        del h
+        du = dh * sg
+        dg = torch.ops.aten.silu_backward(dh.mul_(u), g)
+        del dh, sg
+        dxs = torch.empty_like(xs)
+        for e, lo, hi in spans:
+            torch.mm(xs[lo:hi].t(), dg[lo:hi], out=dgate[e])
+            torch.mm(xs[lo:hi].t(), du[lo:hi], out=dup[e])
+            torch.mm(dg[lo:hi], gate[e].t(), out=dxs[lo:hi])
+            dxs[lo:hi].addmm_(du[lo:hi], up[e].t())
+        for e in set(range(gate.shape[0])) - {e for e, _, _ in spans}:  # the experts that got no rows
+            for grad in (dgate, dup, ddown):
+                grad[e].zero_()
+        return dxs, dgate, dup, ddown, None
+
+
+def _gate_up(xs, gate, up, spans) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gate and up pre-activations (N·k, f), one product per expert each."""
+    g = xs.new_empty((xs.shape[0], gate.shape[2]))
+    u = torch.empty_like(g)
+    for e, lo, hi in spans:
+        torch.mm(xs[lo:hi], gate[e], out=g[lo:hi])
+        torch.mm(xs[lo:hi], up[e], out=u[lo:hi])
+    return g, u
+
+
+def _down(h, down, spans, xs) -> torch.Tensor:
+    ys = torch.empty_like(xs)
+    for e, lo, hi in spans:
+        torch.mm(h[lo:hi], down[e], out=ys[lo:hi])
+    return ys
+
+
+def _grouped_swiglu(xs, gate, up, down, spans) -> torch.Tensor:
+    """``GroupedSwiGLU``'s forward where no gradient is taken (prefill under
+    ``inference_mode``): silu(g)·u written over g and u freed before the
+    down products, nothing saved. The same values."""
+    g, u = _gate_up(xs, gate, up, spans)
+    h = F.silu(g, inplace=True).mul_(u)
+    del u
+    return _down(h, down, spans, xs)
+
+
+def _spans(sizes: list[int]) -> list[tuple[int, int, int]]:
+    """(expert, first row, end row) of each expert with rows, from the group sizes."""
+    out, lo = [], 0
+    for e, c in enumerate(sizes):
+        if c:
+            out.append((e, lo, lo + c))
+        lo += c
+    return out
+
+
 def _experts_grouped(m, xc: torch.Tensor, top_e: torch.Tensor, counts: torch.Tensor,
                      prec: Precision) -> torch.Tensor:
     """Each expert's SwiGLU over its own rows: the N·k assignments sorted by
-    expert (stable), their tokens gathered, one product per expert and
-    weight; the outputs (N, k, d) in the assignments' order."""
+    expert (stable), their tokens gathered, ``GroupedSwiGLU`` over them;
+    the outputs (N, k, d) in the assignments' order (``_grouped_swiglu``
+    where no gradient is taken)."""
     n, k = top_e.shape
     order = torch.argsort(top_e.reshape(-1), stable=True)
     xs = xc.index_select(0, order // k)
-    gate, up, down = prec.cast(m.gate), prec.cast(m.up), prec.cast(m.down)
-    ys = torch.empty((n * k, xc.shape[1]), dtype=xs.dtype, device=xs.device)
-    lo = 0
-    for e, c in enumerate(_group_sizes(counts)):
-        if c:
-            xe = xs[lo:lo + c]
-            h = F.silu(xe @ gate[e]).mul_(xe @ up[e])
-            torch.mm(h, down[e], out=ys[lo:lo + c])
-        lo += c
+    args = (xs, prec.cast(m.gate), prec.cast(m.up), prec.cast(m.down), _spans(_group_sizes(counts)))
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args[:4]):
+        ys = GroupedSwiGLU.apply(*args)
+    else:
+        ys = _grouped_swiglu(*args)
+    del args
     return torch.empty_like(ys).index_copy_(0, order, ys).view(n, k, -1)
 
 

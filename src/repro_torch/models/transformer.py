@@ -9,24 +9,31 @@ dense activations. The reference scans stacked layer params over a mesh;
 here the layers are a Python loop over an ``nn.ModuleList`` on one device,
 so its ``MeshCtx`` sharding constraints are the identity and are left out.
 With ``remat`` each layer is recomputed in the backward
-(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``); with
+``remat_policy="dots"`` the outputs of the plain 2-D products are kept and
+only the rest is recomputed (the reference's
+``dots_with_no_batch_dims_saveable``). ``lm_loss`` with ``fused_ce`` never
+holds the (B, T, V) logits: the reference's chunked loss.
 A decode step over a ``torch.distributed`` group takes this rank's slice of
 the cache's sequence (the reference's ``cache_pspec`` with ``seq_shards``);
 everything but the attention's all-reduces runs on every rank alone. A MoE
-layer runs on one device, its experts unpadded; ``remat_policy="dots"`` and
-the chunked loss (ROADMAP A7c) are not ported yet.
+layer runs on one device, its experts unpadded.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import MIXED, Precision, RMSNorm, SwiGLU, dense, dense_apply
+
+
+REMAT_POLICIES = ("full", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +49,11 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     moe: moe_lib.MoEConfig | None = None
     remat: bool = True  # recompute each layer in the backward
+    remat_policy: str = "full"  # full | dots: what a recomputed layer keeps
+
+    def __post_init__(self):
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {self.remat_policy!r}: one of {REMAT_POLICIES}")
 
     @property
     def attn_cfg(self) -> attn.AttnConfig:
@@ -113,6 +125,23 @@ def _layer_x(layer: Layer, x: torch.Tensor, positions: torch.Tensor, prec: Preci
     return x, aux
 
 
+# The plain 2-D products: the projections, the dense and shared SwiGLU and
+# the router (``nn.Linear`` and ``@`` reach these). The grouped experts
+# write with ``out=`` (``aten.mm.out``) and flash is no product, so both are
+# recomputed, as the reference recomputes its batched expert einsums.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_kw(cfg: TransformerConfig) -> dict:
+    if cfg.remat_policy == "dots":
+        return {"context_fn": functools.partial(create_selective_checkpoint_contexts, _save_dots)}
+    return {}
+
+
 def apply(model: Transformer, x_emb: torch.Tensor, prec: Precision = MIXED,
           collect_cache: bool = False):
     """x_emb (B, T, d) token embeddings → (hidden (B, T, d) after the final
@@ -121,16 +150,18 @@ def apply(model: Transformer, x_emb: torch.Tensor, prec: Precision = MIXED,
     (L, B, T, Hk, hd) in the compute type: every layer's K after RoPE and
     V, the values its attention used; else None. With ``cfg.remat``, grad
     enabled and no cache, each layer keeps only its input for the backward
-    and runs again there."""
+    and runs again there (all of it, or with ``remat_policy="dots"`` all but
+    its plain products)."""
     cfg = model.cfg
     b, t, _ = x_emb.shape
     positions = torch.arange(t, dtype=torch.int32, device=x_emb.device).expand(b, t)
     x = prec.cast(x_emb)
     remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
     cache, aux = None, torch.zeros((), dtype=torch.float32, device=x.device)
+    kw = _remat_kw(cfg) if remat else {}
     for i, layer in enumerate(model.layers):
         if remat:
-            x, a = checkpoint(_layer_x, layer, x, positions, prec, use_reentrant=False)
+            x, a = checkpoint(_layer_x, layer, x, positions, prec, use_reentrant=False, **kw)
         else:
             x, k, v, a = layer(x, positions, prec)
         if a is not None:
@@ -145,16 +176,42 @@ def apply(model: Transformer, x_emb: torch.Tensor, prec: Precision = MIXED,
 
 
 def lm_loss(model: Transformer, x_emb: torch.Tensor, labels: torch.Tensor,
-            prec: Precision = MIXED) -> torch.Tensor:
-    """Next-token cross entropy, the mean over the B·T positions of
-    logsumexp(logits) − logits[label], with the head's logits (B, T, V) in
-    the compute type cast to fp32 (the reference's plain path, ``fused_ce``
-    off). The reference also returns the aux loss, which its train cell adds:
-    0 without MoE (MoE training waits for ROADMAP A7b's train cell)."""
-    h, _, _ = apply(model, x_emb, prec)
-    logits = dense_apply(model.head, h, prec).to(torch.float32)
+            prec: Precision = MIXED, fused_ce: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """(next-token cross entropy, aux): the loss the mean over the B·T
+    positions of logsumexp(logits) − logits[label], with the head's logits
+    in the compute type cast to fp32; aux ``apply``'s sum of the MoE
+    layers' aux losses (0 without MoE), which the train cell adds to the
+    loss it differentiates. Without ``fused_ce`` the (B, T, V) logits are
+    made whole (the reference's plain path), with it ``_chunked_ce``."""
+    h, aux, _ = apply(model, x_emb, prec)
+    if fused_ce:
+        return _chunked_ce(model.head, h, labels, prec), aux
+    return torch.mean(_ce_terms(model.head, h, labels, prec)), aux
+
+
+def _ce_terms(head: nn.Linear, h: torch.Tensor, labels: torch.Tensor, prec: Precision) -> torch.Tensor:
+    """logsumexp(logits) − logits[label] at each of h's positions (fp32)."""
+    logits = dense_apply(head, h, prec).to(torch.float32)
     gold = logits.gather(-1, labels[..., None].long())[..., 0]
-    return torch.mean(torch.logsumexp(logits, dim=-1) - gold)
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def _ce_sum(head: nn.Linear, h: torch.Tensor, labels: torch.Tensor, prec: Precision) -> torch.Tensor:
+    return torch.sum(_ce_terms(head, h, labels, prec))
+
+
+def _chunked_ce(head: nn.Linear, h: torch.Tensor, labels: torch.Tensor, prec: Precision,
+                t_chunk: int = 256) -> torch.Tensor:
+    """The reference's ``_chunked_ce``: the positions in chunks of
+    ``t_chunk`` (the tail, t % t_chunk, as one more), each chunk's logits
+    made and dropped under ``torch.utils.checkpoint`` and made again in the
+    backward; the chunks' sums added in order in fp32, over B·T."""
+    b, t, _ = h.shape
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lo in range(0, t, t_chunk):
+        total = total + checkpoint(_ce_sum, head, h[:, lo:lo + t_chunk], labels[:, lo:lo + t_chunk], prec,
+                                   use_reentrant=False)
+    return total / (b * t)
 
 
 # ---------------------------------------------------------------------------

@@ -962,7 +962,7 @@ class _CpuRoutes:
         def recorded(router, x, top_k):
             out = route(router, x, top_k)
             if x.device.type == "cpu":
-                self.calls.append((out[0].numpy(), top_k))
+                self.calls.append((out[0].detach().numpy(), top_k))
             return out
 
         def counted(counts):
@@ -1096,6 +1096,45 @@ def test_smoke_lm_train_cell_card_matches_cpu(cuda):
         assert (t_fa.LAUNCHES - before[0], t_fa.BWD_LAUNCHES - before[1]) == (2 * cfg.n_layers, cfg.n_layers)
         met = {d: {k: int(v) for k, v in o.items() if k != "loss"} for d, o in outs.items()}
         assert met["cuda"] == met["cpu"]
+        np.testing.assert_allclose(float(outs["cuda"]["loss"]), float(outs["cpu"]["loss"]), atol=2e-2)
+    rows = {d: c.engine.export_rows(states[d]["sparse"])["dim64"] for d, c in cells.items()}
+    np.testing.assert_array_equal(rows["cuda"]["ids"], rows["cpu"]["ids"])
+    np.testing.assert_allclose(rows["cuda"]["emb"], rows["cpu"]["emb"], rtol=0, atol=6e-3)
+    for n, p in states["cpu"]["dense"].state_dict().items():
+        np.testing.assert_allclose(states["cuda"]["dense"].state_dict()[n].cpu().numpy(), p.numpy(),
+                                   rtol=0, atol=6e-3, err_msg=n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", ({}, {"fused_ce": True, "remat_policy": "dots"}), ids=("default", "fused_dots"))
+@pytest.mark.parametrize("arch_id", MOE_ARCHS)
+def test_smoke_moe_train_cell_card_matches_cpu(cuda, monkeypatch, arch_id, opts):
+    """Three MoE smoke train steps (T 128, B 2: the grouped dispatch and its
+    backward) on the card and on the CPU from the same weights and a fresh
+    engine, with the default options and with the chunked loss and the
+    "dots" remat: metrics equal, loss within 2e-2, rows and params within
+    2 * lr * steps (as the dense LM's above); two flash forward launches
+    and one backward a layer and step, and two waits for the group sizes a
+    MoE layer and step (the forward and its recompute)."""
+    from repro_torch.launch.common import CellOptions
+
+    shape = ShapeCell("train_4k", "train", {"seq_len": 128, "global_batch": 2})
+    cells = {d: build_cell(arch_id, "train_4k", CellOptions(**opts), smoke=True, shape_override=shape, device=d)
+             for d in ("cpu", "cuda")}
+    cfg = cells["cpu"].arch.model
+    states = {d: c.init_state() for d, c in cells.items()}
+    states["cuda"]["dense"].load_state_dict(states["cpu"]["dense"].state_dict())
+    routes = _CpuRoutes(monkeypatch)
+    for s in range(3):
+        before = (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES, routes.card_waits)
+        outs = {}
+        for d, c in cells.items():
+            states[d], outs[d] = c.step_fn(states[d], c.make_batch(s))
+        assert (t_fa.LAUNCHES - before[0], t_fa.BWD_LAUNCHES - before[1], routes.card_waits - before[2]) == \
+            (2 * cfg.n_layers, cfg.n_layers, 2 * cfg.n_layers)
+        met = {d: {k: int(v) for k, v in o.items() if k != "loss"} for d, o in outs.items()}
+        assert met["cuda"] == met["cpu"]
+        assert np.isfinite(float(outs["cuda"]["loss"]))
         np.testing.assert_allclose(float(outs["cuda"]["loss"]), float(outs["cpu"]["loss"]), atol=2e-2)
     rows = {d: c.engine.export_rows(states[d]["sparse"])["dim64"] for d, c in cells.items()}
     np.testing.assert_array_equal(rows["cuda"]["ids"], rows["cpu"]["ids"])

@@ -284,7 +284,8 @@ def test_lm_loss_and_grads_fp32_match_reference():
     jval, (jgp, jgx) = jax.value_and_grad(jloss, argnums=(0, 1))(jparams, jnp.asarray(x))
     model = _transformer(jparams, tcfg)
     tx = torch.from_numpy(x).requires_grad_()
-    loss = t_tfm.lm_loss(model, tx, torch.from_numpy(labels), t_layers.FP32)
+    loss, aux = t_tfm.lm_loss(model, tx, torch.from_numpy(labels), t_layers.FP32)
+    assert float(aux) == 0.0  # no MoE
     names = [n for n, _ in model.named_parameters()]
     grads = torch.autograd.grad(loss, [*model.parameters(), tx])
     np.testing.assert_allclose(loss.item(), float(jval), rtol=1e-5)
@@ -318,7 +319,7 @@ def test_remat_recomputes_each_layer_and_keeps_the_gradients(monkeypatch):
         model = t_tfm.init(dataclasses.replace(tcfg, remat=remat), seed=3)
         xe = x.clone().requires_grad_()
         calls["n"] = 0
-        loss = t_tfm.lm_loss(model, xe, labels, t_layers.FP32)
+        loss, _ = t_tfm.lm_loss(model, xe, labels, t_layers.FP32)
         grads = torch.autograd.grad(loss, [*model.parameters(), xe])
         out[remat] = (loss, grads, calls["n"])
     assert out[True][2] == 2 * tcfg.n_layers and out[False][2] == tcfg.n_layers

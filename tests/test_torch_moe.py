@@ -6,7 +6,8 @@ experts, top-k 2, 4 and 6 and expert counts that are no power of two; the
 tie order of the top-k; that the dispatch makes no (E, N, ·) tensor and that
 a decode-sized call neither casts every expert nor waits for the device;
 the stack's hidden state and aux loss; the params' conversion; the
-draw on the device; and what the MoE archs refuse.
+draw on the device; and what the MoE archs refuse over a group (their
+training: tests/test_torch_moe_train.py and tests/test_torch_moe_grad.py).
 
 Tolerances: FP32 within 1e-5 of the largest magnitude (fp32 sums in
 another order); MIXED within ``MIXED_TOL`` of tests/test_torch_lm.py (the
@@ -28,7 +29,6 @@ from repro.models import moe as j_moe
 from repro.models import transformer as j_tfm
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.convert import transformer_from_numpy
-from repro_torch.launch import train as t_train
 from repro_torch.launch.cells import build_cell as t_build_cell
 from repro_torch.models import layers as t_layers
 from repro_torch.models import moe as t_moe
@@ -363,18 +363,6 @@ def test_moe_decode_over_a_prompt_equals_prefill(arch_id):
                                              None, t_layers.FP32) for i in range(12)], 1)
     np.testing.assert_allclose(dec.numpy(), full.numpy(), rtol=5e-3, atol=5e-3)
     assert float((dec[:, 1:] - full[:, :-1]).abs().max()) > 5e-2
-
-
-@pytest.mark.parametrize("arch_id", MOE_ARCHS)
-def test_moe_train_cell_and_driver_refuse(arch_id):
-    """The MoE train cell is not ported (its loss would lack the aux term):
-    building it, and the train driver, raise and name ROADMAP A7b."""
-    with pytest.raises(NotImplementedError, match="A7b"):
-        t_build_cell(arch_id, "train_4k", smoke=True, device="cpu")
-    args = t_train.build_parser().parse_args(["--arch", arch_id, "--device", "cpu", "--steps", "1",
-                                              "--batch", "2", "--seq-len", "16"])
-    with pytest.raises(NotImplementedError, match="A7b"):
-        t_train.run(args, t_train.get_config(arch_id, smoke=True))
 
 
 @pytest.mark.parametrize("arch_id", MOE_ARCHS)
