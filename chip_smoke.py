@@ -7,9 +7,11 @@ Wide & Deep, SASRec and MIND, scoring 1,000,000 retrieval candidates for
 the four recsys archs, training GIN (gin-tu) in its four shape cells (one
 of them edge-parallel over two ranks), serving the qwen2.5-3b prefill and
 its decode (decode_32k, and long_500k also sequence-sharded over two
-ranks), training qwen2.5-3b, and serving and training the MoE archs
+ranks), training qwen2.5-3b, serving and training the MoE archs
 (qwen2-moe-a2.7b and moonshot-v1-16b-a3b: prefill, decode and train_4k),
-on one NVIDIA card, through its own CUDA kernels.
+and serving and training the 20B dense archs (granite-20b and
+internlm2-20b: prefill, decode, long-context decode and train_4k), on one
+NVIDIA card, through its own CUDA kernels.
 
     python3 chip_smoke.py [--save-inputs DIR]
 
@@ -104,7 +106,11 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 step, crashed at step 6 in a fresh process (exit 42) and
                 resumed from step 4 or 5, each run's steps within 1e-5 of an
                 uninterrupted CLI run (the first two processes run beside
-                the SIGTERM part); then the benchmark twins
+                the SIGTERM part); the LM CLI (qwen2.5-3b at smoke
+                widths, every step saved) crashed at step 4 (exit 42) and
+                resumed from step 2 or 3, its losses bit-equal to an
+                uninterrupted run's (its first two processes beside the
+                SIGTERM part too); then the benchmark twins
                 (the autoscaler on a calibrated SimPipeline, the telemetry
                 overhead at the MSE cell's batch of 128);
      tiered   — full-width train_batch with a tiered engine (a device tier
@@ -249,6 +255,26 @@ Builds the kernels from ``src/repro_torch/csrc`` (into ``build/``), then:
                 remat_policy="dots" for one step (its loss within MIXED_TOL
                 of the default's, its peak); moonshot-v1-16b-a3b train_4k at
                 4 of its 48 layers, 1 warm-up and 2 timed steps;
+     lm20b    — (after the MoE train, on an emptied card) granite-20b
+                (MQA: 48 query heads over one kv head) and internlm2-20b
+                (GQA, 48 over 8) at published widths, each in turn: one
+                model drawn on the card (20 of granite's 52 layers, 12 of
+                internlm2's 48) and one engine with rows for every token
+                serve prefill_32k (batch 1: 1 warm-up and 3 timed
+                requests, layer 0's attention on every query row against
+                the plain formula), decode_32k (batch cut to 32 and 16: 3
+                warm-up and 10 timed steps from a filled cache) and
+                long_500k (the same, batch 1); then train_4k at 4 layers
+                (batch 1, a fresh state, learning rate 1e-4: 2 warm-up and
+                3 timed steps, 3 on one repeated batch: the loss falls; layer 0's attention
+                gradients on every row against the plain backward); each
+                line with its cuts, p50, bound and share, peak beside the
+                peak reckoned from the config, exact launches; one cell
+                traced (granite train_4k); the flash forward and the gather
+                on the prefill's recorded inputs, the flash backward, the
+                gather and the scatters on the train step's (paths
+                granite_prefill, granite_train, internlm2_prefill,
+                internlm2_train);
      decode   — (before the LM train) qwen2.5-3b decode: the smoke
                 decode_32k (S 128, B 4) and long_500k (S 256, B 1) cells,
                 three steps each on the card against the CPU; at published
@@ -439,6 +465,11 @@ OP_COLS, OP_VALS = 100, 2_000
 DRIVER_VOCAB, DRIVER_BATCH, DRIVER_ROWS = 20_000, 8_192, 65_536
 DRIVER_STEPS, DRIVER_PREEMPT_STEPS, DRIVER_SIGTERM_AT = 40, 30, 15
 DRIVER_CRASH_STEPS, DRIVER_CRASH_AT = 12, 6
+# The LM CLI's crash and resume (qwen2.5-3b at smoke widths, batch 2 x 32
+# tokens, every step saved): the resumed losses bit-equal to an
+# uninterrupted run's
+LM_CLI = ["--arch", "qwen2.5-3b", "--batch", "2", "--seq-len", "32"]
+LM_CLI_STEPS, LM_CLI_CRASH_AT = 6, 4
 # The tiered train (full_tiered_train): dlrm-mlperf train_batch at published
 # widths over a device tier of 524,288 rows (the 2.4 M rows live after 12
 # steps would fill it 4.6 times), 8 steps, the kernels measured at step 4's
@@ -644,23 +675,28 @@ def flash_bwd_readings(got, want, dtype) -> dict:
     return out
 
 
-def _attention_layer0(fa_ops, fa_ref, q0, k0, v0, what: str) -> dict:
+def _attention_layer0(fa_ops, fa_ref, q0, k0, v0, what: str, rows: int = PLAIN_ROWS) -> dict:
     """Layer 0's attention of a long prefill on every query row against the
-    plain formula (in pieces: its whole (H, T, T) score tensor would take
-    68 GB at T 32,768), and what a zero output or one from another kv head
-    (the heads reversed) would read; checked."""
+    plain formula (in pieces of ``rows`` query rows: its whole (H, T, T)
+    score tensor would take 68 GB at T 32,768 and 16 heads), and what a
+    zero output or one from another kv head (the heads reversed; None with
+    one kv head) would read; checked."""
     o0, lse0 = fa_ops.flash_fwd(q0, k0, v0)
-    want_o, want_l = plain_flash_chunked(fa_ref, q0, k0, v0)
-    wrong_o, _ = plain_flash_chunked(fa_ref, q0, k0.flip(2), v0.flip(2))
+    want_o, want_l = plain_flash_chunked(fa_ref, q0, k0, v0, rows)
     layer0 = {"max_abs_o": float(want_o.float().abs().max()),
               "o_max_abs_err": float((o0.float() - want_o.float()).abs().max()),
               "o_err_over_tol": flash_excess(o0, want_o, q0.dtype),
               "lse_max_abs_err": float((lse0 - want_l).abs().max()),
               "zero_output_err_over_tol": flash_excess(torch.zeros_like(want_o), want_o, q0.dtype),
-              "other_kv_head_err_over_tol": flash_excess(wrong_o, want_o, q0.dtype)}
+              "other_kv_head_err_over_tol": None}
+    del o0
+    if k0.shape[2] > 1:
+        wrong_o, _ = plain_flash_chunked(fa_ref, q0, k0.flip(2), v0.flip(2), rows)
+        layer0["other_kv_head_err_over_tol"] = flash_excess(wrong_o, want_o, q0.dtype)
     check(layer0["o_err_over_tol"] <= 1.0 and torch.allclose(lse0, want_l, rtol=LSE_TOL, atol=LSE_TOL),
           f"{what} layer 0 attention {layer0}")
-    check(layer0["zero_output_err_over_tol"] > 1.0 and layer0["other_kv_head_err_over_tol"] > 1.0,
+    check(layer0["zero_output_err_over_tol"] > 1.0
+          and (layer0["other_kv_head_err_over_tol"] is None or layer0["other_kv_head_err_over_tol"] > 1.0),
           f"the {what} layer 0 check cannot tell a wrong output: {layer0}")
     return layer0
 
@@ -2195,11 +2231,16 @@ def main() -> None:
     # ---------- 4 the MoE family trains (train_4k of qwen2-moe and moonshot)
     mt_launches, mt_bwd = moe_train_phase(counts, reset_counts, phase, recorded, recorder, by_name, flash_at, dev,
                                           device_info)
+
+    # ---------- 4 the 20B dense archs (granite-20b, internlm2-20b) serve and train
+    l20_launches, l20_bwd = lm20b_phase(counts, reset_counts, phase, recorded, recorder, by_name, flash_at, dev,
+                                        device_info)
     check(not recorded, f"recorded inputs left unmeasured: {list(recorded)}")
     for e in entries:
         e["launches_by_path"]["lm_train"] = lm_launches[e["name"]]
         e["launches_by_path"]["moe"] = moe_launches[e["name"]]
         e["launches_by_path"]["moe_train"] = mt_launches[e["name"]]
+        e["launches_by_path"]["lm20b"] = l20_launches[e["name"]]
         e["launches"] = sum(e["launches_by_path"].values())
     fwd_by_path = {"csr_op": csr_launches["flash_attention.flash_fwd"],
                    "gnn": gnn_launches["flash_attention.flash_fwd"],
@@ -2218,7 +2259,8 @@ def main() -> None:
                    "mse_train": mse_launches["flash_attention.flash_fwd"],
                    "lm_train": lm_launches["flash_attention.flash_fwd"],
                    "moe": moe_launches["flash_attention.flash_fwd"],
-                   "moe_train": mt_launches["flash_attention.flash_fwd"]}
+                   "moe_train": mt_launches["flash_attention.flash_fwd"],
+                   "lm20b": l20_launches["flash_attention.flash_fwd"]}
     entries.append({
         "name": "flash_attention.flash_fwd", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:83", "ok": True,
@@ -2246,7 +2288,8 @@ def main() -> None:
                    "mse_train": mse_launches["flash_attention.flash_bwd"],
                    "lm_train": lm_launches["flash_attention.flash_bwd"],
                    "moe": moe_launches["flash_attention.flash_bwd"],
-                   "moe_train": mt_launches["flash_attention.flash_bwd"]}
+                   "moe_train": mt_launches["flash_attention.flash_bwd"],
+                   "lm20b": l20_launches["flash_attention.flash_bwd"]}
     entries.append({
         "name": "flash_attention.flash_bwd", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:210", "ok": True,
@@ -2257,7 +2300,9 @@ def main() -> None:
         **bwd, "bf16_route": "tensor cores (wgmma, TMA)", **flash_build["flash_attention.flash_bwd"]})
     entries[-1]["at"]["fp32"] = bwd_fp32["at"]["fp32"]
     entries[-1]["at"]["moe_train"] = mt_bwd
-    entries[-1]["max_abs_err"] = max(entries[-1]["max_abs_err"], mt_bwd["max_abs_err"])
+    entries[-1]["at"].update(l20_bwd)
+    entries[-1]["max_abs_err"] = max(entries[-1]["max_abs_err"], mt_bwd["max_abs_err"],
+                                     *(a["max_abs_err"] for a in l20_bwd.values()))
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
 
@@ -2390,6 +2435,13 @@ def train_driver_phase(counts, reset_counts) -> dict:
     procs = [cli(["--telemetry", str(base / "c_u.jsonl")]),
              cli(["--chaos-schedule", f"crash@step:{DRIVER_CRASH_AT}", "--ckpt-dir", str(ck_c),
                   "--ckpt-every", "1", "--telemetry", str(base / "c_a.jsonl")])]
+    # (e)'s first two: the LM CLI's crash and its uninterrupted run
+    lm_cmd = [sys.executable, "-m", "repro_torch.launch.train", *LM_CLI, "--device", "cuda",
+              "--steps", str(LM_CLI_STEPS), "--log-every", "1"]
+    ck_l = base / "ckpt_lm"
+    lm_procs = [cli_process(lm_cmd + ["--telemetry", str(base / "l_u.jsonl")], env),
+                cli_process(lm_cmd + ["--chaos-schedule", f"crash@step:{LM_CLI_CRASH_AT}", "--ckpt-dir", str(ck_l),
+                                      "--ckpt-every", "1", "--telemetry", str(base / "l_a.jsonl")], env)]
 
     # (b) preemption: SIGTERM at step 15 (final checkpoint), then a resume
     # to 30, against an uninterrupted run on the same synthetic batches
@@ -2444,6 +2496,9 @@ def train_driver_phase(counts, reset_counts) -> dict:
     # then the resume
     (out_u, err_u), (out_a, err_a) = (p.communicate(timeout=300) for p in procs)
     resume = cli(["--resume", "--ckpt-dir", str(ck_c), "--ckpt-every", "1", "--telemetry", str(base / "c_r.jsonl")])
+    (lo_u, le_u), (lo_a, le_a) = (p.communicate(timeout=300) for p in lm_procs)
+    lm_resume = cli_process(lm_cmd + ["--resume", "--ckpt-dir", str(ck_l), "--telemetry", str(base / "l_r.jsonl")],
+                            env)
     out_r, err_r = resume.communicate(timeout=300)
     cli_s = time.perf_counter() - t_cli
     rcs = [procs[0].returncode, procs[1].returncode, resume.returncode]
@@ -2473,6 +2528,30 @@ def train_driver_phase(counts, reset_counts) -> dict:
           f"the CLI resumed from {c_start}")
     check(err_crashed is not None and err_crashed <= 1e-5, f"the crashed CLI's steps differ by {err_crashed}")
     check(err_resumed is not None and err_resumed <= 1e-5, f"the resumed CLI's steps differ by {err_resumed}")
+
+    # (e) the LM CLI: its checkpoints hold the LM train state (the
+    # reference's stacked-layer tree); the crashed run's and the resumed
+    # run's losses bit-equal to the uninterrupted run's
+    lo_r, le_r = lm_resume.communicate(timeout=300)
+    lm_rcs = [lm_procs[0].returncode, lm_procs[1].returncode, lm_resume.returncode]
+    lu_, la_, lr_ = ({k: r["metrics"]["loss"] for k, r in _step_records(base / f).items()}
+                     for f in ("l_u.jsonl", "l_a.jsonl", "l_r.jsonl"))
+    l_start = min(lr_) - 1 if lr_ else None
+    emit({"phase": "train_driver_lm_crash", "cli": " ".join(lm_cmd[1:]), "width": "smoke",
+          "crash_at": LM_CLI_CRASH_AT, "ckpt_every": 1, "returncodes": lm_rcs,
+          "crash_printed": lo_a.strip().splitlines()[-1:], "resumed_from": l_start,
+          "losses_uninterrupted": [lu_[k] for k in sorted(lu_)], "losses_crashed": [la_[k] for k in sorted(la_)],
+          "losses_resumed": [lr_[k] for k in sorted(lr_)],
+          "bit_equal": bool(lr_) and all(d.get(k) == lu_.get(k) for d in (la_, lr_) for k in d),
+          "part_s": time.perf_counter() - phase_t0,
+          "stderr_tail": [e.strip().splitlines()[-3:] for e in (le_u, le_a, le_r) if e.strip()]})
+    check(lm_rcs == [0, drv.CHAOS_EXIT, 0], f"LM CLI return codes {lm_rcs}: {le_a[-2000:]}")
+    check(f"CHAOS: chaos: crash@step:{LM_CLI_CRASH_AT}" in lo_a, "the LM crash was not the injected one")
+    check(l_start in (LM_CLI_CRASH_AT - 2, LM_CLI_CRASH_AT - 1) and f"resumed from step {l_start}" in lo_r,
+          f"the LM CLI resumed from {l_start}")
+    check(sorted(lu_) == list(range(1, LM_CLI_STEPS + 1)) and sorted(la_) == list(range(1, LM_CLI_CRASH_AT))
+          and sorted(lr_) == list(range(l_start + 1, LM_CLI_STEPS + 1)), "the LM CLI's steps")
+    check(all(d[k] == lu_[k] for d in (la_, lr_) for k in d), "the LM CLI's crashed or resumed losses differ")
 
     # (d) the benchmark twins: the autoscaler on a calibrated SimPipeline,
     # and the telemetry overhead on the MSE cell at batch 128
@@ -5437,14 +5516,15 @@ def _dec_step_checks(o: dict, B: int, V: int, rows_live: int, gkey: str, what: s
 
 
 def _dec_timed(cell, st: dict, label: str, S: int, fill_seed: int, counts, reset_counts, phase: dict,
-               per_step: dict, rows_live: int) -> tuple[dict, dict, list, dict]:
+               per_step: dict, rows_live: int, trace: bool = True) -> tuple[dict, dict, list, dict]:
     """The timed run of a decode cell at full width: the cache filled with
     ``_dec_fill`` and ``pos`` at S - DEC_BACK, N_DEC_WARMUP + N_DEC_STEPS
     steps (CUDA events; the first records its inputs as phase ``label``),
-    exact launches a step, then a torch.profiler trace of one more step
-    (``profile_requests``); every position no step wrote still holds the
-    fill. Returns the state, the run's line, the warm-up steps' logits on
-    the host, and the cache's rows at the warm-up steps' positions."""
+    exact launches a step, then with ``trace`` a torch.profiler trace of
+    one more step (``profile_requests``: two steps, one of them traced);
+    every position no step wrote still holds the fill. Returns the state,
+    the run's line, the warm-up steps' logits on the host, and the cache's
+    rows at the warm-up steps' positions."""
     cfg = cell.arch.model
     B, V, gkey = cell.shape["global_batch"], cfg.vocab_size, f"dim{cfg.d_model}"
     t0 = time.perf_counter()
@@ -5479,10 +5559,10 @@ def _dec_timed(cell, st: dict, label: str, S: int, fill_seed: int, counts, reset
         nonlocal st
         st, _ = cell.step_fn(st, b)
 
-    prof = profile_requests(label, step, batches[n:])  # two steps: one untraced, one traced
+    prof = profile_requests(label, step, batches[n:]) if trace else None  # two steps: one untraced, one traced
     launches = counts()
-    written = list(range(p0, p0 + n + 2))
-    check(int(st["pos"]) == p0 + n + 2, f"{label}: pos {int(st['pos'])}")
+    written = list(range(p0, p0 + n + (2 if trace else 0)))
+    check(int(st["pos"]) == p0 + len(written), f"{label}: pos {int(st['pos'])}")
     check(_dec_unwritten_equal(st["cache"], fill_seed, S, 0, written), f"{label}: the cache changed where no step wrote")
     warm_rows = _dec_written(st["cache"], written[:N_DEC_WARMUP])
     nbytes = _dec_bytes(cfg, B, S)
@@ -5496,7 +5576,8 @@ def _dec_timed(cell, st: dict, label: str, S: int, fill_seed: int, counts, reset
             "bound_share_p50": nbytes["least"] / HBM_BYTES_PER_S * 1e3 / float(np.percentile(msa, 50)),
             "max_memory_allocated_bytes": peak, "launches": launches,
             "profile": {k: prof[k] for k in ("wall_ms_per_request", "device_busy_ms_per_request", "device_idle_share",
-                                              "device_events_per_request", "top_device_ms_per_request")}}
+                                              "device_events_per_request", "top_device_ms_per_request")}
+            if trace else None}
     return st, line, warm, warm_rows
 
 
@@ -6075,21 +6156,21 @@ def _moe_model(arch_id: str, dev):
     return arch, model, time.perf_counter() - t0
 
 
-def _moe_prefill_bound(cfg, T: int) -> dict:
+def _prefill_bound(cfg, T: int) -> dict:
     """The least time of a prefill request (batch 1), term by term: the
     flash kernel's operations over the causal triangle each layer, every
-    other product (projections, the routed experts' k and the shared
-    experts' SwiGLUs, the router; the head for the last token) at the bf16
-    peak, and the MIXED cast of every fp32 weight (read 4 bytes, write 2,
-    read 2) at the HBM rate."""
+    other product (projections, the dense SwiGLU or the routed experts' k
+    and the shared experts' SwiGLUs and the router; the head for the last
+    token) at the bf16 peak, and the MIXED cast of every fp32 weight (read 4
+    bytes, write 2, read 2) at the HBM rate."""
     d, hd, m = cfg.d_model, cfg.head_dim, cfg.moe
     attn = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d
     flash_ops = 4.0 * hd * cfg.n_heads * T * (T + 1) / 2
     ffn = 3 * d * cfg.d_ff if m is None else 3 * d * m.d_ff * (m.top_k + m.n_shared) + d * m.n_experts
     tok_ops = 2.0 * (attn + ffn)
     prod_ops = cfg.n_layers * T * tok_ops + 2.0 * d * cfg.vocab_size
-    n_weights = cfg.n_layers * (attn + d * m.n_experts + 3 * d * m.d_ff * (m.n_experts + m.n_shared)) \
-        + d * cfg.vocab_size
+    ffn_weights = 3 * d * cfg.d_ff if m is None else d * m.n_experts + 3 * d * m.d_ff * (m.n_experts + m.n_shared)
+    n_weights = cfg.n_layers * (attn + ffn_weights) + d * cfg.vocab_size
     terms = {"flash_ms": cfg.n_layers * flash_ops / BF16_OPS_PER_S * 1e3,
              "products_ms": prod_ops / BF16_OPS_PER_S * 1e3,
              "weight_cast_ms": 8.0 * n_weights / HBM_BYTES_PER_S * 1e3}
@@ -6144,14 +6225,15 @@ def _moe_layer0(moe_lib, m, x0: torch.Tensor, y0: torch.Tensor, what: str) -> di
     return out
 
 
-def _moe_prefill(arch, model, sparse: dict, dev, label: str, counts, reset_counts, phase: dict, moe_lib,
-                 group_waits: list) -> tuple[dict, dict]:
+def _lm_prefill(arch, model, sparse: dict, dev, label: str, counts, reset_counts, phase: dict,
+                group_waits: list | None = None, trace: bool = True) -> tuple[dict, dict]:
     """A prefill_32k request of ``arch`` (batch 1, rows for every token):
     1 warm-up and N_PREFILL timed requests (CUDA events; the first timed one
     runs as phase ``label``: its inputs recorded), a flash launch a layer
-    (on the tensor cores) and a gather a request, one wait for the group
-    sizes a MoE layer, outputs checked, peak memory, a torch.profiler trace
-    of one more request. Returns the line and the launches."""
+    (on the tensor cores) and a gather a request, for a MoE arch one wait
+    for the group sizes a MoE layer (``group_waits``), outputs checked, peak
+    memory, and with ``trace`` a torch.profiler trace of one more request.
+    Returns the line and the launches."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch.cells import build_arch_cell
@@ -6161,12 +6243,12 @@ def _moe_prefill(arch, model, sparse: dict, dev, label: str, counts, reset_count
     pre = build_arch_cell(arch, ShapeCell("prefill_32k", "prefill", {"seq_len": PREFILL_T, "global_batch": 1}),
                           device=dev)
     st = {"step": torch.zeros((), dtype=torch.int32, device=dev), "dense": model, "sparse": sparse}
-    batches = [pre.make_batch(MOE_SEED + s) for s in range(2 + N_PREFILL)]
+    batches = [pre.make_batch(MOE_SEED + s) for s in range(1 + N_PREFILL + (1 if trace else 0))]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     tc0 = fa_ops.tensor_core_launches()
-    waits0 = len(group_waits)
+    waits0 = len(group_waits) if group_waits is not None else 0
     ms = []
     for s, batch in enumerate(batches[:1 + N_PREFILL]):
         phase["name"] = label if s == 1 else None
@@ -6193,20 +6275,25 @@ def _moe_prefill(arch, model, sparse: dict, dev, label: str, counts, reset_count
     peak = torch.cuda.max_memory_allocated()
     want = {k: {"fused_gather.gather_rows": n, "flash_attention.flash_fwd": L * n}.get(k, 0) for k in launches}
     check(launches == want and tc == L * n, f"{label}: launches {launches} ({tc} on the tensor cores), expected {want}")
-    check(len(group_waits) - waits0 == L * n and all(w == cfg.moe.n_experts for w in group_waits[waits0:]),
-          f"{label}: {len(group_waits) - waits0} waits for the group sizes, expected {L * n}")
-    prof = profile_requests(label, lambda b: pre.step_fn(st, b), batches[1 + N_PREFILL:])
+    if cfg.moe is not None:
+        check(len(group_waits) - waits0 == L * n and all(w == cfg.moe.n_experts for w in group_waits[waits0:]),
+              f"{label}: {len(group_waits) - waits0} waits for the group sizes, expected {L * n}")
     msa = np.array(ms)
-    bound = _moe_prefill_bound(cfg, PREFILL_T)
+    bound = _prefill_bound(cfg, PREFILL_T)
     line = {"phase": f"full_{label}", "arch": arch.arch_id, "shape": "prefill_32k", "seq_len": PREFILL_T, "batch": 1,
             "warmup": 1, "requests": N_PREFILL, "request_ms_p50": float(np.percentile(msa, 50)),
             "request_ms_p99": float(np.percentile(msa, 99)), "request_ms_mean": float(msa.mean()), "request_ms": ms,
             "tokens_per_s": PREFILL_T / (float(np.percentile(msa, 50)) / 1e3), **bound,
             "bound_share_p50": bound["bound_ms"] / float(np.percentile(msa, 50)),
             "max_memory_allocated_bytes": peak, "launches": launches, "flash_fwd_tensor_core_launches": tc,
-            "group_size_waits_per_request": L,
-            "profile": {k: prof[k] for k in ("wall_ms_per_request", "device_busy_ms_per_request", "device_idle_share",
-                                              "device_events_per_request", "top_device_ms_per_request")}}
+            "profile": None}
+    if cfg.moe is not None:
+        line["group_size_waits_per_request"] = L
+    if trace:
+        prof = profile_requests(label, lambda b: pre.step_fn(st, b), batches[1 + N_PREFILL:])
+        line["profile"] = {k: prof[k] for k in ("wall_ms_per_request", "device_busy_ms_per_request",
+                                                 "device_idle_share", "device_events_per_request",
+                                                 "top_device_ms_per_request")}
     return line, launches
 
 
@@ -6215,7 +6302,7 @@ def moe_phase(counts, reset_counts, phase: dict, recorded: dict, recorder, by_na
     """The MoE family serving on the card (prefill and decode through the
     dropless grouped and gathered dispatch): (a) ``_moe_smoke``; (b)
     qwen2-moe-a2.7b ``prefill_32k`` at published widths and depth (batch 1,
-    rows for all 151,936 tokens, weights drawn on the card): ``_moe_prefill``
+    rows for all 151,936 tokens, weights drawn on the card): ``_lm_prefill``
     (phase ``moe_prefill``), layer 0's attention on every query row against
     the plain formula and layer 0's MoE against the dense plain version
     (``_moe_layer0``); (c) its ``decode_32k`` at batch 1 with the same
@@ -6288,7 +6375,7 @@ def moe_phase(counts, reset_counts, phase: dict, recorded: dict, recorder, by_na
         check(int(sparse[gkey]["idmap"].n_live()) == V, "not every token's row is live")
         state_bytes = {"dense_params": sum(p.numel() * p.element_size() for p in model.parameters()),
                        "engine": sum(t.numel() * t.element_size() for t in _tensors(sparse))}
-        line, n = _moe_prefill(arch, model, sparse, dev, "moe_prefill", counts, reset_counts, phase, moe_lib, waits)
+        line, n = _lm_prefill(arch, model, sparse, dev, "moe_prefill", counts, reset_counts, phase, waits)
         add(n)
         fa_ops.flash_attention, fg_ops.gather_rows = real["flash_attention"], real["gather_rows"]
         q0, k0, v0 = recorded[("flash_attention", "moe_prefill")][0]
@@ -6349,8 +6436,8 @@ def moe_phase(counts, reset_counts, phase: dict, recorded: dict, recorder, by_na
         import_s = time.perf_counter() - t0
         state_bytes = {"dense_params": sum(p.numel() * p.element_size() for p in model.parameters()),
                        "engine": sum(t.numel() * t.element_size() for t in _tensors(sparse))}
-        line, n = _moe_prefill(arch, model, sparse, dev, "moe_prefill_moonshot", counts, reset_counts, phase,
-                               moe_lib, waits)
+        line, n = _lm_prefill(arch, model, sparse, dev, "moe_prefill_moonshot", counts, reset_counts, phase,
+                              waits)
         add(n)
         m0, x0, y0 = moe_io.pop("moe_prefill_moonshot")
         check(m0 is model.layers[0].moe, "moe_prefill_moonshot: the recorded MoE call is not layer 0's")
@@ -6504,13 +6591,15 @@ def _layer0_attention(real_bwd, fa_ref, bargs, label: str) -> dict:
     check(max(readings[f"{g}_err_over_tol"] for g in GRAD_NAMES) <= 1.0,
           f"{label} layer 0 attention gradients {readings}")
     check(min(readings[f"{g}_zero_err_over_tol"] for g in GRAD_NAMES) > 1.0
-          and readings["dk_other_kv_head_err_over_tol"] > 1.0,
+          and (readings["dk_other_kv_head_err_over_tol"] is None  # one kv head: no other to read
+               or readings["dk_other_kv_head_err_over_tol"] > 1.0),
           f"the {label} layer 0 gradient check cannot tell a wrong gradient: {readings}")
     return readings
 
 
 def _lm_train(arch, n_layers: int | None, opts, dev, counts, reset_counts, phase: dict, label: str, n_warm: int,
-              n_timed: int, seed: int, waits: list | None = None, repeat: int = 0) -> tuple[dict, dict, dict]:
+              n_timed: int, seed: int, waits: list | None = None, repeat: int = 0,
+              trace: bool = True) -> tuple[dict, dict, dict]:
     """``arch``'s ``train_4k`` at its published widths (T 4,096, batch 1;
     ``n_layers`` layers, or all of them with None) with cell options
     ``opts``, from a fresh state (its weights drawn on the card, zero
@@ -6521,8 +6610,9 @@ def _lm_train(arch, n_layers: int | None, opts, dev, counts, reset_counts, phase
     equal to the distinct tokens seen, the exact launches and, for a MoE
     arch, two waits for the group sizes a MoE layer (``waits``, the sizes
     ``moe._group_sizes`` returned). With ``repeat`` one more step under the
-    profiler (its line emitted) and ``repeat`` steps on one repeated batch
-    (the loss falls). Returns the phase line, the launches and the state."""
+    profiler (its line emitted; not without ``trace``) and ``repeat`` steps
+    on one repeated batch (the loss falls). Returns the phase line, the
+    launches and the state."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch.cells import build_arch_cell
@@ -6605,7 +6695,8 @@ def _lm_train(arch, n_layers: int | None, opts, dev, counts, reset_counts, phase
                        "qkv_bias": cfg.qkv_bias, "rope_theta": cfg.rope_theta,
                        "moe": dataclasses.asdict(cfg.moe) if cfg.moe is not None else None},
             "reduced": reduced,
-            "options": {"remat": cfg.remat, "remat_policy": cfg.remat_policy, "fused_ce": opts.fused_ce},
+            "options": {"remat": cfg.remat, "remat_policy": cfg.remat_policy, "fused_ce": opts.fused_ce,
+                        "dense_opt_lr": opts.dense_opt_lr, "sparse_opt_lr": opts.sparse_opt_lr},
             "warmup": n_warm, "steps": n_timed, "setup_s": setup_s,
             "step_ms_p50": float(np.percentile(sm, 50)), "step_ms_p99": float(np.percentile(sm, 99)),
             "step_ms_mean": float(sm.mean()), "step_ms": step_ms,
@@ -6622,12 +6713,14 @@ def _lm_train(arch, n_layers: int | None, opts, dev, counts, reset_counts, phase
             nonlocal st
             st, _ = cell.step_fn(st, b)
 
-        prof = profile_requests(label, step, [batches[n]])
-        emit(prof)
-        line["profile"] = {k: prof[k] for k in ("wall_ms_per_request", "device_busy_ms_per_request",
-                                                 "device_idle_share", "device_events_per_request",
-                                                 "fp32_add_ms_per_request", "fp32_fill_ms_per_request",
-                                                 "top_device_ms_per_request")}
+        line["profile"] = None
+        if trace:
+            prof = profile_requests(label, step, [batches[n]])
+            emit(prof)
+            line["profile"] = {k: prof[k] for k in ("wall_ms_per_request", "device_busy_ms_per_request",
+                                                     "device_idle_share", "device_events_per_request",
+                                                     "fp32_add_ms_per_request", "fp32_fill_ms_per_request",
+                                                     "top_device_ms_per_request")}
         losses_repeat = []
         for _ in range(repeat):  # one batch again and again: the loss must fall
             st, out = cell.step_fn(st, batches[-1])
@@ -6775,6 +6868,222 @@ def moe_train_phase(counts, reset_counts, phase: dict, recorded: dict, recorder,
                                                                "bytes")},
           "launches": launches, "phase_s": time.perf_counter() - phase_t0})
     return launches, bwd["at"]["moe_train"]
+
+
+# ---------------------------------------------------------------------------
+# 4 the 20B dense archs serve and train: granite-20b (MQA, G 48) and
+# internlm2-20b (GQA, G 6)
+# ---------------------------------------------------------------------------
+# Each at published widths with its depth cut: at full depth the fp32 weights
+# take 111.5 GB (granite) and 77.2 GB (internlm2), which no card holds beside
+# an engine and the activations. The three serve cells of an arch share one
+# model drawn on the card and one engine with rows for every token (98,304
+# and 185,088 rows of 6,144 with two moment slots: 7.25 and 13.65 GB);
+# decode_32k's batch is cut so that its bf16 cache fits beside them (10.74
+# and 25.77 GB); train_4k runs 4 layers at batch 1. The peaks reckoned from
+# the configs before the first card run (PERF.md §4), in GB:
+LM20B = {
+    "granite-20b": {"short": "granite", "serve_layers": 20, "decode_batch": 32, "train_layers": 4,
+                    "reckoned_gb": {"prefill_32k": 59, "decode_32k": 62, "long_500k": 57, "train_4k": 51}},
+    "internlm2-20b": {"short": "internlm2", "serve_layers": 12, "decode_batch": 16, "train_layers": 4,
+                      "reckoned_gb": {"prefill_32k": 44, "decode_32k": 61, "long_500k": 61, "train_4k": 55}},
+}
+LM20B_TRAIN_STEPS = (2, 3)  # warm-up, timed; then N_LM_REPEAT steps on one repeated batch
+# The train cells' AdamW and SparseAdam learning rate. AdamW's first steps
+# move every weight by about lr, and at d 6,144 a logit sums 6,144 such
+# moves: at the default 1e-3 the loss rose over the random batches (granite
+# in a dev run: 10.97, 10.97, 11.09, 13.95, 14.59) and on one repeated batch
+# (13.54, 12.11, 17.57; internlm2 11.91, 12.41). The step's work is the same
+# at any rate.
+LM20B_LR = 1e-4
+LM20B_SEED = 80_000
+LM20B_PLAIN_ROWS = 256      # query rows a piece of the plain attention at H 48 (at 1,024: 6.4 GB of fp32 scores)
+LM20B_TRACED = ("granite-20b", "train_4k")  # one trace in the phase (a trace costs 11-13 s)
+
+
+def lm20b_phase(counts, reset_counts, phase: dict, recorded: dict, recorder, by_name: dict, flash_at: dict, dev,
+                device_info: dict) -> tuple[dict, dict]:
+    """granite-20b and internlm2-20b on the card, each in turn: (a) its
+    ``prefill_32k`` (``_lm_prefill``, batch 1, phase ``<arch>_prefill``)
+    with layer 0's attention on every query row against the plain formula
+    (``_attention_layer0``), its ``decode_32k`` at a cut batch and its
+    ``long_500k`` (``_dec_timed`` from a filled cache), all on one drawn
+    model and engine; (b) the row gather and the flash forward on the
+    prefill's recorded inputs against their plain versions, timed; (c) its
+    ``train_4k`` at 4 layers (``_lm_train``, 2 warm-up and 3 timed steps,
+    then N_LM_REPEAT on one repeated batch; AdamW and SparseAdam at
+    LM20B_LR), layer 0's attention gradients
+    on every row against the plain backward; (d) the flash backward, the
+    gather and the scatters on (c)'s recorded inputs, timed. One cell
+    (LM20B_TRACED) is traced. Each cell's line holds its cuts, p50, bound
+    and share, peak against the reckoned one and launches. Returns the
+    launches of the main-path runs and the flash backward's measurements by
+    path."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+    from repro_torch.kernels.fused_gather import ops as fg_ops, ref as fg_ref
+    from repro_torch.kernels.fused_scatter import ops as fs_ops, ref as fs_ref
+    from repro_torch.launch.cells import build_arch_cell
+    from repro_torch.launch.common import CellOptions
+    from repro_torch.models import transformer as tfm
+
+    phase_t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    check(held < (1 << 30), f"{held} bytes still allocated before the 20B phase")
+    launches = dict.fromkeys(counts(), 0)
+
+    def add(d):
+        for k, v in d.items():
+            launches[k] = launches.get(k, 0) + v
+
+    mods = {"flash_attention": fa_ops, "flash_bwd": fa_ops, "gather_rows": fg_ops, "scatter_add_rows": fs_ops,
+            "scatter_set_rows": fs_ops}
+    real = {k: getattr(m, k) for k, m in mods.items()}
+
+    def unwrap():
+        for k, fn in real.items():
+            setattr(mods[k], k, fn)
+
+    def record_last_bwd(*args, **kw):  # layer 0's backward: the step's last call
+        if phase["name"]:
+            recorded[("flash_bwd", phase["name"])] = ([_keep(a, False) for a in args], kw)
+        return real["flash_bwd"](*args, **kw)
+
+    def finish(line: dict, arch_id: str, shape: str) -> None:  # the peak beside the reckoned one; emitted
+        line["reckoned_peak_bytes"] = LM20B[arch_id]["reckoned_gb"][shape] * 1e9
+        line["peak_over_reckoned"] = line["max_memory_allocated_bytes"] / line["reckoned_peak_bytes"]
+        line["traced"] = (arch_id, shape) == LM20B_TRACED
+        line.update(device_info)
+        emit(line)
+
+    bwd_at, at = {}, {}
+    try:
+        for arch_id, c in LM20B.items():
+            published, short = get_config(arch_id), c["short"]
+            L_pub = published.model.n_layers
+            # (a) the serve cells on one model and engine
+            arch = dataclasses.replace(published, model=dataclasses.replace(published.model,
+                                                                            n_layers=c["serve_layers"]))
+            cfg = arch.model
+            V, d, gkey, label = cfg.vocab_size, cfg.d_model, f"dim{cfg.d_model}", f"{short}_prefill"
+            widths = {"n_layers": cfg.n_layers, "d_model": d, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                      "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab_size": V, "qkv_bias": cfg.qkv_bias,
+                      "rope_theta": cfg.rope_theta}
+            t0 = time.perf_counter()
+            model = card_model(cfg, dev)
+            torch.cuda.synchronize()
+            draw_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            eng_cell = build_arch_cell(arch, ShapeCell("decode_32k", "decode", {
+                "seq_len": 32_768, "global_batch": c["decode_batch"]}), device=dev)
+            sparse = eng_cell.engine.import_rows(_dec_token_rows(eng_cell.engine, gkey, V, d, dev))
+            torch.cuda.synchronize()
+            import_s = time.perf_counter() - t0
+            check(int(sparse[gkey]["idmap"].n_live()) == V, f"{arch_id}: not every token's row is live")
+            state_bytes = {"dense_params": sum(p.numel() * p.element_size() for p in model.parameters()),
+                           "engine": sum(t.numel() * t.element_size() for t in _tensors(sparse))}
+            recorder(fa_ops, "flash_attention")
+            recorder(fg_ops, "gather_rows")
+            try:
+                line, n = _lm_prefill(arch, model, sparse, dev, label, counts, reset_counts, phase,
+                                      trace=LM20B_TRACED == (arch_id, "prefill_32k"))
+            finally:
+                unwrap()
+            add(n)
+            line["layer0_attention_vs_plain"] = _attention_layer0(
+                fa_ops, fa_ref, *recorded[("flash_attention", label)][0], label, rows=LM20B_PLAIN_ROWS)
+            line.update(widths=widths, reduced={"global_batch": [32, 1], "n_layers": [L_pub, cfg.n_layers]},
+                        draw_on_card_s=draw_s, import_rows_s=import_s, state_bytes=state_bytes)
+            finish(line, arch_id, "prefill_32k")
+            torch.cuda.empty_cache()
+            per_step = {k: int(k == "fused_gather.gather_rows") for k in launches}
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            for i, (name, B) in enumerate((("decode_32k", c["decode_batch"]), ("long_500k", 1))):
+                shape = arch.shape(name)
+                S = shape["seq_len"]
+                cell = build_arch_cell(arch, ShapeCell(name, "decode", {**shape.params, "global_batch": B}),
+                                       device=dev)
+                st = {"step": zero, "pos": zero.clone(), "dense": model, "sparse": sparse,
+                      "cache": tfm.init_cache(cfg, B, S, dev)}
+                st, dline, _, _ = _dec_timed(cell, st, f"{short}_{name}", S, LM20B_SEED + i, counts,
+                                             reset_counts, phase, per_step, V, trace=LM20B_TRACED == (arch_id, name))
+                add(dline["launches"])
+                dline.update(widths=widths, reduced={"n_layers": [L_pub, cfg.n_layers],
+                                                     **({"global_batch": [shape["global_batch"], B]}
+                                                        if B != shape["global_batch"] else {})},
+                             cache_bytes=sum(t.numel() * t.element_size() for t in st["cache"].values()))
+                finish(dline, arch_id, name)
+                del st, cell
+                torch.cuda.empty_cache()
+            del model, sparse, eng_cell
+            torch.cuda.empty_cache()
+
+            # (b) the serve kernels on the prefill's recorded inputs
+            flash_at[label] = _measure_flash(real["flash_attention"], fa_ops.flash_fwd, fa_ref,
+                                             *recorded.pop(("flash_attention", label))[0], path=label)
+            torch.cuda.empty_cache()
+            args, kw = recorded.pop(("gather_rows", label))
+            at[("gather_rows", label)] = _measure("gather_rows", real["gather_rows"], fg_ref.gather_rows, args, kw,
+                                                  20, dev)
+            _add_path(by_name["fused_gather.gather_rows"], label, at[("gather_rows", label)])
+            del args
+            torch.cuda.empty_cache()
+
+            # (c) train_4k at 4 layers
+            tlabel = f"{short}_train"
+            for k in ("gather_rows", "scatter_add_rows", "scatter_set_rows"):
+                recorder(mods[k], k)
+            fa_ops.flash_bwd = record_last_bwd
+            try:
+                tline, n, st = _lm_train(published, c["train_layers"],
+                                         CellOptions(dense_opt_lr=LM20B_LR, sparse_opt_lr=LM20B_LR), dev, counts,
+                                         reset_counts, phase, tlabel, *LM20B_TRAIN_STEPS, LM20B_SEED + 10,
+                                         repeat=N_LM_REPEAT,
+                                         trace=LM20B_TRACED == (arch_id, "train_4k"))
+            finally:
+                unwrap()
+            add(n)
+            del st
+            torch.cuda.empty_cache()
+            bargs = recorded.pop(("flash_bwd", tlabel))[0]
+            layer0 = _layer0_attention(real["flash_bwd"], fa_ref, bargs, tlabel)
+            tline["layer0_attention_grads_vs_plain"] = layer0
+            finish(tline, arch_id, "train_4k")
+            torch.cuda.empty_cache()
+
+            # (d) the train kernels on (c)'s recorded inputs
+            bwd = _measure_flash_bwd(real["flash_bwd"], fa_ref, *bargs, path=tlabel)
+            bwd["at"][tlabel].update(readings=layer0, max_abs_err=max(layer0[f"{g}_max_abs_err"] for g in GRAD_NAMES),
+                                     **{k: bwd[k] for k in ("ms", "kernel_device_ms", "kernel_device_ms_by_kernel",
+                                                            "plain_ms", "bound_ms", "bound_by", "bound_share",
+                                                            "host_us", "library_ms", "two_launches_bit_equal")})
+            bwd_at[tlabel] = bwd["at"][tlabel]
+            del bargs, bwd
+            torch.cuda.empty_cache()
+            for full, kname, plain in (("fused_gather.gather_rows", "gather_rows", fg_ref.gather_rows),
+                                       ("fused_scatter.scatter_add_rows", "scatter_add_rows", fs_ref.scatter_add_rows),
+                                       ("fused_scatter.scatter_set_rows", "scatter_set_rows", fs_ref.scatter_set_rows)):
+                if (kname, tlabel) not in recorded:  # the set runs on a step that inserts rows
+                    continue
+                args, kw = recorded.pop((kname, tlabel))
+                at[(kname, tlabel)] = _measure(kname, real[kname], plain, args, kw, 20, dev)
+                _add_path(by_name[full], tlabel, at[(kname, tlabel)])
+                del args
+                torch.cuda.empty_cache()
+    finally:
+        unwrap()
+    keep = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "kernel_device_ms",
+            "writeback_device_ms", "host_us", "bytes")
+    emit({"phase": "lm20b_kernels", **device_info,
+          **{f"{k}@{p}": {x: m[x] for x in keep if x in m} for (k, p), m in at.items()},
+          **{f"flash_fwd@{short}_prefill": {x: flash_at[f"{short}_prefill"][x] for x in keep
+                                             if x in flash_at[f"{short}_prefill"]}
+             for short in (c["short"] for c in LM20B.values())},
+          **{f"flash_bwd@{p}": {x: m[x] for x in keep if x in m} for p, m in bwd_at.items()},
+          "launches": launches, "phase_s": time.perf_counter() - phase_t0})
+    return launches, bwd_at
 
 
 def _tensors(tree):

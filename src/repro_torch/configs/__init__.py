@@ -13,6 +13,8 @@ _MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "granite-20b": "granite_20b",
+    "internlm2-20b": "internlm2_20b",
     "gin-tu": "gin_tu",
 }
 

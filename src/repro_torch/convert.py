@@ -32,6 +32,14 @@ above) with the store's ``checkpoint_payload``, which
 tier in a checkpoint's ``extra.safetensors``, so the reference's tiered
 checkpoint resumes through the port's Trainer hooks unchanged.
 
+The LM train state crosses with ``lm_train_state_to_tree`` and
+``lm_train_state_from_tree``: the transformer and AdamW's ``m`` and ``v``
+in the reference's stacked-layer tree (``transformer_to_numpy``, the
+inverse of ``transformer_from_numpy``), so an LM checkpoint holds
+``state/dense/layers/attn/wq/w``, ``state/opt/m/layers/ffn/gate/w``,
+``state/dense/layers/moe/router``, ``state/sparse/dim2048/idmap/0`` and
+``state/step`` as the reference's does, and restores in either package.
+
 ``decode_state_from_numpy`` loads the reference decode cell's whole state
 (dense params, engine state, KV cache, ``pos``) into a port decode cell's
 state; over a group each rank takes its shard of the engine state and its
@@ -163,31 +171,29 @@ def tiered_state_from_numpy(engine, sparse: Mapping, payload: Mapping[str, np.nd
     return state
 
 
-def train_state_to_tree(state: Mapping) -> dict:
+def _state_to_tree(state: Mapping, to_tree) -> dict:
     """A train state ``{"step", "dense": module, "opt": {"m", "v"},
-    "sparse"}`` (the MSE example's twin, or a recsys cell's with its engine
-    state stacked [1, ...]) in the layout of the reference's state.
-    A state without ``sparse`` (a delta frame's dense part) gives a tree
-    without it."""
+    ["sparse"]}`` in the reference's layout, ``to_tree(model, named)``
+    laying out the params and each moment."""
     model = state["dense"]
-    tree = {"step": state["step"], "dense": params_to_tree(model, model.state_dict()),
-            "opt": {k: params_to_tree(model, state["opt"][k]) for k in ("m", "v")}}
+    tree = {"step": state["step"], "dense": to_tree(model, model.state_dict()),
+            "opt": {k: to_tree(model, state["opt"][k]) for k in ("m", "v")}}
     if "sparse" in state:
         tree["sparse"] = sparse_to_tree(state["sparse"])
     return tree
 
 
-def train_state_from_tree(state: Mapping, tree: Mapping) -> dict:
-    """The inverse of ``train_state_to_tree``: the reference-layout tree of
-    numpy leaves loaded into ``state`` (its module and AdamW moments in
-    place, a new step and engine state on the same device); a cell's
-    ``load_state_tree``."""
+def _state_from_tree(state: Mapping, tree: Mapping, from_tree) -> dict:
+    """The inverse of ``_state_to_tree``: ``from_tree(model, subtree)``
+    gives a state dict on the CPU, loaded into the module and the AdamW
+    moments in place, each shape checked; a new step and engine state on
+    the module's device."""
     model = state["dense"]
     device = next(model.parameters()).device
-    model.load_state_dict(params_from_tree(model, tree["dense"]))
+    model.load_state_dict(from_tree(model, tree["dense"]))
     with torch.no_grad():
         for k in ("m", "v"):
-            for name, x in params_from_tree(model, tree["opt"][k]).items():
+            for name, x in from_tree(model, tree["opt"][k]).items():
                 dst = state["opt"][k][name]
                 if dst.shape != x.shape:
                     raise ValueError(f"opt/{k}/{name}: shape {tuple(x.shape)}, state has {tuple(dst.shape)}")
@@ -197,6 +203,38 @@ def train_state_from_tree(state: Mapping, tree: Mapping) -> dict:
     if "sparse" in tree:
         out["sparse"] = sparse_from_tree(tree["sparse"], state["sparse"], device)
     return out
+
+
+def train_state_to_tree(state: Mapping) -> dict:
+    """A train state ``{"step", "dense": module, "opt": {"m", "v"},
+    "sparse"}`` (the MSE example's twin, or a recsys cell's with its engine
+    state stacked [1, ...]) in the layout of the reference's state.
+    A state without ``sparse`` (a delta frame's dense part) gives a tree
+    without it."""
+    return _state_to_tree(state, params_to_tree)
+
+
+def train_state_from_tree(state: Mapping, tree: Mapping) -> dict:
+    """The inverse of ``train_state_to_tree``: the reference-layout tree of
+    numpy leaves loaded into ``state`` (its module and AdamW moments in
+    place, a new step and engine state on the same device); a cell's
+    ``load_state_tree``."""
+    return _state_from_tree(state, tree, params_from_tree)
+
+
+def lm_train_state_to_tree(state: Mapping) -> dict:
+    """An LM train cell's state ``{"step", "dense": Transformer, "opt":
+    {"m", "v"}, "sparse"}`` in the layout of the reference's: the params and
+    each moment as ``transformer_to_numpy`` stacks them. A state without
+    ``sparse`` gives a tree without it."""
+    return _state_to_tree(state, lambda model, named: _transformer_tree(named, model.cfg))
+
+
+def lm_train_state_from_tree(state: Mapping, tree: Mapping) -> dict:
+    """The inverse of ``lm_train_state_to_tree``, loaded into ``state`` as
+    ``train_state_from_tree`` loads a recsys state; the LM train cell's
+    ``load_state_tree``."""
+    return _state_from_tree(state, tree, lambda model, sub: transformer_from_numpy(sub, model.cfg))
 
 
 def transformer_from_numpy(tree: Mapping, cfg: TransformerConfig) -> dict[str, torch.Tensor]:
@@ -245,6 +283,59 @@ def transformer_from_numpy(tree: Mapping, cfg: TransformerConfig) -> dict[str, t
     out["final_norm.scale"] = torch.tensor(np.asarray(tree["final_norm"]["scale"], np.float32))
     out.update(_linear(tree["head"], "head", d, cfg.vocab_size, False))
     return out
+
+
+def _transformer_path(name: str) -> tuple[tuple[str, ...], int | None, bool]:
+    """A ``Transformer`` state-dict name → (its key path in the reference's
+    tree, its layer (stacked on axis 0) or None, whether it is stored
+    transposed). An ``nn.Linear``'s ``weight`` is the reference's ``w``
+    (d_in, d_out) and its ``bias`` ``b``; the shared experts' matrices are
+    bare arrays (``moe/shared/gate``); every other leaf keeps its name."""
+    parts, layer = name.split("."), None
+    if parts[0] == "layers":
+        layer, parts = int(parts[1]), ["layers", *parts[2:]]
+    if parts[-1] == "weight":
+        return tuple(parts[:-1] if "shared" in parts else [*parts[:-1], "w"]), layer, True
+    if parts[-1] == "bias":
+        return tuple([*parts[:-1], "b"]), layer, False
+    return tuple(parts), layer, False
+
+
+def _transformer_tree(named: Mapping[str, torch.Tensor], cfg: TransformerConfig) -> dict:
+    """Tensors keyed by ``Transformer(cfg)``'s parameter names (its state
+    dict, or AdamW moments keyed alike) → the reference's tree of float32
+    numpy arrays, every layer leaf stacked on axis 0 in layer order."""
+    stacks: dict[tuple[str, ...], list] = {}
+    tree: dict = {}
+    for name, x in named.items():
+        path, layer, transposed = _transformer_path(name)
+        a = x.detach().to("cpu", torch.float32).numpy()
+        a = a.T if transposed else a
+        if layer is None:
+            node = tree
+            for part in path[:-1]:
+                node = node.setdefault(part, {})
+            node[path[-1]] = np.array(a, order="C")  # a copy: the step updates the params in place
+        else:
+            stacks.setdefault(path, [None] * cfg.n_layers)[layer] = a
+    for path, per_layer in stacks.items():
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = out = np.empty((cfg.n_layers, *per_layer[0].shape), np.float32)
+        for i, a in enumerate(per_layer):
+            out[i] = a
+    return tree
+
+
+def transformer_to_numpy(model) -> dict:
+    """The inverse of ``transformer_from_numpy``: a ``Transformer``'s
+    params as the reference's tree ``{"layers": {... stacked on axis 0},
+    "final_norm": {"scale"}, "head": {"w"}}`` of float32 numpy arrays (the
+    dense FFN, or the MoE subtree with its ``router``, ``gate``, ``up`` and
+    ``down`` as they are and the shared experts' matrices transposed
+    back)."""
+    return _transformer_tree(model.state_dict(), model.cfg)
 
 
 def gin_from_numpy(tree: Mapping, cfg: gnn.GINConfig) -> dict[str, torch.Tensor]:

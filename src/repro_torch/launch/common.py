@@ -17,6 +17,7 @@ from repro_torch.configs.base import ArchConfig, ShapeCell
 class CellOptions:
     capacity_slack: float = 4.0   # exchange per-dest slack over U/D
     recv_slack: float = 2.0       # owner recv-unique budget over U
+    train_insert: bool = True     # lookup_or_insert vs lookup in train
     sparse_opt_lr: float = 1e-3   # SparseAdam on the embedding rows
     dense_opt_lr: float = 1e-3    # AdamW on the dense params
     # the LM train cell: each layer recomputed in the backward, all of it

@@ -5,10 +5,16 @@ device or over a ``torch.distributed`` group.
 The vocab table lives in the Embedding Engine as one ``tokens`` feature
 (pooling "values": one row per token); its rows come back through
 ``route_rows`` as the (B, T, d) token embeddings that the transformer
-takes. The train step inserts the batch's new tokens, takes the gradient of
-the next-token loss in the dense params and the fetched rows, and applies
-AdamW and SparseAdam; it returns the new state and the loss with the
-engine's metrics. A MoE arch's gradient includes its routers' aux loss;
+takes. The train step inserts the batch's new tokens (with
+``train_insert=False`` it probes with ``lookup``, inserts none and writes
+back only the rows it found), takes the gradient of the next-token loss in
+the dense params and the fetched rows, and applies AdamW and SparseAdam; it
+returns the new state and the loss with the engine's metrics. Its
+``state_tree`` is the reference's train state (the stacked-layer
+transformer, AdamW's moments alike, the engine state), so an LM run
+checkpoints and resumes across both packages
+(``convert.lm_train_state_to_tree``); the serve cells keep no state to
+save. A MoE arch's gradient includes its routers' aux loss;
 the reported loss leaves it out, as the reference's does. The options
 ``remat`` and ``remat_policy`` go onto the cell's config
 (``cell.arch.model``), ``fused_ce`` onto its loss. The prefill step
@@ -38,6 +44,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import convert
 from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.core import comm, exchange
 from repro_torch.core.embedding_engine import EmbeddingEngine, EngineConfig
@@ -105,7 +112,7 @@ def make_train_cell(arch: ArchConfig, shape: ShapeCell, opts: CellOptions,
         step = state["step"] + 1
         with torch.no_grad():
             local, rows_r, plans, met = engine.fetch_local(
-                local_view(state["sparse"]), _tokens(tokens), step, train=True)
+                local_view(state["sparse"]), _tokens(tokens), step, train=opts.train_insert)
         labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)  # wrap-around, as the reference
         rows = rows_r[gkey].requires_grad_()
         del rows_r
@@ -122,7 +129,8 @@ def make_train_cell(arch: ArchConfig, shape: ShapeCell, opts: CellOptions,
         return new_state, {"loss": loss.detach(), **met}
 
     return Cell(arch=arch, shape=shape, device=device, step_fn=train_step, init_state=init_fn,
-                make_batch=_batch_maker(cfg, B, T, device), ids_fn=_tokens, engine=engine)
+                make_batch=_batch_maker(cfg, B, T, device), ids_fn=_tokens, engine=engine,
+                state_tree=convert.lm_train_state_to_tree, load_state_tree=convert.lm_train_state_from_tree)
 
 
 def make_prefill_cell(arch: ArchConfig, shape: ShapeCell, opts: CellOptions,

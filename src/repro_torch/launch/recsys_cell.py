@@ -6,7 +6,9 @@ One fused transform pass (Feature Engine), one exchange per embedding dim
 (Embedding Engine), then the dense model. The serve step is the forward
 prefix of the training step; the training step then takes the gradient of
 the loss in the dense params and the compact rows ``rows_r``, and applies
-AdamW and SparseAdam. Blocks are updated in place, through views of the
+AdamW and SparseAdam (with ``CellOptions.train_insert=False`` the train
+step probes with ``lookup``: it inserts no id and writes back only the
+rows it found). Blocks are updated in place, through views of the
 stacked state; the IDMap is new each step. A retrieval cell scores one
 user against ``n_candidates`` item rows: two engines, one for the user's
 columns (batch 1) and one for the candidates', each sized for the whole
@@ -249,7 +251,7 @@ def build(arch: ArchConfig, shape: ShapeCell, opts: CellOptions = CellOptions(),
         with torch.no_grad():
             ids, _ = pl.prepared(batch)
             local, rows_r, plans, met = pl.engine.fetch_local(
-                local_view(state["sparse"]), ids, step, train=True)
+                local_view(state["sparse"]), ids, step, train=opts.train_insert)
             met = comm.sum_metrics(met, group)
         rows_r = {k: v.requires_grad_() for k, v in rows_r.items()}
         params = dict(state["dense"].named_parameters())

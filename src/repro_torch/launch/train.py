@@ -32,6 +32,14 @@ frames on a manifest chain: a tiered cell marks its dirty rows through its
 engine, and a chaos schedule's frame, manifest and head events fire in the
 checkpointer's ``ChaosIO``.
 
+An LM arch (``--arch qwen2.5-3b`` and the other transformers) trains its
+``train_4k`` cell at ``--batch`` x ``--seq-len``; with ``--ckpt-dir`` it
+checkpoints the reference's LM train state (the stacked-layer transformer,
+AdamW's moments alike, the token rows), so ``--resume`` goes on from
+either package's checkpoint, after an injected crash or a SIGTERM as a
+recsys run does. ``--ckpt-mode delta`` and ``--data-dir`` stay recsys
+paths, as in the reference.
+
 ``--arch gin-tu`` trains the GIN cell of ``--shape`` (default ``molecule``
 at the smoke sizes of ``smoke_shape``, the reference's) on its
 ``make_batch`` graphs; checkpoints hold its state tree (the reference's

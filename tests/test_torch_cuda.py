@@ -1569,3 +1569,52 @@ def test_gin_train_step_on_the_card_runs_its_kernels(cuda, task):
     finally:
         gnn_cell.MIXED = layers.MIXED
     assert abs(losses[0] - losses[1]) <= 1e-5
+
+
+# The 20B dense archs' attention (granite-20b: 48 query heads of dim 128 over
+# one kv head, G 48; internlm2-20b: over eight, G 6), bf16 on the
+# tensor-core kernels at T 256: forward and backward within one rounding of
+# the plain versions, each a launch.
+@pytest.mark.cuda
+@pytest.mark.parametrize("hk", [1, 8])
+def test_flash_kernels_at_the_20b_heads(cuda, monkeypatch, hk):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = _flash_inputs(1, 256, 48, hk, 128, torch.bfloat16, cuda)
+    do = _flash_inputs(1, 256, 48, hk, 128, torch.bfloat16, cuda, seed=1)[0]
+    tc = t_fa.tensor_core_launches()
+    _check_flash(q, k, v, True)
+    o, lse = t_fa.flash_fwd(q, k, v)
+    before = t_fa.BWD_LAUNCHES
+    got = t_fa.flash_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert t_fa.BWD_LAUNCHES == before + 1
+    assert t_fa.tensor_core_launches() == (tc[0] + 2, tc[1] + 1)
+    for g, w in zip(got, t_fa_ref.flash_bwd(q, k, v, o, lse, do)):
+        _close_flash(g, w)
+
+
+# The 20B dense archs' token rows: the gather and the scatters at D 6,144
+# (PAD and out-of-range ids, invalid slots), bit-equal to the plain versions.
+@pytest.mark.cuda
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_gather_and_scatters_at_d_6144(cuda, id_dtype):
+    r_rows, d, k = 3_000, 6_144, 1_000
+    g = torch.Generator().manual_seed(6_144)
+    table = torch.randn((r_rows, d), generator=g).to(cuda)
+    ids = torch.randint(-2, r_rows + 2, (k,), generator=g).to(id_dtype).to(cuda)
+    before = t_fg.LAUNCHES
+    got = t_fg.gather_rows(table, ids)
+    torch.cuda.synchronize()
+    assert t_fg.LAUNCHES == before + 1 and torch.equal(got, t_fg_ref.gather_rows(table, ids))
+    uniq = (torch.randperm(r_rows + 4, generator=g)[:k] - 2).to(id_dtype)
+    uniq[uniq == 0] = -1
+    rows = torch.randn((k, d), generator=g)
+    valid = torch.rand(k, generator=g) < 0.7
+    for op, fn, plain in (("add", t_fs.scatter_add_rows, t_fs_ref.scatter_add_rows),
+                          ("set", t_fs.scatter_set_rows, t_fs_ref.scatter_set_rows)):
+        want = plain(table.cpu(), uniq, rows, valid)
+        before = _launches()
+        fn(table, uniq.to(cuda), rows.to(cuda), valid.to(cuda))
+        torch.cuda.synchronize()
+        assert _launches()[op] == before[op] + 1
+        assert torch.equal(table.cpu(), want), op

@@ -25,6 +25,7 @@ from repro_torch.core import exchange as t_exchange
 from repro_torch.core import idmap as t_idmap
 from repro_torch.launch import recsys_cell as t_recsys
 from repro_torch.launch.cells import build_cell as t_build_cell
+from repro_torch.launch.common import CellOptions as TOpts
 from repro_torch.models import layers as t_layers
 from repro_torch.models.recsys import dlrm as t_dlrm
 
@@ -205,16 +206,17 @@ def test_fp32_dlrm_loss_and_gradients_agree():
 
 # --------------------------------------------------------------- whole step
 
-def _run_steps() -> list[dict]:
+def _run_steps(insert: bool = True) -> list[dict]:
     """Both smoke train cells from one converted state (engine rows with
     nonzero moments, every 7th id of the batches left out so it is
-    inserted; the reference's dense params and AdamW state), then three
-    steps each on the same batches."""
+    inserted, or with ``insert`` False looked up and missed: both cells'
+    ``train_insert``; the reference's dense params and AdamW state), then
+    three steps each on the same batches."""
     mesh = make_test_mesh()
     shape = {"batch": BATCH}
-    jcell = j_build_cell("dlrm-mlperf", "train_batch", mesh, JOpts(remat=False, zero1=False),
+    jcell = j_build_cell("dlrm-mlperf", "train_batch", mesh, JOpts(remat=False, zero1=False, train_insert=insert),
                          smoke=True, shape_override=JShape("train_batch", "train", shape))
-    tcell = t_build_cell("dlrm-mlperf", "train_batch", smoke=True, device="cpu",
+    tcell = t_build_cell("dlrm-mlperf", "train_batch", TOpts(train_insert=insert), smoke=True, device="cpu",
                          shape_override=TShape("train_batch", "train", shape))
     eng = np.concatenate([np.asarray(jcell.engine.engine_ids(jcell.ids_fn(jcell.make_batch(s)))["dim16"])
                           for s in range(STEPS)])
